@@ -61,6 +61,7 @@ def pytest_collection_modifyitems(config, items):
     for item in items:
         mod = item.module.__name__.rsplit(".", 1)[-1]
         quick = mod in _QUICK_MODULES and item.name not in _QUICK_EXCEPT
+        quick = quick or mod.startswith("test_torch_port_")
         item.add_marker("quick" if quick else "slow")
 
 

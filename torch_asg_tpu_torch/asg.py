@@ -1,0 +1,233 @@
+"""ASG criterion front-end: ``asg_scores`` and the forward of ``asg_loss``.
+
+Loss per batch element:  L_b = S_full(b) - S_aligned(b)  (>= 0), where
+S_full is the fully-connected (denominator) log-partition score and
+S_aligned the force-aligned (numerator) score.
+
+Tiers (``impl``):
+  * ``'fused'`` / ``'auto'``: both beta chains in one pass
+    (``ops/kernels/asg_kernels.py``): the hand-written kernel on CUDA
+    tensors, its plain version on CPU tensors.  Exp-domain FCC chain.
+  * ``'scan'``: the log-domain scan oracle (``ops/fcc.py``, ``ops/fac.py``),
+    exact for any finite transition magnitudes.
+  * ``'pallas'`` and ``'matmul'`` are not ported yet and raise
+    ``NotImplementedError``.
+
+This slice is forward only: a call that autograd would have to
+differentiate raises ``NotImplementedError`` rather than return a loss
+without a gradient.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .ops.fac import fac_score
+from .ops.fcc import fcc_score
+from .ops.kernels.asg_kernels import asg_scores_fused
+from .utils.lengths import default_lengths
+
+REDUCTIONS = ("mean", "sum", "none")
+IMPLS = ("scan", "pallas", "fused", "matmul", "auto")
+
+# Exp-domain safety bound (nats) on the finite transition spread
+# max(finite T) - min(finite T).  The fused tier scales its FCC chain by
+# exp(T - max T); past the fp32 exp range scores silently go -inf.  -inf
+# entries are exempt: they are the semiring zero and fully supported.
+_EXP_SPREAD_LIMIT = 60.0
+
+# Widest label / target width the fused tier takes (the JAX package's VMEM
+# budget, kept so both packages accept the same shapes).
+_FUSED_MAX_WIDTH = 512
+
+
+def _prep(inputs, targets, input_lengths, target_lengths):
+    t_total, num_batches, _ = inputs.shape
+    s_total = targets.shape[1]
+    dev = inputs.device
+    # half-precision emissions are upcast at the criterion boundary: the
+    # lattice recursions accumulate over T steps
+    if inputs.dtype in (torch.bfloat16, torch.float16):
+        inputs = inputs.float()
+    if target_lengths is None:
+        target_lengths = default_lengths(num_batches, s_total, dev)
+    if input_lengths is None:
+        input_lengths = default_lengths(num_batches, t_total, dev)
+    targets = targets.to(dev)
+    input_lengths = input_lengths.to(dev)
+    target_lengths = target_lengths.to(dev)
+    # targets longer than the input can never be aligned: clamp the padded S
+    if s_total > t_total:
+        targets = targets[:, :t_total]
+        target_lengths = torch.clamp(target_lengths, max=t_total)
+    return inputs, targets, input_lengths, target_lengths
+
+
+def _reduce(result: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "sum":
+        return result.sum()
+    if reduction == "mean":
+        return result.mean()
+    if reduction == "none":
+        return result
+    raise ValueError(f"unknown reduction {reduction!r}; expected one of {REDUCTIONS}")
+
+
+def _spread_guard(transition: torch.Tensor, impl: str, temperature: float, validate) -> str:
+    """Check the exp-domain precondition on the host; returns the impl to run.
+
+    'auto' with a finite spread past the bound routes to the log-domain
+    'scan' tier; an explicit exp-domain tier raises under ``validate=True``
+    and reroutes under ``validate='reroute'``; a falsy ``validate`` skips the
+    check.  Cost: one (N, N) reduction and one host sync per call.
+    """
+    if not validate:
+        return impl
+    if validate not in (True, "reroute"):
+        raise ValueError(
+            f"validate must be True, False, or 'reroute'; got {validate!r}"
+        )
+    if impl == "scan":
+        return impl
+    # temperature divides the transition before the chains run
+    limit = _EXP_SPREAD_LIMIT * temperature
+    finite = torch.isfinite(transition)
+    hi = torch.where(finite, transition, float("-inf")).amax()
+    lo = torch.where(finite, transition, float("inf")).amin()
+    hi, lo = torch.stack([hi, lo]).tolist()
+    spread = hi - lo if lo <= hi else 0.0
+    if spread > limit:
+        if impl == "auto" or validate == "reroute":
+            return "scan"
+        raise ValueError(
+            f"impl={impl!r} runs exp-domain chains whose finite "
+            f"transition spread must stay within {limit:.0f} nats "
+            f"(fp32 exp range); got spread={spread:.1f}.  Use -inf for "
+            f"forbidden transitions (fully supported), impl='scan' "
+            f"(log-domain, any finite magnitude), validate='reroute' "
+            f"(silent fallback to the log-domain tier), or "
+            f"validate=False to override."
+        )
+    return impl
+
+
+def _scores_scan(transition, inputs, targets, li, lo):
+    return (
+        fcc_score(transition, inputs, li),
+        fac_score(transition, inputs, targets, li, lo),
+    )
+
+
+def _resolve_impl(impl: str, num_labels: int = 0, s_total: int = 0):
+    """Returns scores_fn(transition, inputs, targets, li, lo) -> (full, aligned)."""
+    if max(num_labels, s_total) > _FUSED_MAX_WIDTH:
+        if impl == "auto":
+            impl = "matmul"
+        elif impl in ("fused", "pallas"):
+            raise ValueError(
+                f"impl={impl!r} supports max(num_labels, s_total) <= "
+                f"{_FUSED_MAX_WIDTH}; got num_labels={num_labels}, "
+                f"s_total={s_total}.  Large vocabularies need impl='matmul', "
+                f"which is not ported yet."
+            )
+    if impl == "matmul":
+        raise NotImplementedError(
+            "impl='matmul' (the big-vocabulary tier) is not ported yet: "
+            "ROADMAP.md Queue 1 item 6."
+        )
+    if impl == "pallas":
+        raise NotImplementedError(
+            "impl='pallas' (the per-lattice kernel tier) is not ported yet: "
+            "ROADMAP.md Queue 1 item 5."
+        )
+    if impl == "scan":
+        return _scores_scan
+    if impl in ("fused", "auto"):
+        return asg_scores_fused
+    raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+
+
+def _refuse_grad(*tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "ASG gradients land with the training slice (ROADMAP.md Queue 1 "
+            "item 4); call under torch.no_grad() or on tensors that do not "
+            "require grad."
+        )
+
+
+def _scores(transition, inputs, targets, input_lengths, target_lengths,
+            impl, temperature, validate):
+    inputs, targets, input_lengths, target_lengths = _prep(
+        inputs, targets, input_lengths, target_lengths
+    )
+    dt = torch.promote_types(inputs.dtype, transition.dtype)
+    inputs = inputs.to(dt)
+    transition = transition.to(device=inputs.device, dtype=dt)
+    if temperature <= 0.0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    impl = _spread_guard(transition, impl, temperature, validate)
+    scores_fn = _resolve_impl(impl, inputs.shape[2], targets.shape[1])
+    if temperature != 1.0:
+        inv = 1.0 / temperature
+        transition = transition * inv
+        inputs = inputs * inv
+    return scores_fn(transition, inputs, targets, input_lengths, target_lengths)
+
+
+def asg_loss(
+    transition: torch.Tensor,
+    inputs: torch.Tensor,
+    targets: torch.Tensor,
+    input_lengths: Optional[torch.Tensor] = None,
+    target_lengths: Optional[torch.Tensor] = None,
+    *,
+    reduction: str = "mean",
+    impl: str = "auto",
+    temperature: float = 1.0,
+    validate=True,
+) -> torch.Tensor:
+    """ASG loss, forward only.
+
+    Args:
+      transition: (N, N); ``transition[i, j]`` scores a move from label j to i.
+      inputs: (T, B, N) emission scores.  targets: (B, S) int labels.
+      input_lengths / target_lengths: (B,) ints; default = full length.
+      reduction: 'mean' | 'sum' | 'none'.
+      impl: 'auto' | 'fused' | 'scan' (see the module docstring).
+      temperature: generalized-semiring temperature tau:
+        loss_tau = tau * loss(T / tau, I / tau).
+      validate: True | 'reroute' | False; the host-side spread check of
+        ``_spread_guard``.
+    """
+    _refuse_grad(transition, inputs)
+    full, aligned = _scores(transition, inputs, targets, input_lengths,
+                            target_lengths, impl, temperature, validate)
+    out = full - aligned
+    if temperature != 1.0:
+        out = out * temperature
+    return _reduce(out, reduction)
+
+
+def asg_scores(
+    transition: torch.Tensor,
+    inputs: torch.Tensor,
+    targets: torch.Tensor,
+    input_lengths: Optional[torch.Tensor] = None,
+    target_lengths: Optional[torch.Tensor] = None,
+    *,
+    impl: str = "auto",
+    temperature: float = 1.0,
+    validate=True,
+):
+    """(full_scores, aligned_scores) per batch element, shape (B,) each;
+    arguments as in ``asg_loss``."""
+    _refuse_grad(transition, inputs)
+    full, aligned = _scores(transition, inputs, targets, input_lengths,
+                            target_lengths, impl, temperature, validate)
+    if temperature != 1.0:
+        full = full * temperature
+        aligned = aligned * temperature
+    return full, aligned

@@ -1,0 +1,197 @@
+// 1-best Viterbi decoding in the tropical (max) semiring: the forward pass
+// with backpointers (kernel K10) and the backtrace (kernel K11).
+//
+// Replaces: torch_asg_tpu/ops/pallas/viterbi_kernels.py::_vit_kernel
+// (launched by viterbi_forward_pallas) and ::_bt_kernel (launched by
+// viterbi_backtrace_pallas).  Their outputs are the contract; the TPU
+// rotation trick with its duplicated-lane carry does not carry over.
+//
+// K10, for element b with L = L_in[b], emissions masked to -inf at t >= L:
+//   d_0 = I_0, backptr[0][i] = i (identity row, never read by the backtrace);
+//   for t >= 1: best_i = max_j T[i,j] + d_{t-1}[j], backptr[t][i] = the
+//   lowest j reaching it (strict > over ascending j), d_t = I_t + best;
+//   d_end = d_{L-1} (-inf when L is outside [1, T]).
+//   Max-plus is exact, so scores and backpointers are bit-identical to the
+//   plain PyTorch version.
+// K11: path[t] = final at t = L-1, backptr[t+1][path[t+1]] before it, -1
+//   after it (and at t = T-1 unless L = T).
+//
+// What bounds them on an H100: the serial chains.  K10 takes T dependent
+// steps of an N x N max-plus product (no tensor-core form); K11 takes T
+// dependent lookups.  Bytes and operations are far below what the card does
+// in that time.  The design:
+//   - K10: one block per element, one thread per destination label; the
+//     transposed transition sits in shared memory when it fits (thread i
+//     reads column i, conflict-free), the carry d in shared memory, and the
+//     next emission row is loaded before the step's max-plus loop so its
+//     latency overlaps it.  Two barriers a step.
+//   - K11: one block per element; the block copies a chunk of backpointer
+//     rows into shared memory with coalesced loads, then one thread walks
+//     the chunk, so each dependent lookup costs a shared-memory read and not
+//     a global-memory round trip.
+
+#include <cmath>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr size_t kSmemLimit = 227 * 1024;
+
+template <typename T>
+__device__ __forceinline__ T neg_inf() { return static_cast<T>(-INFINITY); }
+
+template <typename T>
+__global__ void viterbi_forward_kernel(
+    const T* __restrict__ tt_glob,  // (N, N) transposed transition, tt[j*N + i] = T[i, j]
+    const T* __restrict__ em,       // (T, B, N) emissions
+    const int* __restrict__ li,     // (B,)
+    int* __restrict__ bp,           // (T, B, N) backpointers
+    T* __restrict__ dend,           // (B, N) end rows
+    int t_total, int batch, int n, int tt_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* d_s = reinterpret_cast<T*>(smem_raw);
+  T* tt_sm = d_s + n;
+
+  const int b = blockIdx.x;
+  const int i = threadIdx.x;
+  const int L = li[b];
+  const bool lab = i < n;
+
+  const T* tt = tt_glob;
+  if (tt_in_smem) {
+    for (int idx = i; idx < n * n; idx += blockDim.x) tt_sm[idx] = tt_glob[idx];
+    tt = tt_sm;
+  }
+
+  T e = (lab && 0 < L) ? em[(size_t)b * n + i] : neg_inf<T>();
+  if (lab) {
+    d_s[i] = e;
+    bp[(size_t)b * n + i] = i;
+    dend[(size_t)b * n + i] = (L - 1 == 0) ? e : neg_inf<T>();
+  }
+  __syncthreads();
+
+  for (int t = 1; t < t_total; ++t) {
+    const size_t row = (size_t)t * batch + b;
+    e = (lab && t < L) ? em[row * n + i] : neg_inf<T>();
+    T d_new = neg_inf<T>();
+    if (lab) {
+      T best = tt[i] + d_s[0];
+      int arg = 0;
+      for (int j = 1; j < n; ++j) {
+        const T c = tt[(size_t)j * n + i] + d_s[j];
+        if (c > best) {
+          best = c;
+          arg = j;
+        }
+      }
+      bp[row * n + i] = arg;
+      d_new = e + best;
+    }
+    __syncthreads();
+    if (lab) {
+      d_s[i] = d_new;
+      if (t == L - 1) dend[(size_t)b * n + i] = d_new;
+    }
+    __syncthreads();
+  }
+}
+
+// Shared memory: rows[tc * N] (backpointer rows of frames t0+1 .. t0+tc),
+// out[tc] (the chunk's path).
+__global__ void viterbi_backtrace_kernel(
+    const int* __restrict__ bp,     // (T, B, N)
+    const int* __restrict__ fin,    // (B,) final labels
+    const int* __restrict__ li,     // (B,)
+    int* __restrict__ path,         // (T, B)
+    int t_total, int batch, int n, int tc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* rows = reinterpret_cast<int*>(smem_raw);
+  int* out = rows + (size_t)tc * n;
+
+  const int b = blockIdx.x;
+  const int L = li[b];
+  const int f = fin[b];
+  const int final_lab = f < 0 ? 0 : (f >= n ? n - 1 : f);
+  int lab = -1;  // thread 0's walk state: the label at frame t+1
+
+  for (int t1 = t_total; t1 > 0; t1 -= tc) {
+    const int t0 = t1 > tc ? t1 - tc : 0;
+    // frames t that follow a backpointer: t < L-1 and t+1 < T
+    int hi = t1;
+    if (hi > L - 1) hi = L - 1;
+    if (hi > t_total - 1) hi = t_total - 1;
+    const int cnt = hi - t0;
+    for (int idx = threadIdx.x; idx < cnt * n; idx += blockDim.x) {
+      const int r = idx / n, c = idx - r * n;
+      rows[idx] = bp[((size_t)(t0 + r + 1) * batch + b) * n + c];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int t = t1 - 1; t >= t0; --t) {
+        if (t == L - 1) {
+          lab = final_lab;
+        } else if (t < L - 1 && t < t_total - 1) {
+          const int from = lab < 0 ? 0 : lab;
+          lab = rows[(size_t)(t - t0) * n + from];
+        } else {
+          lab = -1;
+        }
+        out[t - t0] = lab;
+      }
+    }
+    __syncthreads();
+    for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x)
+      path[(size_t)t * batch + b] = out[t - t0];
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_forward(const T* tt, const T* em, const int* li, int* bp, T* dend,
+                   int t_total, int batch, int n, void* stream) {
+  const int threads = ((n + 31) / 32) * 32;
+  if (threads > 1024) return (int)cudaErrorInvalidValue;
+  const size_t base = sizeof(T) * (size_t)n;
+  const size_t tt_bytes = sizeof(T) * (size_t)n * n;
+  const int tt_in_smem = base + tt_bytes <= kSmemLimit;
+  const size_t smem = base + (tt_in_smem ? tt_bytes : 0);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        viterbi_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  viterbi_forward_kernel<T><<<batch, threads, smem, (cudaStream_t)stream>>>(
+      tt, em, li, bp, dend, t_total, batch, n, tt_in_smem);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int viterbi_forward_f32(const float* tt, const float* em, const int* li,
+                        int* bp, float* dend, int t_total, int batch, int n,
+                        void* stream) {
+  return launch_forward<float>(tt, em, li, bp, dend, t_total, batch, n, stream);
+}
+
+int viterbi_forward_f64(const double* tt, const double* em, const int* li,
+                        int* bp, double* dend, int t_total, int batch, int n,
+                        void* stream) {
+  return launch_forward<double>(tt, em, li, bp, dend, t_total, batch, n, stream);
+}
+
+int viterbi_backtrace(const int* bp, const int* fin, const int* li, int* path,
+                      int t_total, int batch, int n, void* stream) {
+  int tc = 8192 / (n > 0 ? n : 1);
+  if (tc > 256) tc = 256;
+  if (tc < 1) tc = 1;
+  const size_t smem = sizeof(int) * ((size_t)tc * n + tc);
+  viterbi_backtrace_kernel<<<batch, 128, smem, (cudaStream_t)stream>>>(
+      bp, fin, li, path, t_total, batch, n, tc);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
