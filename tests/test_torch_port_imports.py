@@ -17,6 +17,7 @@ import torch_asg_tpu_torch
 import torch_asg_tpu_torch.asg, torch_asg_tpu_torch.convert
 import torch_asg_tpu_torch.models, torch_asg_tpu_torch.runtime
 import torch_asg_tpu_torch.ops.viterbi, torch_asg_tpu_torch.ops.kernels._build
+import torch_asg_tpu_torch.models.train, torch_asg_tpu_torch.ops.kernels.asg_kernels
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'torch_asg_tpu'))
 print(bad)

@@ -177,18 +177,6 @@ def test_spread_guard():
                 validate=False)
 
 
-def test_loss_refuses_gradients():
-    trans, inputs, targets, li, lo = _torch(*_case(11, 6, 2, 3, 5))
-    inputs.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pt.asg_loss(trans, inputs, targets, li, lo)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pt.asg_scores(trans, inputs, targets, li, lo)
-    with torch.no_grad():
-        loss = pt.asg_loss(trans, inputs, targets, li, lo)
-    assert torch.isfinite(loss)
-
-
 def test_impl_contract():
     trans, inputs, targets, li, lo = _torch(*_case(12, 6, 2, 3, 5))
     for impl, err in (("pallas", NotImplementedError), ("matmul", NotImplementedError),

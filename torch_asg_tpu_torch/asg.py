@@ -1,21 +1,21 @@
-"""ASG criterion front-end: ``asg_scores`` and the forward of ``asg_loss``.
+"""ASG criterion front-end: ``asg_scores``, ``asg_loss`` and ``ASGLoss``.
 
 Loss per batch element:  L_b = S_full(b) - S_aligned(b)  (>= 0), where
 S_full is the fully-connected (denominator) log-partition score and
 S_aligned the force-aligned (numerator) score.
 
 Tiers (``impl``):
-  * ``'fused'`` / ``'auto'``: both beta chains in one pass
-    (``ops/kernels/asg_kernels.py``): the hand-written kernel on CUDA
-    tensors, its plain version on CPU tensors.  Exp-domain FCC chain.
+  * ``'fused'`` / ``'auto'``: both beta chains in one pass and, under
+    autograd, both alpha chains and every gradient in a second
+    (``ops/kernels/asg_kernels.py``): the hand-written kernels on CUDA
+    tensors, their plain versions on CPU tensors.  Exp-domain FCC chains.
   * ``'scan'``: the log-domain scan oracle (``ops/fcc.py``, ``ops/fac.py``),
     exact for any finite transition magnitudes.
   * ``'pallas'`` and ``'matmul'`` are not ported yet and raise
     ``NotImplementedError``.
 
-This slice is forward only: a call that autograd would have to
-differentiate raises ``NotImplementedError`` rather than return a loss
-without a gradient.
+Every tier is differentiable in ``transition`` and ``inputs``; a call that
+autograd will not differentiate computes the scores alone.
 """
 
 from __future__ import annotations
@@ -23,10 +23,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
 from .ops.fac import fac_score
 from .ops.fcc import fcc_score
 from .ops.kernels.asg_kernels import asg_scores_fused
+from .ops.kernels.common import DEFAULT_DEVICE
 from .utils.lengths import default_lengths
 
 REDUCTIONS = ("mean", "sum", "none")
@@ -149,15 +151,6 @@ def _resolve_impl(impl: str, num_labels: int = 0, s_total: int = 0):
     raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
 
 
-def _refuse_grad(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ASG gradients land with the training slice (ROADMAP.md Queue 1 "
-            "item 4); call under torch.no_grad() or on tensors that do not "
-            "require grad."
-        )
-
-
 def _scores(transition, inputs, targets, input_lengths, target_lengths,
             impl, temperature, validate):
     inputs, targets, input_lengths, target_lengths = _prep(
@@ -189,7 +182,7 @@ def asg_loss(
     temperature: float = 1.0,
     validate=True,
 ) -> torch.Tensor:
-    """ASG loss, forward only.
+    """ASG loss; differentiable in ``transition`` and ``inputs``.
 
     Args:
       transition: (N, N); ``transition[i, j]`` scores a move from label j to i.
@@ -202,7 +195,6 @@ def asg_loss(
       validate: True | 'reroute' | False; the host-side spread check of
         ``_spread_guard``.
     """
-    _refuse_grad(transition, inputs)
     full, aligned = _scores(transition, inputs, targets, input_lengths,
                             target_lengths, impl, temperature, validate)
     out = full - aligned
@@ -224,10 +216,46 @@ def asg_scores(
 ):
     """(full_scores, aligned_scores) per batch element, shape (B,) each;
     arguments as in ``asg_loss``."""
-    _refuse_grad(transition, inputs)
     full, aligned = _scores(transition, inputs, targets, input_lengths,
                             target_lengths, impl, temperature, validate)
     if temperature != 1.0:
         full = full * temperature
         aligned = aligned * temperature
     return full, aligned
+
+
+class ASGLoss(nn.Module):
+    """Module front-end holding the learned transition matrix, an
+    ``nn.Parameter`` initialised to zeros.
+
+    ``loss = ASGLoss(num_labels)``; ``loss(inputs, targets, ...)`` computes
+    the loss with the module's settings (see ``asg_loss``).  With
+    ``forward_only=True`` the transition and the inputs are detached, so the
+    call runs the score-only path and keeps no residuals even where autograd
+    is recording.
+    """
+
+    def __init__(self, num_labels: int, reduction: str = "mean",
+                 forward_only: bool = False, impl: str = "auto",
+                 temperature: float = 1.0, validate=True,
+                 device=DEFAULT_DEVICE, dtype=torch.float32):
+        super().__init__()
+        if reduction not in REDUCTIONS:
+            raise ValueError(f"unknown reduction {reduction!r}")
+        self.num_labels = num_labels
+        self.reduction = reduction
+        self.forward_only = forward_only
+        self.impl = impl
+        self.temperature = temperature
+        self.validate = validate
+        self.transition = nn.Parameter(
+            torch.zeros((num_labels, num_labels), device=device, dtype=dtype))
+
+    def forward(self, inputs, targets, input_lengths=None, target_lengths=None):
+        transition = self.transition
+        if self.forward_only:
+            transition = transition.detach()
+            inputs = inputs.detach()
+        return asg_loss(transition, inputs, targets, input_lengths, target_lengths,
+                        reduction=self.reduction, impl=self.impl,
+                        temperature=self.temperature, validate=self.validate)

@@ -7,6 +7,14 @@ Flax ``Conv`` kernels are (K, Cin, Cout) and become ``Conv1d.weight``
 biases copy.  Flax names the blocks ``ConvBlock_0 .. ConvBlock_{depth+1}``
 in order, which are ``blocks.0 ..`` here, and the projection ``Dense_0``,
 which is ``proj`` here.
+
+A JAX ``models.train.TrainState`` carries over the same way: its
+``params['encoder']`` is the Flax parameter tree above, for
+``model.load_state_dict(wav2letter_from_flax(...))``, and its
+``params['transition']`` becomes the port's ``TrainState.transition``
+through ``state.transition.data.copy_(transition_from_numpy(...))``.  The
+optax moments and the step count are not carried: a port ``TrainState``
+starts its AdamW state afresh.
 """
 
 from __future__ import annotations

@@ -6,6 +6,11 @@ Viterbi decoder consume.  The public layout is the JAX package's:
 features (B, T, F) in, emissions (T', B, N) out; inside, the convolutions
 run channels-first as ``nn.Conv1d`` wants.
 
+Dropout, when ``dropout > 0``, fires only in calls with ``train=True``, as
+the Flax model's ``deterministic=not train`` does (the module's own
+train/eval mode does not switch it), and draws its masks from the
+``generator`` given, so a trainer controls the random stream.
+
 Padding is the Flax "SAME" rule: output length ceil(L / stride), with
 ``total = max((ceil(L/s) - 1) * s + k - L, 0)`` padded ``total // 2`` on the
 left and the rest on the right.  That split is asymmetric when ``total`` is
@@ -29,6 +34,13 @@ def same_padding(length: int, kernel: int, stride: int) -> tuple:
     return total // 2, total - total // 2
 
 
+def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """Inverted dropout: zero each element with probability ``rate`` and
+    scale the rest by 1 / (1 - rate); masks come from ``generator``."""
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
+
+
 class ConvBlock(nn.Module):
     """SAME-padded Conv1d + ReLU (+ dropout when training)."""
 
@@ -37,13 +49,16 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = nn.Conv1d(in_channels, features, kernel, stride=stride,
                               padding=0, device=device, dtype=dtype)
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else nn.Identity()
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator=None) -> torch.Tensor:
         """x: (B, C, T) -> (B, features, ceil(T / stride))."""
         pads = same_padding(x.shape[-1], self.conv.kernel_size[0], self.conv.stride[0])
-        x = F.pad(x, pads)
-        return self.dropout(F.relu(self.conv(x)))
+        x = F.relu(self.conv(F.pad(x, pads)))
+        if train and self.dropout > 0.0:
+            x = dropout(x, self.dropout, generator)
+        return x
 
 
 class Wav2Letter(nn.Module):
@@ -60,6 +75,8 @@ class Wav2Letter(nn.Module):
                  kernel: int = 7, dropout: float = 0.0,
                  device=DEFAULT_DEVICE, dtype=None):
         super().__init__()
+        self.num_labels = num_labels
+        self.dropout = dropout
         self.frontend_stride = frontend_stride
         kw = dict(dropout=dropout, device=device, dtype=dtype)
         blocks = [ConvBlock(in_features, channels, frontend_kernel,
@@ -71,10 +88,13 @@ class Wav2Letter(nn.Module):
         # final 1x1 projection to label scores
         self.proj = nn.Linear(head_channels, num_labels, device=device, dtype=dtype)
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
+    def forward(self, features: torch.Tensor, train: bool = False,
+                generator=None) -> torch.Tensor:
+        """features (B, T, F) -> emissions (T', B, N); ``train`` turns
+        dropout on, with masks drawn from ``generator``."""
         x = features.transpose(1, 2)  # (B, F, T)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, train, generator)
         x = self.proj(x.transpose(1, 2))  # (B, T', N)
         return x.transpose(0, 1)  # (T', B, N) for the criterion
 

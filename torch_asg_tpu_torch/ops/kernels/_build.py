@@ -23,7 +23,7 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD = _HERE / "build"
-SOURCES = ("asg_fwd", "viterbi")
+SOURCES = ("asg_fwd", "asg_bwd", "viterbi")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

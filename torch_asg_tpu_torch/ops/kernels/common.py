@@ -33,6 +33,12 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {device}")
 
 
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd will ask for a gradient of any of ``tensors``:
+    grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     """Raise unless ``t`` has exactly the dtype, shape and device a kernel
     takes, and is contiguous."""

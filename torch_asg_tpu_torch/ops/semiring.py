@@ -34,3 +34,13 @@ def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(
         finite, torch.log(torch.where(s > 0, s, torch.ones_like(s))) + m_safe, m
     )
+
+
+def masked_softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """softmax along ``dim`` where all--inf rows give zeros, not NaN
+    (exp(-inf) / 0 is defined as 0)."""
+    m = torch.amax(x, dim=dim, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(x - m_safe)
+    s = torch.sum(e, dim=dim, keepdim=True)
+    return e / torch.where(s == 0.0, torch.ones_like(s), s)

@@ -1,5 +1,5 @@
 """Host-side runtime helpers."""
 
-from .host import collapse_path
+from .host import cmvn, collapse_path, encode_labels_np, encode_targets, pack_frames
 
-__all__ = ["collapse_path"]
+__all__ = ["cmvn", "collapse_path", "encode_labels_np", "encode_targets", "pack_frames"]
