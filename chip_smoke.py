@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card, and
-check and time each hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch port's serving, training, wordpiece-training and
+forced-alignment paths on one CUDA card, and check and time each
+hand-written kernel against its plain PyTorch version.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit:
@@ -10,11 +11,18 @@ the CUDA toolkit:
 Phases, each printed as one JSON line; any failure raises, so the exit code
 is nonzero:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``;
+  2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``,
+     one process per source, all at once;
   3. kernels: each kernel against its plain version on the card, at the
      serving and training shape B=64, T=1000, N=30, S=50 with ragged
      lengths, plus small fp64, degenerate-length and wide-label cases; times
-     are medians of CUDA-event timings.  K2 must give the same bits twice;
+     are medians of CUDA-event timings.  K2 must give the same bits twice.
+     K9 (the matmul tier's dual-stream kernel) at the wordpiece shape T=100,
+     B=8, N=10,000 (fp32, ragged lengths) and at small fp64 shapes; twice
+     with the same bits; and against the two matmul-tier scans, the
+     formulation it replaces, which are timed beside it.  K12 and K13 (forced
+     alignment) bit-identical to their plain versions at the serving shape,
+     at S=512, on ties and at fp64;
   4. grads: the fused tier's gradients (K1 with stores -> K2 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
      training shape;
@@ -32,7 +40,18 @@ is nonzero:
      first step's gradients must agree with the scan tier's, and the loss
      must fall.  One more step, synchronised after each stage, and the
      criterion's forward+backward alone show where the time goes;
-  7. the kernel table, the nvidia-smi line, and last the result line.
+  7. train_wordpiece: the full-width Wav2Letter with a 10,000-wordpiece head
+     takes one warm-up step and 5 timed steps on a batch of 8 utterances
+     (150-200 feature frames, 5-10 wordpiece targets), so 'auto' runs the
+     matmul tier.  Each step must launch K9 once and K1, K1s and K2 never; a
+     forward-only asg_scores call must launch no K9; the first step's
+     gradients must agree with the two scans', and the loss must fall;
+  8. align: the full-width letter model answers 3 alignment requests of 64
+     utterances after a warm-up: encoder -> viterbi_align ->
+     alignment_segments.  K12 and K13 must launch once a request, positions
+     must equal the 'xla' tier's, and the spans must partition each
+     utterance;
+  9. the kernel table, the nvidia-smi line, and last the result line.
 
 Precision: float32 matrix products and convolutions run in full float32
 (TF32 off for both cuBLAS and cuDNN).  Exits nonzero, printing no result,
@@ -336,6 +355,160 @@ def check_k1s_k2(rng, dev):
     return k1s, k2
 
 
+# The wordpiece shape (bench.py's 10k row): T=100 frames, B=8, N=10,000.
+WP_T, WP_B, WP_N, WP_S = 100, 8, 10_000, 10
+# K9: fp32 bounds cover 99 paired steps of 10,000-term sums taken in another
+# order (K1's tolerance for a long serial chain); fp64 is the same
+# arithmetic to rounding.
+K9_TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-4, 1e-3)}
+
+
+def k9_case(rng, dev, dtype, t, b, n, lengths=None, scale=1.0, neg_inf=False):
+    """(transition, masked emissions, input lengths) for K9; lengths None
+    draws them in [1, T] with the first at T."""
+    from torch_asg_tpu_torch.utils.lengths import mask_emissions
+
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    trans = rng.standard_normal((n, n), dtype=np_dt) * np_dt(scale)
+    if neg_inf:
+        trans[:, 3] = -np.inf
+        trans[5, :] = -np.inf
+    inputs = rng.standard_normal((t, b, n), dtype=np_dt)
+    if lengths is None:
+        lengths = rng.integers(1, t + 1, size=b)
+        lengths[0] = t
+    li = torch.as_tensor(np.asarray(lengths), dtype=torch.int32, device=dev)
+    trans, inputs = (torch.as_tensor(x, device=dev) for x in (trans, inputs))
+    return trans, mask_emissions(inputs, li), li
+
+
+def check_k9(rng, dev):
+    """K9 against its plain version: fp64 at small shapes (N past a tile's
+    512 columns, T = 1 and 2, -inf transitions, more than 8 elements) and
+    fp32 at the wordpiece shape, where it must also give the same bits
+    twice and agree with the two matmul-tier scans."""
+    from torch_asg_tpu_torch.ops import fcc
+    from torch_asg_tpu_torch.ops.kernels import bigvocab_kernels as bk
+
+    f64, f32 = torch.float64, torch.float32
+    wp_li = rng.integers(WP_T // 2, WP_T + 1, size=WP_B)
+    wp_li[0] = WP_T
+    cases = (
+        ("fp64_n130", f64, (6, 3, 130), None, False),
+        ("fp64_n260", f64, (9, 2, 260), None, False),
+        ("fp64_n600_b9", f64, (5, 9, 600), None, False),
+        ("fp64_t1", f64, (1, 3, 140), [1, 1, 1], False),
+        ("fp64_t2", f64, (2, 1, 128), [2], False),
+        ("fp64_neg_inf_row_col", f64, (7, 2, 150), None, True),
+        ("fp32_wordpiece", f32, (WP_T, WP_B, WP_N), wp_li, False),
+    )
+    errs = {}
+    for name, dtype, (t, b, n), lengths, neg_inf in cases:
+        scale = 0.1 if name == "fp32_wordpiece" else 1.0  # bench.py's 10k transition
+        args = k9_case(rng, dev, dtype, t, b, n, lengths, scale, neg_inf)
+        got = bk.fcc_dual_streams(*args)
+        want = bk.fcc_dual_streams_plain(*args)
+        torch.cuda.synchronize()
+        rtol, atol = K9_TOL[dtype]
+        for label, g, w in zip(("alpha", "beta"), got, want):
+            check(not bool(torch.isnan(g).any()), f"K9 {name} {label}: NaN")
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"K9 {name} {label}: {m}")
+        errs[name] = max(max_err(g, w) for g, w in zip(got, want))
+    again = bk.fcc_dual_streams(*args)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)), "K9: two runs differ")
+    trans, xm, li = args
+
+    def scans():
+        return fcc._alpha_scan_mm(trans, xm), fcc._beta_scan_mm(trans, xm, li)
+
+    ref = scans()
+    for label, g, w in zip(("alpha", "beta"), got, ref):
+        torch.testing.assert_close(g, w, rtol=K9_TOL[f32][0], atol=K9_TOL[f32][1],
+                                   msg=lambda m: f"K9 vs the scans {label}: {m}")
+    err_scans = max(max_err(g, w) for g, w in zip(got, ref))
+    w = 4  # float32 bytes
+    io_bytes = (WP_T * WP_B * WP_N + WP_B) * w + 2 * WP_T * WP_B * WP_N * w
+    ops = (WP_T - 1) * 4 * WP_B * WP_N * WP_N
+    bound_ms, bound_by = bound(io_bytes + WP_N * WP_N * w, ops)
+    # E read once per paired step: it cannot stay on the chip (N^2 = 400 MB)
+    e_per_step_ms, _ = bound(io_bytes + WP_T * WP_B * WP_N * w
+                             + (WP_T - 1) * WP_N * WP_N * w, ops)
+    rtol, atol = K9_TOL[f32]
+    return {
+        "name": "fcc_dual_streams (K9)", "max_abs_err": errs["fp32_wordpiece"],
+        "max_abs_err_by_case": errs, "max_abs_err_vs_matmul_scans": err_scans,
+        "tolerance": (f"fp32 rtol {rtol:g} atol {atol:g} (99 paired steps of 10,000-term "
+                      "sums in another order), also against the two scans; fp64 1e-10; "
+                      "two runs bit-identical"),
+        "shape": [WP_T, WP_B, WP_N],
+        "ms": time_ms(lambda: bk.fcc_dual_streams(trans, xm, li)),
+        "plain_ms": time_ms(lambda: bk.fcc_dual_streams_plain(trans, xm, li), runs=5, warmup=1),
+        "matmul_scans_ms": time_ms(scans, runs=5, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms_e_read_per_paired_step": e_per_step_ms,
+        "serial_steps": WP_T - 1,
+    }
+
+
+def check_align_kernels(rng, dev):
+    """K12 and K13 against their plain versions: bit-identical advance bits,
+    end rows and positions at the serving shape, with integer (tie-forcing)
+    scores, at S=512, on degenerate lengths and at fp64.  K13 runs on the
+    plain version's bits, so both K13 versions see the same inputs."""
+    from torch_asg_tpu_torch.ops.fac import make_aligned
+    from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
+
+    cases = (
+        ("fp32_serving", torch.float32, (B, T, N, S), (500, T), (10, S), False),
+        ("fp32_integer_ties", torch.float32, (B, T, N, S), (500, T), (10, S), True),
+        ("fp32_s512", torch.float32, (2, 600, N, vk.ALIGN_KERNEL_MAX_WIDTH), (512, 600),
+         (1, 512), False),
+        ("fp64_small", torch.float64, (4, 40, 12, 9), (9, 40), (1, 9), False),
+        ("fp32_degenerate", torch.float32, (4, 50, N, 6), [1, 2, 50, 49], [1, 2, 6, 3],
+         False),
+    )
+    serving = None
+    for name, dtype, (b, t, n, s), li_r, lo_r, integer in cases:
+        trans, inputs, targets, li, lo = lattice_case(rng, dev, dtype, b, t, n, s, li_r, lo_r,
+                                                      integer)
+        lat = make_aligned(trans, inputs, targets, li, lo)
+        end_s = (lo - 1).to(torch.int32)
+        d_end, adv = vk.align_forward_pallas(lat, li)
+        d_ref, adv_ref = vk.align_forward_plain(lat, li)
+        pos = vk.align_backtrace_pallas(end_s, adv_ref, li)
+        pos_ref = vk.align_backtrace_plain(end_s, adv_ref, li)
+        torch.cuda.synchronize()
+        check(torch.equal(adv, adv_ref), f"K12 {name}: advance bits differ")
+        check(torch.equal(d_end, d_ref), f"K12 {name}: end rows differ")
+        check(torch.equal(pos, pos_ref), f"K13 {name}: positions differ")
+        if name == "fp32_serving":
+            serving = (lat, li, end_s, adv_ref)
+    lat, li, end_s, adv = serving
+    w = 4
+    lsum = int(li.sum())
+    k12_bytes = (2 * T * B * S + 2 * B * S + B * S) * w + B * 4
+    k12_ops = 5 * (T - 1) * B * S
+    k13_bytes = (lsum - B + 2 * B + T * B) * 4
+    k12_bound, k12_by = bound(k12_bytes, k12_ops)
+    k13_bound, k13_by = bound(k13_bytes, 0)
+    exact = "bit-identical (max-plus is exact)"
+    k12 = {
+        "name": "align_forward (K12)", "max_abs_err": 0.0, "tolerance": exact,
+        "ms": time_ms(lambda: vk.align_forward_pallas(lat, li)),
+        "plain_ms": time_ms(lambda: vk.align_forward_plain(lat, li), runs=5, warmup=1),
+        "bound_ms": k12_bound, "bound_by": k12_by, "serial_steps": T - 1,
+    }
+    k13 = {
+        "name": "align_backtrace (K13)", "max_abs_err": 0.0, "tolerance": exact,
+        "ms": time_ms(lambda: vk.align_backtrace_pallas(end_s, adv, li)),
+        "plain_ms": time_ms(lambda: vk.align_backtrace_plain(end_s, adv, li), runs=5,
+                            warmup=1),
+        "bound_ms": k13_bound, "bound_by": k13_by, "serial_steps": T - 1,
+    }
+    return k12, k13
+
+
 def check_grads_vs_scan(rng, dev):
     """asg_loss gradients through the fused tier (K1 with stores -> K2 ->
     scatter_to_full) against the scan tier's autograd gradients, fp64, at
@@ -618,6 +791,237 @@ def train(rng, dev):
     return {k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")}
 
 
+def device_profile(fn):
+    """One call of ``fn`` under torch.profiler: the device's busy time (the
+    sum of its kernels' own times, ms), the number of kernels, and the five
+    kernels that took longest in all ([name cut to 80 characters, ms])."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(busy > 0, "the profiler saw no device time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"device_busy_ms": busy, "kernels": sum(e.count for e in kernels),
+            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3] for e in top]}
+
+
+def wordpiece_batch(rng, dev):
+    """8 utterances of 150-200 frames, the first 200 so that the emissions
+    span T = 100 frames (each with its own offset and scale), through cmvn ->
+    pack_frames, and 5-10 wordpiece ids each in [0, N)."""
+    from torch_asg_tpu_torch.runtime import cmvn, pack_frames
+
+    lengths = rng.integers(2 * WP_T - 50, 2 * WP_T + 1, size=WP_B)
+    lengths[0] = 2 * WP_T
+    utts = []
+    for length in lengths:
+        loc, scale = rng.normal(size=FEATURES), rng.uniform(0.5, 2.0, size=FEATURES)
+        utts.append((rng.normal(size=(int(length), FEATURES)) * scale + loc)
+                    .astype(np.float32))
+    feats, feat_lengths = pack_frames(cmvn(utts))
+    target_lengths = rng.integers(WP_S // 2, WP_S + 1, size=WP_B).astype(np.int32)
+    targets = rng.integers(0, WP_N, size=(WP_B, WP_S)).astype(np.int32)
+    host = {"features": np.ascontiguousarray(feats.transpose(1, 0, 2)),
+            "feature_lengths": feat_lengths, "targets": targets,
+            "target_lengths": target_lengths}
+    return {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+
+
+def train_wordpiece(rng, dev):
+    """The full-width Wav2Letter with a 10,000-wordpiece head trains on one
+    fixed batch through the port's entry points ('auto' runs the matmul
+    tier): one warm-up step, then 5 timed steps, each ending in a device
+    synchronise."""
+    from torch_asg_tpu_torch import asg_loss, asg_scores
+    from torch_asg_tpu_torch.convert import wav2letter_from_flax
+    from torch_asg_tpu_torch.models import (Wav2Letter, create_train_state, loss_fn,
+                                            make_train_step)
+    from torch_asg_tpu_torch.ops.fcc import force_dual_streams
+    from torch_asg_tpu_torch.ops.kernels.asg_kernels import (_bwd_kernel,
+                                                              _fwd_store_kernel,
+                                                              asg_scores_fused)
+    from torch_asg_tpu_torch.ops.kernels.bigvocab_kernels import fcc_dual_streams
+
+    cfg = dict(num_labels=WP_N, channels=256, depth=6, head_channels=512,
+               frontend_kernel=11, frontend_stride=2, kernel=7)
+    model = Wav2Letter(in_features=FEATURES, device=dev, **cfg)
+    model.load_state_dict(wav2letter_from_flax(flax_layout_params(rng, cfg)))
+    state = create_train_state(model)
+    step = make_train_step(model, state.optimizer)
+    batch = wordpiece_batch(rng, dev)
+    li = model.output_length(batch["feature_lengths"]).to(torch.int32)
+    targets, lo = batch["targets"], batch["target_lengths"]
+
+    # the first step's gradients, K9 against the two scans (fp32)
+    with torch.no_grad():
+        em0 = model(batch["features"])
+    check(tuple(em0.shape) == (WP_T, WP_B, WP_N), f"emissions shape {tuple(em0.shape)}")
+    grads = {}
+    for dual in (None, False):
+        tr = state.transition.detach().clone().requires_grad_(True)
+        em = em0.clone().requires_grad_(True)
+        with force_dual_streams(dual):
+            loss = asg_loss(tr, em, targets, li, lo)
+        grads[dual] = torch.autograd.grad(loss, (tr, em))
+    grad_errs = {}
+    for label, g, w in zip(("transition", "emissions"), grads[None], grads[False]):
+        check(bool(torch.isfinite(g).all()), f"non-finite {label} gradient")
+        assert_near(f"wordpiece grad {label} vs the scans", g, w, 1e-3, 1e-4)
+        grad_errs[label] = max_err(g, w)
+    del grads
+
+    def finite_grads():
+        return all(bool(torch.isfinite(p.grad).all())
+                   for p in (*model.parameters(), state.transition))
+
+    state, loss_before = step(state, batch)  # warm-up; its loss precedes any update
+    loss_before = float(loss_before)
+    counters = (fcc_dual_streams, asg_scores_fused, _fwd_store_kernel, _bwd_kernel)
+    for c in counters:
+        c.launches = 0
+    losses, latencies = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        check(finite_grads(), "non-finite gradient in a wordpiece training step")
+    launches = {c.__name__: c.launches for c in counters}
+    check(launches == {"fcc_dual_streams": 5, "asg_scores_fused": 0,
+                       "_fwd_store_kernel": 0, "_bwd_kernel": 0},
+          f"each wordpiece step must launch K9 once and K1, K1s, K2 never: {launches}")
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    with torch.no_grad():
+        loss_after = float(loss_fn(model, state, batch))
+    check(loss_after < loss_before, f"loss did not fall: {loss_before} -> {loss_after}")
+    median_ms = statistics.median(latencies)
+    # a forward-only call runs the beta chain alone: no K9
+    before = fcc_dual_streams.launches
+    with torch.no_grad():
+        full, aligned = asg_scores(state.transition, em0, targets, li, lo)
+    torch.cuda.synchronize()
+    check(fcc_dual_streams.launches == before, "a forward-only call launched K9")
+    check(bool(torch.isfinite(full).all() and (full >= aligned - 1e-2).all()),
+          "forward-only wordpiece scores")
+
+    # one more step, synchronised after each stage
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    state.optimizer.zero_grad(set_to_none=True)
+    em = model(batch["features"])
+    mark()
+    loss = asg_loss(state.transition, em, targets, li, lo)
+    mark()
+    loss.backward()
+    mark()
+    state.optimizer.step()
+    mark()
+    stages = dict(zip(("encoder_forward", "asg_loss_forward", "backward", "optimizer_step"),
+                      [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]))
+
+    em_fixed = em0.detach().clone().requires_grad_(True)
+    tr_fixed = state.transition.detach().clone().requires_grad_(True)
+
+    def criterion():
+        out = asg_loss(tr_fixed, em_fixed, targets, li, lo)
+        torch.autograd.grad(out, (tr_fixed, em_fixed))
+
+    criterion_ms = time_ms(criterion, runs=10)
+    profiled = device_profile(criterion)
+    # the busy time against the unprofiled median: the profiler slows the host
+    profiled["idle_share"] = 1.0 - profiled["device_busy_ms"] / criterion_ms
+    frames = int(li.sum())
+    emit({"phase": "train_wordpiece", "card": torch.cuda.get_device_name(0),
+          "batch": WP_B, "labels": WP_N, "frames_max": int(li.max()), "frames_sum": frames,
+          "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
+          "frames_per_s": frames / (median_ms * 1e-3), "loss_before": loss_before,
+          "losses": losses, "loss_after": loss_after, "launches": launches,
+          "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
+          "max_abs_err_grads_vs_scans": grad_errs, "stage_ms": stages,
+          "criterion_fwd_bwd_ms": criterion_ms,
+          "criterion_frames_per_s": frames / (criterion_ms * 1e-3),
+          "criterion_profile": profiled})
+    return {"fcc_dual_streams": launches["fcc_dual_streams"]}
+
+
+def align(rng, dev):
+    """The full-width letter model answers 3 forced-alignment requests of 64
+    utterances after one warm-up request: encoder -> viterbi_align ->
+    alignment_segments."""
+    from torch_asg_tpu_torch import alignment_segments, viterbi_align
+    from torch_asg_tpu_torch.convert import transition_from_numpy, wav2letter_from_flax
+    from torch_asg_tpu_torch.models import Wav2Letter
+    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (align_backtrace_pallas,
+                                                                 align_forward_pallas)
+
+    cfg = dict(num_labels=N, channels=256, depth=6, head_channels=512,
+               frontend_kernel=11, frontend_stride=2, kernel=7)
+    model = Wav2Letter(in_features=FEATURES, device=dev, **cfg).eval()
+    model.load_state_dict(wav2letter_from_flax(flax_layout_params(rng, cfg)))
+    trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
+                                  dtype=torch.float32)
+    requests = []
+    for _ in range(4):
+        feat_lengths = rng.integers(1000, 2001, size=B)
+        feats = rng.normal(size=(B, 2000, FEATURES)).astype(np.float32)
+        lo = rng.integers(10, S + 1, size=B)
+        targets = rng.integers(0, ALPHABET, size=(B, S))
+        requests.append([torch.as_tensor(x, device=dev) for x in
+                         (feats, feat_lengths, targets.astype(np.int32), lo.astype(np.int32))])
+    torch.cuda.synchronize()
+
+    def answer(feats, feat_lengths, targets, lo):
+        with torch.no_grad():
+            em = model(feats)
+            li = model.output_length(feat_lengths).to(torch.int32)
+            ali = viterbi_align(trans, em, targets, li, lo)
+            seg = alignment_segments(ali, S)
+        torch.cuda.synchronize()
+        return em, li, ali, seg
+
+    answer(*requests[0])  # warm-up
+    counters = (align_forward_pallas, align_backtrace_pallas)
+    for c in counters:
+        c.launches = 0
+    latencies, outs = [], []
+    for req in requests[1:]:
+        t0 = time.perf_counter()
+        outs.append(answer(*req) + (req[2], req[3]))
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = {c.__name__: c.launches for c in counters}
+    check(launches == {"align_forward_pallas": 3, "align_backtrace_pallas": 3},
+          f"each alignment request must launch K12 and K13 once: {launches}")
+    for em, li, ali, seg, targets, lo in outs:
+        with torch.no_grad():
+            ref = viterbi_align(trans, em, targets, li, lo, impl="xla")
+        check(torch.equal(ali.positions, ref.positions), "positions differ from the xla tier")
+        check(torch.equal(ali.labels, ref.labels), "labels differ from the xla tier")
+        torch.testing.assert_close(ali.scores, ref.scores, rtol=0, atol=0)
+        check(bool(torch.isfinite(ali.scores).all()), "non-finite alignment score")
+        starts, ends = seg.starts.cpu().numpy(), seg.ends.cpu().numpy()
+        li_h, lo_h = li.cpu().numpy(), lo.cpu().numpy()
+        for b in range(B):
+            k = lo_h[b]
+            check(starts[b, 0] == 0 and ends[b, k - 1] == li_h[b] - 1
+                  and (starts[b, 1:k] == ends[b, :k - 1] + 1).all()
+                  and (starts[b, k:] == -1).all(), f"spans of element {b} do not partition it")
+    emit({"phase": "align", "card": torch.cuda.get_device_name(0), "requests": 3,
+          "batch": B, "frames": T, "latency_ms": latencies,
+          "median_latency_ms": statistics.median(latencies), "launches": launches,
+          "positions_equal_xla": True})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
@@ -648,13 +1052,17 @@ def main():
     k1 = check_k1(rng, dev)
     k10, k11 = check_viterbi(rng, dev)
     k1s, k2 = check_k1s_k2(rng, dev)
-    for k in (k1, k10, k11, k1s, k2):
+    k9 = check_k9(rng, dev)
+    k12, k13 = check_align_kernels(rng, dev)
+    for k in (k1, k10, k11, k1s, k2, k9, k12, k13):
         emit({"phase": "kernel", **k})
     check_grads_vs_scan(rng, dev)
 
     counters = (asg_scores_fused, viterbi_forward_pallas, viterbi_backtrace_pallas)
     launches = serve(rng, dev, counters)
     launches.update(train(rng, dev))
+    launches.update(train_wordpiece(rng, dev))
+    launches.update(align(rng, dev))
 
     src = "torch_asg_tpu_torch/ops/kernels/csrc/"
     meta = (
@@ -668,6 +1076,12 @@ def main():
          "torch_asg_tpu/ops/pallas/asg_kernels.py:172"),
         (k2, "_bwd_kernel", src + "asg_bwd.cu",
          "torch_asg_tpu/ops/pallas/asg_kernels.py:275"),
+        (k9, "fcc_dual_streams", src + "bigvocab.cu",
+         "torch_asg_tpu/ops/pallas/bigvocab_kernels.py:78"),
+        (k12, "align_forward_pallas", src + "viterbi.cu",
+         "torch_asg_tpu/ops/pallas/viterbi_kernels.py:190"),
+        (k13, "align_backtrace_pallas", src + "viterbi.cu",
+         "torch_asg_tpu/ops/pallas/viterbi_kernels.py:301"),
     )
     kernels = [{
         "name": k["name"], "route": "cuda", "source": source, "replaces": replaces,

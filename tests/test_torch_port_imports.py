@@ -18,6 +18,9 @@ import torch_asg_tpu_torch.asg, torch_asg_tpu_torch.convert
 import torch_asg_tpu_torch.models, torch_asg_tpu_torch.runtime
 import torch_asg_tpu_torch.ops.viterbi, torch_asg_tpu_torch.ops.kernels._build
 import torch_asg_tpu_torch.models.train, torch_asg_tpu_torch.ops.kernels.asg_kernels
+import torch_asg_tpu_torch.ops.fcc, torch_asg_tpu_torch.ops.fac, torch_asg_tpu_torch.ops.semiring
+import torch_asg_tpu_torch.ops.kernels.bigvocab_kernels
+import torch_asg_tpu_torch.ops.kernels.viterbi_kernels, torch_asg_tpu_torch.ops.kernels.common
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'torch_asg_tpu'))
 print(bad)

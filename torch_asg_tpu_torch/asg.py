@@ -5,17 +5,25 @@ S_full is the fully-connected (denominator) log-partition score and
 S_aligned the force-aligned (numerator) score.
 
 Tiers (``impl``):
-  * ``'fused'`` / ``'auto'``: both beta chains in one pass and, under
-    autograd, both alpha chains and every gradient in a second
+  * ``'fused'``: both beta chains in one pass and, under autograd, both
+    alpha chains and every gradient in a second
     (``ops/kernels/asg_kernels.py``): the hand-written kernels on CUDA
     tensors, their plain versions on CPU tensors.  Exp-domain FCC chains.
+    Takes up to ``_FUSED_MAX_WIDTH`` labels and target slots.
+  * ``'matmul'``: for wordpiece vocabularies.  The FCC chains run as one
+    (B, N) x (N, N) product with ``exp(T - c)`` a step
+    (``ops/fcc.py::fcc_score_matmul``); under autograd on CUDA tensors the
+    dual-stream kernel K9 runs both chains with one pass over the matrix
+    per paired step, and the transition gradient is one (N, TB) x (TB, N)
+    product.  The FAC side is the scan tier's ``fac_score``.
+  * ``'auto'``: ``'fused'``, or ``'matmul'`` past ``_FUSED_MAX_WIDTH``.
   * ``'scan'``: the log-domain scan oracle (``ops/fcc.py``, ``ops/fac.py``),
     exact for any finite transition magnitudes.
-  * ``'pallas'`` and ``'matmul'`` are not ported yet and raise
-    ``NotImplementedError``.
+  * ``'pallas'`` is not ported yet and raises ``NotImplementedError``.
 
 Every tier is differentiable in ``transition`` and ``inputs``; a call that
-autograd will not differentiate computes the scores alone.
+autograd will not differentiate computes the scores alone.  ``precision=``
+sets the chain precision (``ops/semiring.py``) for the call.
 """
 
 from __future__ import annotations
@@ -26,9 +34,10 @@ import torch
 from torch import nn
 
 from .ops.fac import fac_score
-from .ops.fcc import fcc_score
+from .ops.fcc import fcc_score, fcc_score_matmul
 from .ops.kernels.asg_kernels import asg_scores_fused
 from .ops.kernels.common import DEFAULT_DEVICE
+from .ops.semiring import strict_chain_precision
 from .utils.lengths import default_lengths
 
 REDUCTIONS = ("mean", "sum", "none")
@@ -122,6 +131,13 @@ def _scores_scan(transition, inputs, targets, li, lo):
     )
 
 
+def _scores_matmul(transition, inputs, targets, li, lo):
+    return (
+        fcc_score_matmul(transition, inputs, li),
+        fac_score(transition, inputs, targets, li, lo),
+    )
+
+
 def _resolve_impl(impl: str, num_labels: int = 0, s_total: int = 0):
     """Returns scores_fn(transition, inputs, targets, li, lo) -> (full, aligned)."""
     if max(num_labels, s_total) > _FUSED_MAX_WIDTH:
@@ -131,14 +147,11 @@ def _resolve_impl(impl: str, num_labels: int = 0, s_total: int = 0):
             raise ValueError(
                 f"impl={impl!r} supports max(num_labels, s_total) <= "
                 f"{_FUSED_MAX_WIDTH}; got num_labels={num_labels}, "
-                f"s_total={s_total}.  Large vocabularies need impl='matmul', "
-                f"which is not ported yet."
+                f"s_total={s_total}.  Use impl='matmul' (one (N, N) product a "
+                f"step) for large vocabularies."
             )
     if impl == "matmul":
-        raise NotImplementedError(
-            "impl='matmul' (the big-vocabulary tier) is not ported yet: "
-            "ROADMAP.md Queue 1 item 6."
-        )
+        return _scores_matmul
     if impl == "pallas":
         raise NotImplementedError(
             "impl='pallas' (the per-lattice kernel tier) is not ported yet: "
@@ -152,7 +165,7 @@ def _resolve_impl(impl: str, num_labels: int = 0, s_total: int = 0):
 
 
 def _scores(transition, inputs, targets, input_lengths, target_lengths,
-            impl, temperature, validate):
+            impl, temperature, validate, precision):
     inputs, targets, input_lengths, target_lengths = _prep(
         inputs, targets, input_lengths, target_lengths
     )
@@ -167,7 +180,10 @@ def _scores(transition, inputs, targets, input_lengths, target_lengths,
         inv = 1.0 / temperature
         transition = transition * inv
         inputs = inputs * inv
-    return scores_fn(transition, inputs, targets, input_lengths, target_lengths)
+    if precision is None:
+        return scores_fn(transition, inputs, targets, input_lengths, target_lengths)
+    with strict_chain_precision(precision):
+        return scores_fn(transition, inputs, targets, input_lengths, target_lengths)
 
 
 def asg_loss(
@@ -180,6 +196,7 @@ def asg_loss(
     reduction: str = "mean",
     impl: str = "auto",
     temperature: float = 1.0,
+    precision: Optional[str] = None,
     validate=True,
 ) -> torch.Tensor:
     """ASG loss; differentiable in ``transition`` and ``inputs``.
@@ -189,14 +206,19 @@ def asg_loss(
       inputs: (T, B, N) emission scores.  targets: (B, S) int labels.
       input_lengths / target_lengths: (B,) ints; default = full length.
       reduction: 'mean' | 'sum' | 'none'.
-      impl: 'auto' | 'fused' | 'scan' (see the module docstring).
+      impl: 'auto' | 'fused' | 'matmul' | 'scan' (see the module docstring).
       temperature: generalized-semiring temperature tau:
         loss_tau = tau * loss(T / tau, I / tau).
+      precision: None (the ambient ``semiring.chain_precision()``),
+        'default' or 'highest': the chain precision for this call, held for
+        its backward too.  Every float32 chain product runs in full float32
+        on the H100 either way; under 'highest' the matmul tier runs its two
+        scans instead of the dual-stream kernel.
       validate: True | 'reroute' | False; the host-side spread check of
         ``_spread_guard``.
     """
     full, aligned = _scores(transition, inputs, targets, input_lengths,
-                            target_lengths, impl, temperature, validate)
+                            target_lengths, impl, temperature, validate, precision)
     out = full - aligned
     if temperature != 1.0:
         out = out * temperature
@@ -212,12 +234,13 @@ def asg_scores(
     *,
     impl: str = "auto",
     temperature: float = 1.0,
+    precision: Optional[str] = None,
     validate=True,
 ):
     """(full_scores, aligned_scores) per batch element, shape (B,) each;
     arguments as in ``asg_loss``."""
     full, aligned = _scores(transition, inputs, targets, input_lengths,
-                            target_lengths, impl, temperature, validate)
+                            target_lengths, impl, temperature, validate, precision)
     if temperature != 1.0:
         full = full * temperature
         aligned = aligned * temperature

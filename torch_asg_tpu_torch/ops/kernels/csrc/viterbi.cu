@@ -29,6 +29,30 @@
 //     rows into shared memory with coalesced loads, then one thread walks
 //     the chunk, so each dependent lookup costs a shared-memory read and not
 //     a global-memory round trip.
+//
+// Forced alignment in the same semiring: the forward with one advance bit
+// per slot (kernel K12) and its backtrace (kernel K13).
+//
+// Replaces: torch_asg_tpu/ops/pallas/viterbi_kernels.py::_alignf_kernel
+// (launched by align_forward_pallas) and ::_albt_kernel (launched by
+// align_backtrace_pallas).
+//
+// K12, for element b over the aligned lattice (emissions A (T, B, S), -inf
+// outside t < L_in and s < L_out; self/next transitions (B, S)):
+//   d_0 = A_0 at slot 0 only (-inf elsewhere), adv[0] = 0 (never read);
+//   for t >= 1: stay = d_{t-1}[s] + self[s], move = d_{t-1}[s-1] + next[s-1]
+//   (-inf at s = 0), d_t = A_t + max(stay, move), adv[t][s] = move > stay
+//   (a tie stays); d_end = d_{L-1} (-inf when L is outside [1, T]).
+//   Every frame is computed, so the advance bits past L_in equal the plain
+//   version's too.  Max-plus is exact: bit-identical to the plain version.
+// K13: pos[T-1] = L_out-1 if L = T else -1; for t < T-1, pos[t] = L_out-1 at
+//   t = L-1, p - adv[t+1][p] with p = max(pos[t+1], 0) before it (no step
+//   back when p >= S), -1 after it.
+//
+// What bounds them: the serial chain again, two candidates a step instead
+// of N.  K12 runs one block per element and one thread per slot with the
+// carry in shared memory, and loads the next frame's emission before the
+// step's barrier; K13 is K11's chunked walk over the advance bits.
 
 #include <cmath>
 #include <cuda_runtime.h>
@@ -148,6 +172,117 @@ __global__ void viterbi_backtrace_kernel(
 }
 
 template <typename T>
+__global__ void align_forward_kernel(
+    const T* __restrict__ ap,       // (T, B, S) aligned emissions
+    const T* __restrict__ self_tr,  // (B, S) stay transitions
+    const T* __restrict__ next_tr,  // (B, S) advance transitions, slot s -> s+1
+    const int* __restrict__ li,     // (B,)
+    int* __restrict__ adv,          // (T, B, S) advance bits
+    T* __restrict__ dend,           // (B, S) end rows
+    int t_total, int batch, int s_total) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* d_s = reinterpret_cast<T*>(smem_raw);
+
+  const int b = blockIdx.x;
+  const int s = threadIdx.x;
+  const int L = li[b];
+  const bool slot = s < s_total;
+  const size_t bs = (size_t)b * s_total + s;
+  const T stay_tr = slot ? self_tr[bs] : T(0);
+  const T move_tr = (slot && s > 0) ? next_tr[bs - 1] : T(0);
+
+  T d = (slot && s == 0) ? ap[bs] : neg_inf<T>();
+  T d_end = (L - 1 == 0) ? d : neg_inf<T>();
+  if (slot) {
+    d_s[s] = d;
+    adv[bs] = 0;
+  }
+  T a_next = (slot && t_total > 1) ? ap[(size_t)batch * s_total + bs] : neg_inf<T>();
+  __syncthreads();
+
+  for (int t = 1; t < t_total; ++t) {
+    const T a = a_next;
+    if (slot && t + 1 < t_total) a_next = ap[(size_t)(t + 1) * batch * s_total + bs];
+    T d_new = neg_inf<T>();
+    if (slot) {
+      const T stay = d_s[s] + stay_tr;
+      const T move = s > 0 ? d_s[s - 1] + move_tr : neg_inf<T>();
+      const bool advanced = move > stay;
+      d_new = a + (advanced ? move : stay);
+      adv[(size_t)t * batch * s_total + bs] = advanced ? 1 : 0;
+    }
+    __syncthreads();
+    if (slot) {
+      d_s[s] = d_new;
+      if (t == L - 1) d_end = d_new;
+    }
+    __syncthreads();
+  }
+  if (slot) dend[bs] = d_end;
+}
+
+// Shared memory: rows[tc * S] (advance-bit rows of frames t0+1 .. t0+tc),
+// out[tc] (the chunk's positions).
+__global__ void align_backtrace_kernel(
+    const int* __restrict__ adv,    // (T, B, S)
+    const int* __restrict__ end_s,  // (B,) L_out - 1
+    const int* __restrict__ li,     // (B,)
+    int* __restrict__ pos_out,      // (T, B)
+    int t_total, int batch, int s_total, int tc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* rows = reinterpret_cast<int*>(smem_raw);
+  int* out = rows + (size_t)tc * s_total;
+
+  const int b = blockIdx.x;
+  const int L = li[b];
+  const int es = end_s[b];
+  int pos = -1;  // thread 0's walk state: the position at frame t+1
+
+  for (int t1 = t_total; t1 > 0; t1 -= tc) {
+    const int t0 = t1 > tc ? t1 - tc : 0;
+    // frames t that read an advance bit: t < L-1 and t+1 < T
+    int hi = t1;
+    if (hi > L - 1) hi = L - 1;
+    if (hi > t_total - 1) hi = t_total - 1;
+    const int cnt = hi - t0;
+    for (int idx = threadIdx.x; idx < cnt * s_total; idx += blockDim.x) {
+      const int r = idx / s_total, c = idx - r * s_total;
+      rows[idx] = adv[((size_t)(t0 + r + 1) * batch + b) * s_total + c];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int t = t1 - 1; t >= t0; --t) {
+        if (t == L - 1) {
+          pos = es;
+        } else if (t < L - 1 && t < t_total - 1) {
+          const int p = pos < 0 ? 0 : pos;
+          pos = p < s_total ? p - rows[(size_t)(t - t0) * s_total + p] : p;
+        } else {
+          pos = -1;
+        }
+        out[t - t0] = pos;
+      }
+    }
+    __syncthreads();
+    for (int t = t0 + threadIdx.x; t < t1; t += blockDim.x)
+      pos_out[(size_t)t * batch + b] = out[t - t0];
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_align_forward(const T* ap, const T* self_tr, const T* next_tr, const int* li,
+                         int* adv, T* dend, int t_total, int batch, int s_total,
+                         void* stream) {
+  const int threads = ((s_total + 31) / 32) * 32;
+  if (threads > 1024) return (int)cudaErrorInvalidValue;
+  align_forward_kernel<T><<<batch, threads, sizeof(T) * (size_t)s_total,
+                            (cudaStream_t)stream>>>(ap, self_tr, next_tr, li, adv, dend,
+                                                    t_total, batch, s_total);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_forward(const T* tt, const T* em, const int* li, int* bp, T* dend,
                    int t_total, int batch, int n, void* stream) {
   const int threads = ((n + 31) / 32) * 32;
@@ -191,6 +326,31 @@ int viterbi_backtrace(const int* bp, const int* fin, const int* li, int* path,
   const size_t smem = sizeof(int) * ((size_t)tc * n + tc);
   viterbi_backtrace_kernel<<<batch, 128, smem, (cudaStream_t)stream>>>(
       bp, fin, li, path, t_total, batch, n, tc);
+  return (int)cudaGetLastError();
+}
+
+int align_forward_f32(const float* ap, const float* self_tr, const float* next_tr,
+                      const int* li, int* adv, float* dend, int t_total, int batch,
+                      int s_total, void* stream) {
+  return launch_align_forward<float>(ap, self_tr, next_tr, li, adv, dend, t_total, batch,
+                                     s_total, stream);
+}
+
+int align_forward_f64(const double* ap, const double* self_tr, const double* next_tr,
+                      const int* li, int* adv, double* dend, int t_total, int batch,
+                      int s_total, void* stream) {
+  return launch_align_forward<double>(ap, self_tr, next_tr, li, adv, dend, t_total, batch,
+                                      s_total, stream);
+}
+
+int align_backtrace(const int* adv, const int* end_s, const int* li, int* pos,
+                    int t_total, int batch, int s_total, void* stream) {
+  int tc = 8192 / (s_total > 0 ? s_total : 1);
+  if (tc > 256) tc = 256;
+  if (tc < 1) tc = 1;
+  const size_t smem = sizeof(int) * ((size_t)tc * s_total + tc);
+  align_backtrace_kernel<<<batch, 128, smem, (cudaStream_t)stream>>>(
+      adv, end_s, li, pos, t_total, batch, s_total, tc);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,13 @@
-"""1-best Viterbi decoding: the max-plus forward (K10) and the backtrace (K11).
+"""Tropical-semiring kernels: 1-best Viterbi decoding, the max-plus forward
+(K10) and the backtrace (K11), and forced alignment, the two-edge forward
+with one advance bit per slot (K12) and its backtrace (K13).
 
 On CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/viterbi.cu``); on CPU tensors it runs the plain version beside it,
-a step-by-step loop of the same arithmetic.  Ties resolve to the lowest
-source label, so paths are bit-identical across the kernel, its plain
-version and the ``'xla'`` tier of ``ops/viterbi.py``.
+a step-by-step loop of the same arithmetic.  Decoding ties resolve to the
+lowest source label and alignment ties to staying on the slot, so results
+are bit-identical across each kernel, its plain version and the ``'xla'``
+tiers of ``ops/viterbi.py``.
 """
 
 from __future__ import annotations
@@ -15,11 +18,15 @@ import torch
 
 from .common import (KERNEL_DTYPES, check_tensor, ptr, raise_on_error,
                      stream_ptr, use_kernel)
+from ..fac import _shift_right_s
 from ..semiring import NEG_INF
 from ...utils.lengths import mask_emissions
 
 # The forward kernel runs one thread per destination label in one block.
 VITERBI_KERNEL_MAX_LABELS = 1024
+# The alignment forward runs one thread per target slot in one block; capped
+# at the fused criterion's width, as the JAX package caps it.
+ALIGN_KERNEL_MAX_WIDTH = 512
 
 
 def argmax_first(x: torch.Tensor, dim: int):
@@ -144,5 +151,123 @@ def viterbi_backtrace_pallas(final_labels, backptr, input_lengths):
     return paths
 
 
+def _select_rows(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``vals[b, idx[b, r]]`` as (B, k), 0 where ``idx`` lies outside
+    [0, M): the values the JAX package's one-hot select gives."""
+    m = vals.shape[1]
+    inside = (idx >= 0) & (idx < m)
+    picked = torch.gather(vals, 1, idx.clamp(0, max(m - 1, 0)).long())
+    return torch.where(inside, picked, torch.zeros_like(picked))
+
+
+def _select_row(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``vals[b, idx[b]]`` as (B,): the k = 1 form of ``_select_rows``."""
+    return _select_rows(vals, idx[:, None])[:, 0]
+
+
+def align_forward_plain(lat, input_lengths):
+    """Plain version of K12: (d_end (B, S), adv (T, B, S) int32) from an
+    ``AlignedLattice``.  adv[t][b, s] == 1 iff the best path into frame t at
+    slot s advanced from slot s - 1 (row 0 is a dummy 0)."""
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev = lat.inputs.device
+    li = input_lengths.to(dev)
+    adv = torch.zeros((t_total, num_batches, s_total), dtype=torch.int32, device=dev)
+    d = torch.full((num_batches, s_total), NEG_INF, dtype=lat.inputs.dtype, device=dev)
+    d[:, 0] = lat.inputs[0, :, 0]
+    d_end = torch.where((li - 1 == 0)[:, None], d, NEG_INF)
+    for t in range(1, t_total):
+        stay = d + lat.self_trans
+        move = _shift_right_s(d + lat.next_trans)
+        d = lat.inputs[t] + torch.maximum(stay, move)
+        adv[t] = move > stay
+        d_end = torch.where((li - 1 == t)[:, None], d, d_end)
+    return d_end, adv
+
+
+def align_backtrace_plain(end_s, adv, input_lengths):
+    """Plain version of K13: (T, B) int32 target positions from the advance
+    bits, -1 past L_in.  Frame t reads adv[t + 1] at max(pos[t + 1], 0)."""
+    t_total, num_batches, _ = adv.shape
+    dev = adv.device
+    end_t = input_lengths.to(dev) - 1
+    end_s = end_s.to(device=dev, dtype=torch.int32)
+    pad = torch.full_like(end_s, -1)
+    positions = torch.empty((t_total, num_batches), dtype=torch.int32, device=dev)
+    pos = torch.where(end_t == t_total - 1, end_s, pad)
+    positions[t_total - 1] = pos
+    for t in range(t_total - 2, -1, -1):
+        prev = pos.clamp(min=0)
+        prev = prev - _select_row(adv[t + 1], prev)
+        pos = torch.where(end_t == t, end_s, torch.where(t < end_t, prev, pad))
+        positions[t] = pos
+    return positions
+
+
+def align_forward_pallas(lat, input_lengths):
+    """(d_end (B, S), adv (T, B, S) int32) from an ``AlignedLattice``: K12 on
+    CUDA tensors, its plain version on CPU ones.
+
+    ``align_forward_pallas.launches`` counts the kernel's launches.
+    """
+    if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, input_lengths):
+        return align_forward_plain(lat, input_lengths)
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev, dt = lat.inputs.device, lat.inputs.dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"alignment forward kernel takes float32 or float64, got {dt}")
+    if s_total > ALIGN_KERNEL_MAX_WIDTH:
+        raise ValueError(
+            f"alignment forward kernel takes s_total <= {ALIGN_KERNEL_MAX_WIDTH}; "
+            f"got {s_total}")
+    aligned = lat.inputs.contiguous()
+    self_trans = lat.self_trans.to(dt).contiguous()
+    next_trans = lat.next_trans.to(dt).contiguous()
+    li = input_lengths.to(torch.int32).contiguous()
+    for name, t in (("self_trans", self_trans), ("next_trans", next_trans)):
+        check_tensor(name, t, dt, (num_batches, s_total), dev)
+    check_tensor("input_lengths", li, torch.int32, (num_batches,), dev)
+    adv = torch.empty((t_total, num_batches, s_total), dtype=torch.int32, device=dev)
+    d_end = torch.empty((num_batches, s_total), dtype=dt, device=dev)
+    if adv.numel() == 0:
+        return d_end.fill_(NEG_INF), adv
+    fn = _lib_fn("align_forward_f32" if dt == torch.float32 else "align_forward_f64", 6)
+    with torch.cuda.device(dev):
+        err = fn(ptr(aligned), ptr(self_trans), ptr(next_trans), ptr(li), ptr(adv),
+                 ptr(d_end), t_total, num_batches, s_total, stream_ptr(dev))
+    raise_on_error("align_forward", err)
+    align_forward_pallas.launches += 1
+    return d_end, adv
+
+
+def align_backtrace_pallas(end_s, adv, input_lengths):
+    """(T, B) int32 target positions from (T, B, S) advance bits, -1 past
+    L_in: K13 on CUDA tensors, its plain version on CPU ones.
+
+    ``align_backtrace_pallas.launches`` counts the kernel's launches.
+    """
+    if not use_kernel(adv, end_s, input_lengths):
+        return align_backtrace_plain(end_s, adv, input_lengths)
+    t_total, num_batches, s_total = adv.shape
+    dev = adv.device
+    es = end_s.to(torch.int32).contiguous()
+    li = input_lengths.to(torch.int32).contiguous()
+    check_tensor("adv", adv, torch.int32, (t_total, num_batches, s_total), dev)
+    check_tensor("end_s", es, torch.int32, (num_batches,), dev)
+    check_tensor("input_lengths", li, torch.int32, (num_batches,), dev)
+    positions = torch.empty((t_total, num_batches), dtype=torch.int32, device=dev)
+    if positions.numel() == 0 or s_total == 0:
+        return positions.fill_(-1)
+    fn = _lib_fn("align_backtrace", 4)
+    with torch.cuda.device(dev):
+        err = fn(ptr(adv), ptr(es), ptr(li), ptr(positions),
+                 t_total, num_batches, s_total, stream_ptr(dev))
+    raise_on_error("align_backtrace", err)
+    align_backtrace_pallas.launches += 1
+    return positions
+
+
 viterbi_forward_pallas.launches = 0
 viterbi_backtrace_pallas.launches = 0
+align_forward_pallas.launches = 0
+align_backtrace_pallas.launches = 0

@@ -8,9 +8,38 @@ zero = -inf, one = 0); the Viterbi decoder in the tropical semiring
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 NEG_INF = float("-inf")
+
+# Precision of the exp-domain chain products: 'default' or 'highest'.  On
+# the H100 every float32 chain product runs in full float32 under either
+# name; the one behaviour the name selects is the matmul tier's election of
+# the dual-stream kernel (``ops/fcc.py::_resolve_dual``): 'highest' keeps
+# the two scans, the independent formulation the kernel is checked against.
+PRECISIONS = ("default", "highest")
+CHAIN_PRECISION = "default"
+_PRECISION_OVERRIDE = None
+
+
+def chain_precision() -> str:
+    return CHAIN_PRECISION if _PRECISION_OVERRIDE is None else _PRECISION_OVERRIDE
+
+
+@contextlib.contextmanager
+def strict_chain_precision(precision: str = "highest"):
+    """Run the chain products inside the context at ``precision``."""
+    global _PRECISION_OVERRIDE
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}; got {precision!r}")
+    prev = _PRECISION_OVERRIDE
+    _PRECISION_OVERRIDE = precision
+    try:
+        yield
+    finally:
+        _PRECISION_OVERRIDE = prev
 
 
 def logsumexp(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
