@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, wordpiece-training and
-forced-alignment paths on one CUDA card, and check and time each
-hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch port's serving, training, wordpiece-training,
+forced-alignment, per-lattice training and posterior-decoding paths on one
+CUDA card, and check and time each hand-written kernel against its plain
+PyTorch version.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit:
@@ -22,8 +23,12 @@ is nonzero:
      with the same bits; and against the two matmul-tier scans, the
      formulation it replaces, which are timed beside it.  K12 and K13 (forced
      alignment) bit-identical to their plain versions at the serving shape,
-     at S=512, on ties and at fp64;
+     at S=512, on ties and at fp64.  K3-K8 (the per-lattice tier) at the
+     training shape, at small fp64 shapes, on degenerate lengths, with -inf
+     transitions, with E in and out of shared memory and at the width cap
+     N = S = 512; K5 and K8 twice with the same bits;
   4. grads: the fused tier's gradients (K1 with stores -> K2 ->
+     scatter_to_full) and the per-lattice tier's (K3, K6, K7 -> K5, K8 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
      training shape;
   5. serve: the full-width Wav2Letter (random weights from a seed) answers 3
@@ -51,7 +56,19 @@ is nonzero:
      alignment_segments.  K12 and K13 must launch once a request, positions
      must equal the 'xla' tier's, and the spans must partition each
      utterance;
-  9. the kernel table, the nvidia-smi line, and last the result line.
+  9. train_pallas: the full-width letter model takes one warm-up step and 5
+     timed steps of make_train_step(..., impl='pallas') on ``train``'s
+     batch.  Each step must launch K3, K5, K6, K7 and K8 once and K4, K1,
+     K1s, K2 and K9 never; the first step's gradients must agree with the
+     scan tier's and the loss must fall; a score-only asg_scores call must
+     launch K4 and K7 alone;
+ 10. serve_posterior: the full-width letter model answers 3 requests of 64
+     utterances after a warm-up: encoder -> posterior_decode ('auto', so the
+     per-lattice tier: K3 and K5 once a request, K4 never) ->
+     collapse_path.  The posteriors must agree with the scan tier's, and the
+     paths wherever the posteriors decide;
+ 11. the kernel table (every kernel launched on its path), the nvidia-smi
+     line, and last the result line.
 
 Precision: float32 matrix products and convolutions run in full float32
 (TF32 off for both cuBLAS and cuDNN).  Exits nonzero, printing no result,
@@ -509,33 +526,165 @@ def check_align_kernels(rng, dev):
     return k12, k13
 
 
+# (name, dtype, (B, T, N, S), L_in, L_out, -inf transitions) for K3-K8.  E
+# sits in K3's and K4's shared memory at N=30 and in the fp32 N=200 case,
+# in global memory at fp64 N=200, N=300 and N=512; K5's accumulator in
+# shared memory up to N=200 fp32, in the (B, N, N) scratch past it.
+LATTICE_CASES = (
+    ("fp64_small", torch.float64, (4, 40, 12, 9), (9, 40), (1, 9), False),
+    ("fp64_degenerate", torch.float64, (7, 40, 12, 9), [1, 40, 2, 3, 17, 0, 41],
+     [1, 1, 4, 9, 3, 2, 2], False),
+    ("fp64_neg_inf", torch.float64, (4, 40, 12, 9), (9, 40), (1, 9), True),
+    ("fp64_n200_global", torch.float64, (3, 30, 200, 20), (20, 30), (1, 20), False),
+    ("fp32_neg_inf", torch.float32, (4, 300, N, 20), (150, 300), (5, 20), True),
+    ("fp32_n200_smem", torch.float32, (4, 60, 200, 20), (20, 60), (1, 20), False),
+    ("fp32_n300_global", torch.float32, (4, 60, 300, 20), (20, 60), (1, 20), False),
+    ("fp32_width_cap", torch.float32, (2, 600, 512, 512), (512, 600), (1, 512), False),
+    ("fp32_training", torch.float32, (B, T, N, S), (500, 1000), (10, 50), False),
+)
+# Every output of K3-K8 against its plain version: fp32 covers 1000 serial
+# steps summed in another order (K1's bound); fp64 is the same arithmetic
+# to rounding.
+LATTICE_TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-4, 1e-3)}
+
+
+def check_lattice_kernels(rng, dev):
+    """K3-K8 against their plain versions on the card in every case of
+    LATTICE_CASES; K5 and K8 run on the plain versions' chains, so both
+    versions see the same inputs, and twice, which must give the same bits.
+    Times and bounds at the training shape."""
+    from torch_asg_tpu_torch.ops.fac import make_aligned
+    from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
+    from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
+
+    names = ("K3", "K4", "K5", "K6", "K7", "K8")
+    errs = {k: {} for k in names}
+    for name, dtype, (b, t, n, s), li_r, lo_r, neg_inf in LATTICE_CASES:
+        trans, inputs, targets, li, lo = lattice_case(rng, dev, dtype, b, t, n, s, li_r, lo_r)
+        if neg_inf:
+            forbid = torch.as_tensor(rng.random((n, n)) < 0.3, device=dev)
+            trans = trans.masked_fill(forbid, -np.inf)
+        g = torch.as_tensor(rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
+        e, c, x, li32 = fk._prepare(trans, inputs, li)
+        lat = make_aligned(trans, inputs, targets, li, lo)
+        fwd_want = fk.fcc_fwd_plain(e, c, x, li32)
+        fac_want = (ak.fac_alpha_plain(lat), ak.fac_beta_plain(lat, li, lo))
+        runs = {
+            "K3": (lambda: fk.fcc_fwd_pallas(e, c, x, li32),
+                   lambda: fk.fcc_fwd_plain(e, c, x, li32)),
+            "K4": (lambda: (fk.fcc_beta_pallas(e, c, x, li32),),
+                   lambda: (fk.fcc_beta_plain(e, c, x, li32),)),
+            "K5": (lambda: fk.fcc_bwd_pallas(e, c, x, li32, *fwd_want, g),
+                   lambda: fk.fcc_bwd_plain(e, c, x, li32, *fwd_want, g)),
+            "K6": (lambda: (ak.fac_alpha_pallas(lat),), lambda: (ak.fac_alpha_plain(lat),)),
+            "K7": (lambda: (ak.fac_beta_pallas(lat, li, lo),),
+                   lambda: (ak.fac_beta_plain(lat, li, lo),)),
+            "K8": (lambda: ak.fac_bwd_pallas(lat, *fac_want, g),
+                   lambda: ak.fac_bwd_plain(lat, *fac_want, g)),
+        }
+        rtol, atol = LATTICE_TOL[dtype]
+        for kname, (kernel, plain) in runs.items():
+            got, want = kernel(), plain()
+            if kname in ("K5", "K8"):
+                again = kernel()
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{kname} {name}: two runs differ")
+            torch.cuda.synchronize()
+            for i, (gv, wv) in enumerate(zip(got, want)):
+                check(not bool(torch.isnan(gv).any()), f"{kname} {name} output {i}: NaN")
+                torch.testing.assert_close(gv, wv, rtol=rtol, atol=atol,
+                                           msg=lambda m: f"{kname} {name} output {i}: {m}")
+            errs[kname][name] = max(max_err(gv, wv) for gv, wv in zip(got, want))
+        if name == "fp64_degenerate":
+            # L_in outside [1, T] (elements 5, 6) has no beta; L_out > L_in
+            # (elements 2, 3) no aligned path
+            beta = fk.fcc_beta_pallas(e, c, x, li32)
+            fac_beta = ak.fac_beta_pallas(lat, li, lo)
+            check(bool((beta[:, [5, 6]] == -np.inf).all())
+                  and bool((fac_beta[0, [2, 3, 5, 6], 0] == -np.inf).all()),
+                  "K4/K7: elements without a path must have no beta")
+    # timing and bounds at the training shape (the last case)
+    lsum, w = int(li.sum()), 4
+    tbn, tbs = T * B * N * w, T * B * S * w
+    step = 2 * N * N + 8 * N
+    cost = {
+        "K3": ((lsum * N + N * N) * w + B * 4 + 2 * tbn, 2 * (lsum - B) * step),
+        "K4": ((lsum * N + N * N) * w + B * 4 + tbn, (lsum - B) * step),
+        "K5": ((3 * lsum * N + 2 * N * N + B) * w + B * 4 + tbn,
+               lsum * (2 * N * N + 10 * N) + B * N * N),
+        "K6": ((2 * B * S) * w + 2 * tbs, T * B * S * 8),
+        "K7": ((lsum * S + 2 * B * S) * w + 2 * B * 4 + tbs, (lsum - B) * S * 8),
+        "K8": ((2 * B * S + B) * w + 4 * tbs + 2 * B * S * w, T * B * S * 14),
+    }
+    # id -> (stem, the pallas_call line of the TPU kernel it replaces)
+    meta = {"K3": ("fcc_fwd", "fcc_kernels.py:126"), "K4": ("fcc_beta", "fcc_kernels.py:202"),
+            "K5": ("fcc_bwd", "fcc_kernels.py:284"), "K6": ("fac_alpha", "fac_kernels.py:146"),
+            "K7": ("fac_beta", "fac_kernels.py:163"), "K8": ("fac_bwd", "fac_kernels.py:185")}
+    rtol, atol = LATTICE_TOL[torch.float32]
+    out = []
+    for kname, (kernel, plain) in runs.items():
+        bound_ms, bound_by = bound(*cost[kname])
+        stem, replaces = meta[kname]
+        out.append({
+            "name": f"{stem} ({kname})", "wrapper": f"{stem}_pallas",
+            "source": f"torch_asg_tpu_torch/ops/kernels/csrc/{stem[:3]}.cu",
+            "replaces": f"torch_asg_tpu/ops/pallas/{replaces}",
+            "max_abs_err": errs[kname]["fp32_training"], "max_abs_err_by_case": errs[kname],
+            "tolerance": (f"fp32 rtol {rtol:g} atol {atol:g} (1000 serial steps, other sum "
+                          "order); fp64 1e-10" + ("; two runs bit-identical"
+                                                  if kname in ("K5", "K8") else "")),
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(plain, runs=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "serial_steps": T - 1 if kname in ("K6", "K8") else int(li.max()) - 1,
+        })
+    return out
+
+
+def lattice_counters():
+    """The launch counters of K3-K8's wrappers."""
+    from torch_asg_tpu_torch.ops.kernels import fac_kernels, fcc_kernels
+
+    return (fcc_kernels.fcc_fwd_pallas, fcc_kernels.fcc_beta_pallas,
+            fcc_kernels.fcc_bwd_pallas, fac_kernels.fac_alpha_pallas,
+            fac_kernels.fac_beta_pallas, fac_kernels.fac_bwd_pallas)
+
+
 def check_grads_vs_scan(rng, dev):
     """asg_loss gradients through the fused tier (K1 with stores -> K2 ->
-    scatter_to_full) against the scan tier's autograd gradients, fp64, at
-    the training shape (B=64, T=1000, N=30, S=50, ragged lengths)."""
+    scatter_to_full) and through the per-lattice tier (K3, K6, K7 -> K5,
+    K8 -> scatter_to_full) against the scan tier's autograd gradients,
+    fp64, at the training shape (B=64, T=1000, N=30, S=50, ragged
+    lengths)."""
     from torch_asg_tpu_torch import asg_loss
     from torch_asg_tpu_torch.ops.kernels.asg_kernels import _bwd_kernel, _fwd_store_kernel
 
     trans, inputs, targets, li, lo = lattice_case(rng, dev, torch.float64, B, T, N, S,
                                                   (T // 2, T), (10, S))
     grads, losses = {}, {}
-    before = (_fwd_store_kernel.launches, _bwd_kernel.launches)
-    for impl in ("fused", "scan"):
+    counters = (_fwd_store_kernel, _bwd_kernel, *lattice_counters())
+    before = {c.__name__: c.launches for c in counters}
+    for impl in ("fused", "pallas", "scan"):
         tr = trans.clone().requires_grad_(True)
         em = inputs.clone().requires_grad_(True)
         loss = asg_loss(tr, em, targets, li, lo, impl=impl)
         grads[impl] = torch.autograd.grad(loss, (tr, em))
         losses[impl] = loss.detach()
-    launched = (_fwd_store_kernel.launches - before[0], _bwd_kernel.launches - before[1])
-    check(launched == (1, 1), f"the fused tier's K1s and K2 launches: {launched}")
-    torch.testing.assert_close(losses["fused"], losses["scan"], rtol=1e-9, atol=0)
+    launched = {c.__name__: c.launches - before[c.__name__] for c in counters}
+    want = dict.fromkeys(before, 1)
+    want["fcc_beta_pallas"] = 0
+    check(launched == want, f"the fused and per-lattice tiers' launches: {launched}")
     errs = {}
-    for label, g, w in zip(("transition", "emissions"), grads["fused"], grads["scan"]):
-        assert_near(f"fused vs scan grad {label}", g, w, 1e-8, 1e-10)
-        errs[label] = max_err(g, w)
+    for tier in ("fused", "pallas"):
+        torch.testing.assert_close(losses[tier], losses["scan"], rtol=1e-9, atol=0)
+        for label, g, w in zip(("transition", "emissions"), grads[tier], grads["scan"]):
+            assert_near(f"{tier} vs scan grad {label}", g, w, 1e-8, 1e-10)
+            errs[f"{tier}_{label}"] = max_err(g, w)
     emit({"phase": "grads", "dtype": "float64", "shape": [B, T, N, S],
           "tolerance": "rtol 1e-8, atol 1e-10 x max|scan gradient|",
-          "max_abs_err_vs_scan": errs, "loss": float(losses["fused"])})
+          "max_abs_err_vs_scan": errs, "loss": float(losses["fused"]),
+          "launches": launched})
 
 
 def flax_layout_params(rng, cfg):
@@ -559,14 +708,10 @@ def flax_layout_params(rng, cfg):
 
 def serve(rng, dev, counters):
     from torch_asg_tpu_torch import asg_loss, asg_scores, viterbi_decode
-    from torch_asg_tpu_torch.convert import transition_from_numpy, wav2letter_from_flax
-    from torch_asg_tpu_torch.models import Wav2Letter
+    from torch_asg_tpu_torch.convert import transition_from_numpy
     from torch_asg_tpu_torch.runtime import collapse_path
 
-    cfg = dict(num_labels=N, channels=256, depth=6, head_channels=512,
-               frontend_kernel=11, frontend_stride=2, kernel=7)
-    model = Wav2Letter(in_features=FEATURES, device=dev, **cfg).eval()
-    model.load_state_dict(wav2letter_from_flax(flax_layout_params(rng, cfg)))
+    model = letter_model(rng, dev).eval()
     trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
                                   dtype=torch.float32)
     requests = []
@@ -680,17 +825,12 @@ def train(rng, dev):
     device synchronise."""
     from torch_asg_tpu_torch import asg_loss
     from torch_asg_tpu_torch.asg import _spread_guard
-    from torch_asg_tpu_torch.convert import wav2letter_from_flax
-    from torch_asg_tpu_torch.models import (Wav2Letter, create_train_state, loss_fn,
-                                            make_train_step)
+    from torch_asg_tpu_torch.models import create_train_state, loss_fn, make_train_step
     from torch_asg_tpu_torch.ops.kernels.asg_kernels import (_bwd_kernel,
                                                               _fwd_store_kernel,
                                                               asg_scores_fused)
 
-    cfg = dict(num_labels=N, channels=256, depth=6, head_channels=512,
-               frontend_kernel=11, frontend_stride=2, kernel=7)
-    model = Wav2Letter(in_features=FEATURES, device=dev, **cfg)
-    model.load_state_dict(wav2letter_from_flax(flax_layout_params(rng, cfg)))
+    model = letter_model(rng, dev)
     state = create_train_state(model)
     step = make_train_step(model, state.optimizer)
     utts, labels = train_batch(rng)
@@ -788,7 +928,7 @@ def train(rng, dev):
           "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
           "criterion_fwd_bwd_ms": criterion_ms, "spread_guard_ms": guard_ms,
           "criterion_frames_per_s": frames / (criterion_ms * 1e-3)})
-    return {k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")}
+    return {k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")}, (utts, labels)
 
 
 def device_profile(fn):
@@ -959,15 +1099,11 @@ def align(rng, dev):
     utterances after one warm-up request: encoder -> viterbi_align ->
     alignment_segments."""
     from torch_asg_tpu_torch import alignment_segments, viterbi_align
-    from torch_asg_tpu_torch.convert import transition_from_numpy, wav2letter_from_flax
-    from torch_asg_tpu_torch.models import Wav2Letter
+    from torch_asg_tpu_torch.convert import transition_from_numpy
     from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (align_backtrace_pallas,
                                                                  align_forward_pallas)
 
-    cfg = dict(num_labels=N, channels=256, depth=6, head_channels=512,
-               frontend_kernel=11, frontend_stride=2, kernel=7)
-    model = Wav2Letter(in_features=FEATURES, device=dev, **cfg).eval()
-    model.load_state_dict(wav2letter_from_flax(flax_layout_params(rng, cfg)))
+    model = letter_model(rng, dev).eval()
     trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
                                   dtype=torch.float32)
     requests = []
@@ -1022,6 +1158,247 @@ def align(rng, dev):
     return launches
 
 
+def letter_model(rng, dev):
+    """The full-width letter Wav2Letter (the JAX package's defaults) with
+    random weights from ``rng``."""
+    from torch_asg_tpu_torch.convert import wav2letter_from_flax
+    from torch_asg_tpu_torch.models import Wav2Letter
+
+    cfg = dict(num_labels=N, channels=256, depth=6, head_channels=512,
+               frontend_kernel=11, frontend_stride=2, kernel=7)
+    model = Wav2Letter(in_features=FEATURES, device=dev, **cfg)
+    model.load_state_dict(wav2letter_from_flax(flax_layout_params(rng, cfg)))
+    return model
+
+
+def train_pallas(rng, dev, utts, labels):
+    """The full-width Wav2Letter trains on ``train``'s batch through the
+    per-lattice tier, ``make_train_step(model, opt, impl='pallas')``: one
+    warm-up step, then 5 timed steps, each ending in a device synchronise.
+    Each step must launch K3, K5, K6, K7 and K8 once and K4, K1, K1s, K2 and
+    K9 never; a score-only ``asg_scores(impl='pallas')`` call must launch K4
+    and K7 once and nothing else.  Returns the launch counts of the timed
+    steps (K4: of the score-only call)."""
+    from torch_asg_tpu_torch import asg_loss, asg_scores
+    from torch_asg_tpu_torch.models import create_train_state, loss_fn, make_train_step
+    from torch_asg_tpu_torch.ops.kernels.asg_kernels import (_bwd_kernel,
+                                                              _fwd_store_kernel,
+                                                              asg_scores_fused)
+    from torch_asg_tpu_torch.ops.kernels.bigvocab_kernels import fcc_dual_streams
+
+    model = letter_model(rng, dev)
+    state = create_train_state(model)
+    step = make_train_step(model, state.optimizer, impl="pallas")
+    batch = prepare_batch(utts, labels, dev)
+    li = model.output_length(batch["feature_lengths"]).to(torch.int32)
+    targets, lo = batch["targets"], batch["target_lengths"]
+
+    # the first step's gradients, per-lattice tier against the scan tier (fp32)
+    with torch.no_grad():
+        em0 = model(batch["features"])
+    grads = {}
+    for impl in ("pallas", "scan"):
+        tr = state.transition.detach().clone().requires_grad_(True)
+        em = em0.clone().requires_grad_(True)
+        loss = asg_loss(tr, em, targets, li, lo, impl=impl)
+        grads[impl] = torch.autograd.grad(loss, (tr, em))
+    grad_errs = {}
+    for label, g, w in zip(("transition", "emissions"), grads["pallas"], grads["scan"]):
+        check(bool(torch.isfinite(g).all()), f"non-finite {label} gradient")
+        assert_near(f"train_pallas grad {label} vs scan", g, w, 1e-3, 1e-4)
+        grad_errs[label] = max_err(g, w)
+
+    def finite_grads():
+        return all(bool(torch.isfinite(p.grad).all())
+                   for p in (*model.parameters(), state.transition))
+
+    state, _ = step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    lattice = lattice_counters()
+    counters = (*lattice, asg_scores_fused, _fwd_store_kernel, _bwd_kernel, fcc_dual_streams)
+    for c in counters:
+        c.launches = 0
+    losses, latencies = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        check(finite_grads(), "non-finite gradient in a per-lattice training step")
+    launches = {c.__name__: c.launches for c in counters}
+    want = dict.fromkeys(launches, 0)
+    want.update({c.__name__: 5 for c in lattice})
+    want["fcc_beta_pallas"] = 0
+    check(launches == want,
+          f"each step must launch K3, K5, K6, K7, K8 once and K4, K1, K1s, K2, K9 never: "
+          f"{launches}")
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    with torch.no_grad():
+        loss_after = float(loss_fn(model, state, batch, impl="pallas"))
+    check(loss_after < losses[0], f"loss did not fall: {losses[0]} -> {loss_after}")
+    median_ms = statistics.median(latencies)
+
+    # a score-only call: K4 and K7, nothing else
+    for c in counters:
+        c.launches = 0
+    with torch.no_grad():
+        full, aligned = asg_scores(state.transition, em0, targets, li, lo, impl="pallas")
+        ref_full, ref_aligned = asg_scores(state.transition, em0, targets, li, lo, impl="scan")
+    torch.cuda.synchronize()
+    score_only = {c.__name__: c.launches for c in counters}
+    want = dict.fromkeys(score_only, 0)
+    want.update(fcc_beta_pallas=1, fac_beta_pallas=1)
+    check(score_only == want, f"a score-only call must launch K4 and K7 only: {score_only}")
+    torch.testing.assert_close(full, ref_full, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(aligned, ref_aligned, rtol=1e-4, atol=1e-3)
+
+    # one more step, synchronised after each stage
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    state.optimizer.zero_grad(set_to_none=True)
+    em = model(batch["features"])
+    mark()
+    loss = asg_loss(state.transition, em, targets, li, lo, impl="pallas")
+    mark()
+    loss.backward()
+    mark()
+    state.optimizer.step()
+    mark()
+    stages = dict(zip(("encoder_forward", "asg_loss_forward", "backward", "optimizer_step"),
+                      [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]))
+
+    em_fixed = em0.detach().clone().requires_grad_(True)
+    tr_fixed = state.transition.detach().clone().requires_grad_(True)
+
+    def criterion():
+        out = asg_loss(tr_fixed, em_fixed, targets, li, lo, impl="pallas")
+        torch.autograd.grad(out, (tr_fixed, em_fixed))
+
+    criterion_ms = time_ms(criterion)
+    profiled = device_profile(criterion)
+    profiled["idle_share"] = 1.0 - profiled["device_busy_ms"] / criterion_ms
+    frames = int(li.sum())
+    emit({"phase": "train_pallas", "card": torch.cuda.get_device_name(0), "batch": B,
+          "frames_max": int(li.max()), "frames_sum": frames,
+          "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
+          "frames_per_s": frames / (median_ms * 1e-3), "losses": losses,
+          "loss_after": loss_after, "launches": launches,
+          "score_only_launches": score_only,
+          "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
+          "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
+          "criterion_fwd_bwd_ms": criterion_ms,
+          "criterion_frames_per_s": frames / (criterion_ms * 1e-3),
+          "criterion_profile": profiled})
+    counts = {c.__name__: launches[c.__name__] for c in lattice}
+    counts["fcc_beta_pallas"] = score_only["fcc_beta_pallas"]
+    return counts
+
+
+# Posteriors of the per-lattice kernels against the scan tier's, fp32: the
+# chains reach |alpha + beta| of a few thousand nats at T=1000, where one
+# float32 rounding is about 2.4e-4, and each posterior carries a few.
+POST_TOL = 2e-3
+
+
+def serve_posterior(rng, dev):
+    """The full-width letter model answers 3 requests of 64 utterances after
+    one warm-up request: encoder -> posterior_decode ('auto', hence the
+    per-lattice tier: K3 and K5) -> collapse_path.  K3 and K5 must launch
+    once a request and K4 never; the posteriors must agree with the scan
+    tier's within POST_TOL, and the paths with the scan tier's wherever the
+    top two posteriors are more than 2 * POST_TOL apart."""
+    from torch_asg_tpu_torch import fcc_posteriors, posterior_decode
+    from torch_asg_tpu_torch.convert import transition_from_numpy
+    from torch_asg_tpu_torch.ops.posteriors import _pallas_posteriors
+    from torch_asg_tpu_torch.runtime import collapse_path
+
+    model = letter_model(rng, dev).eval()
+    trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
+                                  dtype=torch.float32)
+    requests = []
+    for _ in range(4):
+        feat_lengths = rng.integers(1000, 2001, size=B)
+        feats = rng.normal(size=(B, 2000, FEATURES)).astype(np.float32)
+        requests.append([torch.as_tensor(x, device=dev) for x in (feats, feat_lengths)])
+    torch.cuda.synchronize()
+
+    def answer(feats, feat_lengths, sync=lambda: None):
+        marks = [time.perf_counter()]
+
+        def mark():
+            sync()
+            marks.append(time.perf_counter())
+
+        with torch.no_grad():
+            em = model(feats)
+            li = model.output_length(feat_lengths).to(torch.int32)
+            mark()
+            dec = posterior_decode(trans, em, li)
+            mark()
+            paths = dec.paths.cpu().numpy()
+            hyps = [collapse_path(paths[:, b], ALPHABET, MAX_REPS) for b in range(B)]
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return (em, li, dec, hyps), [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    answer(*requests[0])  # warm-up
+    counters = lattice_counters()
+    for c in counters:
+        c.launches = 0
+    latencies, outs = [], []
+    for req in requests[1:]:
+        out, stage_ms = answer(*req)
+        latencies.append(sum(stage_ms))
+        outs.append(out)
+    launches = {c.__name__: c.launches for c in counters}
+    want = dict.fromkeys(launches, 0)
+    want.update(fcc_fwd_pallas=3, fcc_bwd_pallas=3)
+    check(launches == want, f"each request must launch K3 and K5 once, K4 never: {launches}")
+    _, stage_ms = answer(*requests[1], sync=torch.cuda.synchronize)
+    stages = dict(zip(("encoder", "posterior_decode", "paths_to_host_and_collapse"),
+                      stage_ms))
+
+    for em, li, dec, hyps in outs:
+        check(tuple(em.shape) == (T, B, N), f"emissions shape {tuple(em.shape)}")
+        check(bool(torch.isfinite(dec.scores).all()), "non-finite decode scores")
+        check(bool(((dec.scores > 0) & (dec.scores <= li + 1e-3)).all()),
+              "decode scores outside (0, L_in]")
+        check(all(len(h) > 0 for h in hyps), "empty hypothesis")
+    # the first request against the scan tier on the card
+    em, li, dec, _ = outs[0]
+    with torch.no_grad():
+        post = _pallas_posteriors(trans, em, li)
+        ref_post = fcc_posteriors(trans, em, li)
+        ref = posterior_decode(trans, em, li, impl="scan")
+    post_err = float((post - ref_post).abs().max())
+    check(post_err <= POST_TOL, f"posteriors differ from the scan tier's by {post_err}")
+    valid = torch.arange(T, device=dev)[:, None] < li[None, :]
+    row_sums = post.sum(dim=2)
+    check(bool(((row_sums - 1).abs()[valid] < 1e-4).all())
+          and bool((row_sums[~valid] == 0).all()), "posterior rows must sum to 1, 0 past L_in")
+    top2 = torch.topk(ref_post, 2, dim=2).values
+    decided = valid & (top2[..., 0] - top2[..., 1] > 2 * POST_TOL)
+    check(torch.equal(dec.paths[decided], ref.paths[decided]),
+          "paths differ from the scan tier's where the posteriors decide")
+    check(bool((dec.paths[~valid] == -1).all()), "paths must hold -1 past L_in")
+    check(bool(((dec.scores - ref.scores).abs() <= POST_TOL * li).all()),
+          "decode scores differ from the scan tier's")
+    emit({"phase": "serve_posterior", "card": torch.cuda.get_device_name(0),
+          "requests": 3, "batch": B, "frames": T, "latency_ms": latencies,
+          "median_latency_ms": statistics.median(latencies), "launches": launches,
+          "stage_ms_second_request": stages, "posterior_tolerance": POST_TOL,
+          "max_abs_err_posteriors_vs_scan": post_err,
+          "frames_decided": int(decided.sum()), "frames_valid": int(valid.sum()),
+          "paths_equal_scan_share": float((dec.paths == ref.paths)[valid].float().mean()),
+          "hypothesis_lengths_first_request": [len(h) for h in outs[0][3][:8]]})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
@@ -1054,15 +1431,22 @@ def main():
     k1s, k2 = check_k1s_k2(rng, dev)
     k9 = check_k9(rng, dev)
     k12, k13 = check_align_kernels(rng, dev)
-    for k in (k1, k10, k11, k1s, k2, k9, k12, k13):
+    # the per-lattice phases draw from streams of their own, so the earlier
+    # phases see the same data as before they were added
+    lattice = check_lattice_kernels(np.random.default_rng([SEED, 4]), dev)
+    for k in (k1, k10, k11, k1s, k2, k9, k12, k13, *lattice):
         emit({"phase": "kernel", **k})
     check_grads_vs_scan(rng, dev)
 
     counters = (asg_scores_fused, viterbi_forward_pallas, viterbi_backtrace_pallas)
     launches = serve(rng, dev, counters)
-    launches.update(train(rng, dev))
+    train_launches, (utts, labels) = train(rng, dev)
+    launches.update(train_launches)
     launches.update(train_wordpiece(rng, dev))
     launches.update(align(rng, dev))
+    rng_pallas = np.random.default_rng([SEED, 41])
+    launches.update(train_pallas(rng_pallas, dev, utts, labels))
+    serve_posterior(rng_pallas, dev)
 
     src = "torch_asg_tpu_torch/ops/kernels/csrc/"
     meta = (
@@ -1083,12 +1467,15 @@ def main():
         (k13, "align_backtrace_pallas", src + "viterbi.cu",
          "torch_asg_tpu/ops/pallas/viterbi_kernels.py:301"),
     )
+    meta += tuple((k, k["wrapper"], k["source"], k["replaces"]) for k in lattice)
     kernels = [{
         "name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[wrapper], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
     } for k, wrapper, source, replaces in meta]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel never launched on its path: {[k['name'] for k in kernels]}")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,6 +21,8 @@ import torch_asg_tpu_torch.models.train, torch_asg_tpu_torch.ops.kernels.asg_ker
 import torch_asg_tpu_torch.ops.fcc, torch_asg_tpu_torch.ops.fac, torch_asg_tpu_torch.ops.semiring
 import torch_asg_tpu_torch.ops.kernels.bigvocab_kernels
 import torch_asg_tpu_torch.ops.kernels.viterbi_kernels, torch_asg_tpu_torch.ops.kernels.common
+import torch_asg_tpu_torch.ops.kernels.fcc_kernels, torch_asg_tpu_torch.ops.kernels.fac_kernels
+import torch_asg_tpu_torch.ops.posteriors
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'torch_asg_tpu'))
 print(bad)

@@ -179,15 +179,20 @@ def test_spread_guard():
 
 def test_impl_contract():
     trans, inputs, targets, li, lo = _torch(*_case(12, 6, 2, 3, 5))
-    for impl, err in (("pallas", NotImplementedError), ("bogus", ValueError)):
-        with pytest.raises(err, match=impl):
-            pt.asg_loss(trans, inputs, targets, li, lo, impl=impl)
+    with pytest.raises(ValueError, match="bogus"):
+        pt.asg_loss(trans, inputs, targets, li, lo, impl="bogus")
+    # the per-lattice tier runs, and agrees with the scan tier
+    torch.testing.assert_close(
+        pt.asg_loss(trans, inputs, targets, li, lo, reduction="none", impl="pallas"),
+        pt.asg_loss(trans, inputs, targets, li, lo, reduction="none", impl="scan"),
+        rtol=1e-10, atol=1e-10)
     with pytest.raises(ValueError, match="reduction"):
         pt.asg_loss(trans, inputs, targets, li, lo, reduction="avg")
     wide = torch.zeros((2, 2, 513), dtype=torch.float64)
     wide_trans = torch.zeros((513, 513), dtype=torch.float64)
-    with pytest.raises(ValueError, match="512.*impl='matmul'"):
-        pt.asg_loss(wide_trans, wide, targets, impl="fused")
+    for impl in ("fused", "pallas"):
+        with pytest.raises(ValueError, match="512.*impl='matmul'"):
+            pt.asg_loss(wide_trans, wide, targets, impl=impl)
     # past 512 labels 'auto' runs the matmul tier
     auto = pt.asg_loss(wide_trans, wide, targets, reduction="none")
     assert torch.equal(auto, pt.asg_loss(wide_trans, wide, targets, reduction="none",

@@ -215,3 +215,35 @@ def test_dropout_free_model_is_deterministic():
     _, l1 = step(state, batch)
     _, l2 = step(state, batch)
     assert float(l1) == float(l2)
+
+
+def test_pallas_train_steps_match_jax():
+    """``make_train_step(impl='pallas')``: three AdamW steps of the
+    per-lattice tier (K3, K6, K7 forward and K5, K8 backward, as plain
+    versions on CPU tensors) against the JAX package's jitted
+    ``make_train_step(impl='pallas')`` (its Pallas kernels in interpret
+    mode), fp64, from the same weights: the bounds of
+    ``test_train_steps_match_jax``."""
+    jmodel, params = _flax_params()
+    batch = _batch(np.random.default_rng(6))
+    jparams = {"encoder": jax.tree_util.tree_map(jnp.asarray, params),
+               "transition": jnp.zeros((CFG["num_labels"],) * 2, jnp.float64)}
+    opt = optax.adamw(3e-4)
+    jstate = JaxTrainState(jparams, opt.init(jparams), jnp.zeros((), jnp.int32))
+    jstep = jax.jit(jax_make_train_step(jmodel, opt, impl="pallas"))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    model = _port_model(params)
+    state = create_train_state(model)
+    step = make_train_step(model, state.optimizer, impl="pallas")
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for _ in range(3):
+        jstate, jloss = jstep(jstate, jbatch)
+        state, loss = step(state, tbatch)
+        np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), rtol=1e-9)
+    got = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    want = wav2letter_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params["encoder"]))
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w.numpy(), rtol=0, atol=1e-12, err_msg=name)
+    np.testing.assert_allclose(state.transition.detach().numpy(),
+                               np.asarray(jstate.params["transition"]), rtol=0, atol=1e-12)

@@ -6,14 +6,19 @@ It carries the serving path (the Wav2Letter encoder, ASG scores and 1-best
 Viterbi decoding), the training path (ASG loss gradients, ``ASGLoss`` and
 the Wav2Letter train step in ``models``), wordpiece-vocabulary training
 through the matmul tier (``impl='matmul'``, which ``'auto'`` picks past 512
-labels), and forced alignment (``viterbi_align``, ``alignment_segments``).  Entry points run where their
-tensors lie: CUDA tensors launch the kernels, CPU tensors run each kernel's
-plain PyTorch version.
+labels), the per-lattice tier (``impl='pallas'``: one set of kernels for the
+full lattice and one for the aligned lattice), forced alignment
+(``viterbi_align``, ``alignment_segments``), and the lattice posteriors
+(``fcc_posteriors``, ``fac_posteriors``) with the minimum-frame-risk decode
+``posterior_decode``.  Entry points run where their tensors lie: CUDA
+tensors launch the kernels, CPU tensors run each kernel's plain PyTorch
+version.
 """
 
 from .asg import ASGLoss, asg_loss, asg_scores
 from .ops.fac import fac_score
 from .ops.fcc import fcc_score
+from .ops.posteriors import fac_posteriors, fcc_posteriors, posterior_decode
 from .ops.viterbi import (AlignmentResult, ViterbiResult, alignment_segments,
                          viterbi_align, viterbi_decode)
 
@@ -25,6 +30,9 @@ __all__ = [
     "asg_scores",
     "fcc_score",
     "fac_score",
+    "fcc_posteriors",
+    "fac_posteriors",
+    "posterior_decode",
     "viterbi_decode",
     "viterbi_align",
     "alignment_segments",

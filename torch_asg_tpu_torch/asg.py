@@ -16,10 +16,16 @@ Tiers (``impl``):
     dual-stream kernel K9 runs both chains with one pass over the matrix
     per paired step, and the transition gradient is one (N, TB) x (TB, N)
     product.  The FAC side is the scan tier's ``fac_score``.
+  * ``'pallas'``: the per-lattice tier, one set of kernels a lattice
+    (``ops/kernels/fcc_kernels.py``, ``ops/kernels/fac_kernels.py``):
+    log-domain FCC chains, alpha and beta together (K3) or beta alone for
+    a score-only call (K4), and their backward (K5); the FAC alpha (K6),
+    beta (K7) and backward (K8), then ``scatter_to_full``.  Kernels on
+    CUDA tensors, their plain versions on CPU tensors.  Takes up to
+    ``_FUSED_MAX_WIDTH`` labels and target slots.
   * ``'auto'``: ``'fused'``, or ``'matmul'`` past ``_FUSED_MAX_WIDTH``.
   * ``'scan'``: the log-domain scan oracle (``ops/fcc.py``, ``ops/fac.py``),
     exact for any finite transition magnitudes.
-  * ``'pallas'`` is not ported yet and raises ``NotImplementedError``.
 
 Every tier is differentiable in ``transition`` and ``inputs``; a call that
 autograd will not differentiate computes the scores alone.  ``precision=``
@@ -37,6 +43,8 @@ from .ops.fac import fac_score
 from .ops.fcc import fcc_score, fcc_score_matmul
 from .ops.kernels.asg_kernels import asg_scores_fused
 from .ops.kernels.common import DEFAULT_DEVICE
+from .ops.kernels.fac_kernels import fac_score_pallas
+from .ops.kernels.fcc_kernels import fcc_score_pallas
 from .ops.semiring import strict_chain_precision
 from .utils.lengths import default_lengths
 
@@ -44,8 +52,9 @@ REDUCTIONS = ("mean", "sum", "none")
 IMPLS = ("scan", "pallas", "fused", "matmul", "auto")
 
 # Exp-domain safety bound (nats) on the finite transition spread
-# max(finite T) - min(finite T).  The fused tier scales its FCC chain by
-# exp(T - max T); past the fp32 exp range scores silently go -inf.  -inf
+# max(finite T) - min(finite T).  The fused, matmul and per-lattice tiers
+# contract against exp(T - max T); past the fp32 exp range scores silently
+# go -inf (and the per-lattice backward's exp(-log s) overflows).  -inf
 # entries are exempt: they are the semiring zero and fully supported.
 _EXP_SPREAD_LIMIT = 60.0
 
@@ -138,6 +147,13 @@ def _scores_matmul(transition, inputs, targets, li, lo):
     )
 
 
+def _scores_pallas(transition, inputs, targets, li, lo):
+    return (
+        fcc_score_pallas(transition, inputs, li),
+        fac_score_pallas(transition, inputs, targets, li, lo),
+    )
+
+
 def _resolve_impl(impl: str, num_labels: int = 0, s_total: int = 0):
     """Returns scores_fn(transition, inputs, targets, li, lo) -> (full, aligned)."""
     if max(num_labels, s_total) > _FUSED_MAX_WIDTH:
@@ -153,10 +169,7 @@ def _resolve_impl(impl: str, num_labels: int = 0, s_total: int = 0):
     if impl == "matmul":
         return _scores_matmul
     if impl == "pallas":
-        raise NotImplementedError(
-            "impl='pallas' (the per-lattice kernel tier) is not ported yet: "
-            "ROADMAP.md Queue 1 item 5."
-        )
+        return _scores_pallas
     if impl == "scan":
         return _scores_scan
     if impl in ("fused", "auto"):
@@ -206,7 +219,8 @@ def asg_loss(
       inputs: (T, B, N) emission scores.  targets: (B, S) int labels.
       input_lengths / target_lengths: (B,) ints; default = full length.
       reduction: 'mean' | 'sum' | 'none'.
-      impl: 'auto' | 'fused' | 'matmul' | 'scan' (see the module docstring).
+      impl: 'auto' | 'fused' | 'pallas' | 'matmul' | 'scan' (see the module
+        docstring).
       temperature: generalized-semiring temperature tau:
         loss_tau = tau * loss(T / tau, I / tau).
       precision: None (the ambient ``semiring.chain_precision()``),

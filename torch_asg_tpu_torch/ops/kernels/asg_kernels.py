@@ -30,13 +30,11 @@ exponents <= 0.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 from torch.autograd.function import once_differentiable
 
-from .common import (KERNEL_DTYPES, check_tensor, ptr, raise_on_error,
-                     stream_ptr, use_kernel, wants_grad)
+from .common import (KERNEL_DTYPES, c_function, check_tensor, ptr,
+                     raise_on_error, stream_ptr, use_kernel, wants_grad)
 from ..fac import (AlignedLattice, _shift_left_s, _shift_right_s, make_aligned,
                    scatter_to_full)
 from ..semiring import NEG_INF, logaddexp
@@ -264,7 +262,7 @@ def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
     sfac = torch.empty((num_batches,), dtype=dt, device=dev)
     if num_batches == 0:
         return sful, sfac
-    fn = _c_fn("asg_fwd", "asg_fwd_scores", dt, 9)
+    fn = c_function("asg_fwd", "asg_fwd_scores", dt, 9, 4)
     with torch.cuda.device(dev):
         err = fn(ptr(inputs), ptr(aligned), ptr(e), ptr(self_trans),
                  ptr(next_trans), ptr(li), ptr(lo), ptr(sful), ptr(sfac),
@@ -290,7 +288,7 @@ def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
     sfac = torch.empty((num_batches,), dtype=dt, device=dev)
     if num_batches == 0:
         return pb, qb, sful, sfac
-    fn = _c_fn("asg_fwd", "asg_fwd_store", dt, 11)
+    fn = c_function("asg_fwd", "asg_fwd_store", dt, 11, 4)
     with torch.cuda.device(dev):
         err = fn(ptr(inputs), ptr(aligned), ptr(e), ptr(self_trans),
                  ptr(next_trans), ptr(li), ptr(lo), ptr(pb), ptr(qb), ptr(sful),
@@ -326,7 +324,7 @@ def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
     if num_batches == 0:
         return gi, ga, d_trans.zero_(), gself, gnext
     partial = torch.empty((num_batches, num_labels, num_labels), dtype=dt, device=dev)
-    fn = _c_fn("asg_bwd", "asg_bwd", dt, 17)
+    fn = c_function("asg_bwd", "asg_bwd", dt, 17, 4)
     with torch.cuda.device(dev):
         err = fn(ptr(inputs), ptr(aligned), ptr(e), ptr(e_t), ptr(self_trans),
                  ptr(next_trans), ptr(li), ptr(pb), ptr(qb), ptr(g_full),
@@ -336,17 +334,6 @@ def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
     raise_on_error(fn.__name__, err)
     _bwd_kernel.launches += 1
     return gi, ga, d_trans, gself, gnext
-
-
-def _c_fn(lib, stem, dtype, num_ptrs):
-    """The C entry point ``<stem>_{f32,f64}`` of ``csrc/<lib>.cu``: pointer
-    arguments, then the four sizes (T, B, N, S), then the stream."""
-    from ._build import load
-
-    fn = getattr(load(lib), f"{stem}_f32" if dtype == torch.float32 else f"{stem}_f64")
-    fn.argtypes = [ctypes.c_void_p] * num_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _kernel_inputs(transition, inputs, targets, input_lengths, target_lengths):

@@ -60,6 +60,19 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def c_function(lib: str, stem: str, dtype, num_ptrs: int, num_sizes: int):
+    """The C entry point ``<stem>_{f32,f64}`` of ``csrc/<lib>.cu``, built at
+    first use: ``num_ptrs`` pointer arguments, then ``num_sizes`` int sizes,
+    then the stream; it returns the launch's ``cudaError_t``."""
+    from ._build import load
+
+    fn = getattr(load(lib), f"{stem}_f32" if dtype == torch.float32 else f"{stem}_f64")
+    fn.argtypes = ([ctypes.c_void_p] * num_ptrs + [ctypes.c_int] * num_sizes
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def raise_on_error(fn_name: str, err: int) -> None:
     """The C entry points return the launch's ``cudaError_t``."""
     if err != 0:

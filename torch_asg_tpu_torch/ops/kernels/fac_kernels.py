@@ -1,0 +1,240 @@
+"""The force-aligned (numerator) lattice's per-lattice kernels: the
+log-domain alpha chain (K6), the beta chain (K7) and the backward (K8).
+
+``fac_score_pallas`` is the FAC half of the per-lattice tier
+(``impl='pallas'``).  The aligned lattice (``ops/fac.py::make_aligned``) is
+(B, S) wide with two in-edges a state, so a step is two shifted adds and an
+elementwise logaddexp:
+    alpha[t, s] = A[t, s] + logaddexp(alpha[t-1, s] + self[s],
+                                      alpha[t-1, s-1] + next[s-1])
+from alpha[0] = A[0] on slot 0 only, and
+    beta[t, s] = logaddexp(self[s] + x[s], next[s] + x[s+1]),
+    x = A[t+1] + beta[t+1],
+re-seeded per element at t = L_in - 1 with 0 at s = L_out - 1.  The gathered
+emissions A are -inf outside ``t < L_in`` and ``s < L_out``, so K6 needs no
+lengths.  The score is beta[0, 0] + A[0, 0].
+
+A call that autograd will not differentiate runs K7 alone.  Otherwise
+``_FacPallas`` runs K6 and K7 forward, and K8 backward: the aligned
+posteriors softmax(alpha + beta) * g and the self and diagonal edge
+fractions (exponents <= 0) summed over t >= 1 into gself and gnext (shifted
+left by one slot, 0 fill), which ``scatter_to_full`` maps back to (N, N)
+and (T, B, N) without atomics.
+
+On CUDA tensors the wrappers launch the hand-written kernels of
+``csrc/fac.cu``; on CPU tensors they run the plain versions beside them.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from .common import (KERNEL_DTYPES, c_function, check_tensor, ptr,
+                     raise_on_error, stream_ptr, use_kernel, wants_grad)
+from .fcc_kernels import PER_LATTICE_MAX_WIDTH
+from ..fac import (AlignedLattice, _alpha_scan, _shift_left_s, _shift_right_s,
+                   make_aligned, scatter_to_full)
+from ..semiring import NEG_INF, logaddexp
+
+
+def fac_alpha_plain(lat: AlignedLattice) -> torch.Tensor:
+    """Plain version of K6: alpha (T, B, S).  The scan tier's alpha loop is
+    the same recursion from the same seed."""
+    return _alpha_scan(lat)
+
+
+def fac_beta_plain(lat: AlignedLattice, input_lengths, target_lengths):
+    """Plain version of K7: beta (T, B, S), t descending over every frame,
+    with the per-element seed select at t = L_in - 1."""
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev = lat.inputs.device
+    li = input_lengths.to(device=dev, dtype=torch.long)[:, None]
+    lo = target_lengths.to(device=dev, dtype=torch.long)[:, None]
+    s_idx = torch.arange(s_total, device=dev)[None, :]
+    seed = torch.where(s_idx == lo - 1, 0.0, NEG_INF).to(lat.inputs.dtype)
+    beta = torch.empty_like(lat.inputs)
+    b = torch.where(li - 1 == t_total - 1, seed, NEG_INF)
+    beta[t_total - 1] = b
+    for t in range(t_total - 2, -1, -1):
+        x = lat.inputs[t + 1] + b
+        raw = logaddexp(lat.self_trans + x, lat.next_trans + _shift_left_s(x))
+        b = torch.where(li - 1 == t, seed, raw)
+        beta[t] = b
+    return beta
+
+
+def fac_bwd_plain(lat: AlignedLattice, alpha, beta, g):
+    """Plain version of K8: (dA (T, B, S), gself (B, S), gnext (B, S)).
+
+    Per frame the aligned posterior softmax(alpha + beta) * g (all--inf
+    rows give zeros); for t >= 1 it weights the self-loop fraction (1 at
+    slot 0) into gself and the diagonal fraction into a sum that becomes
+    gnext, shifted left by one slot with 0 fill."""
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev = lat.inputs.device
+    g = g.to(lat.inputs.dtype)[:, None]
+    first = torch.arange(s_total, device=dev)[None, :] == 0
+    gi_all = torch.empty_like(lat.inputs)
+    acc_self = torch.zeros_like(lat.self_trans)
+    acc_diag = torch.zeros_like(lat.self_trans)
+    for t in range(t_total):
+        a_cur = alpha[t]
+        gamma = a_cur + beta[t]
+        m = torch.amax(gamma, dim=1, keepdim=True)
+        m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        ex = torch.exp(gamma - m_safe)
+        denom = torch.sum(ex, dim=1, keepdim=True)
+        gi = ex / torch.where(denom == 0.0, torch.ones_like(denom), denom) * g
+        gi_all[t] = gi
+        if t > 0:
+            a_prev = alpha[t - 1]
+            sub = torch.where(torch.isfinite(a_cur), lat.inputs[t] - a_cur, NEG_INF)
+            hori = torch.exp(a_prev + lat.self_trans + sub)
+            diag = torch.exp(_shift_right_s(a_prev + lat.next_trans) + sub)
+            acc_self += gi * torch.where(first, 1.0, hori)
+            acc_diag += gi * diag
+    return gi_all, acc_self, _shift_left_s(acc_diag, fill=0.0)
+
+
+def _check_lattice(lat, li=None, lo=None):
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev, dt = lat.inputs.device, lat.inputs.dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"FAC kernels take float32 or float64, got {dt}")
+    if s_total > PER_LATTICE_MAX_WIDTH:
+        raise ValueError(f"FAC kernels take s_total <= {PER_LATTICE_MAX_WIDTH}; "
+                         f"got {s_total}")
+    check_tensor("aligned", lat.inputs, dt, (t_total, num_batches, s_total), dev)
+    check_tensor("self_trans", lat.self_trans, dt, (num_batches, s_total), dev)
+    check_tensor("next_trans", lat.next_trans, dt, (num_batches, s_total), dev)
+    for name, t in (("input_lengths", li), ("target_lengths", lo)):
+        if t is not None:
+            check_tensor(name, t, torch.int32, (num_batches,), dev)
+
+
+def _contiguous(lat: AlignedLattice) -> AlignedLattice:
+    return AlignedLattice(lat.inputs.contiguous(), lat.self_trans.contiguous(),
+                          lat.next_trans.contiguous(), lat.targets)
+
+
+def fac_alpha_pallas(lat: AlignedLattice) -> torch.Tensor:
+    """alpha (T, B, S): K6 on CUDA tensors, its plain version on CPU ones.
+    ``fac_alpha_pallas.launches`` counts the kernel's launches."""
+    if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans):
+        return fac_alpha_plain(lat)
+    lat = _contiguous(lat)
+    _check_lattice(lat)
+    t_total, num_batches, s_total = lat.inputs.shape
+    alpha = torch.empty_like(lat.inputs)
+    if alpha.numel() == 0:
+        return alpha
+    fn = c_function("fac", "fac_alpha", alpha.dtype, 4, 3)
+    dev = alpha.device
+    with torch.cuda.device(dev):
+        err = fn(ptr(lat.inputs), ptr(lat.self_trans), ptr(lat.next_trans), ptr(alpha),
+                 t_total, num_batches, s_total, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+    fac_alpha_pallas.launches += 1
+    return alpha
+
+
+def fac_beta_pallas(lat: AlignedLattice, input_lengths, target_lengths):
+    """beta (T, B, S): K7 on CUDA tensors, its plain version on CPU ones.
+    ``fac_beta_pallas.launches`` counts the kernel's launches."""
+    if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, input_lengths,
+                      target_lengths):
+        return fac_beta_plain(lat, input_lengths, target_lengths)
+    lat = _contiguous(lat)
+    li = input_lengths.to(torch.int32).contiguous()
+    lo = target_lengths.to(torch.int32).contiguous()
+    _check_lattice(lat, li, lo)
+    t_total, num_batches, s_total = lat.inputs.shape
+    beta = torch.empty_like(lat.inputs)
+    if beta.numel() == 0:
+        return beta
+    fn = c_function("fac", "fac_beta", beta.dtype, 6, 3)
+    dev = beta.device
+    with torch.cuda.device(dev):
+        err = fn(ptr(lat.inputs), ptr(lat.self_trans), ptr(lat.next_trans), ptr(li),
+                 ptr(lo), ptr(beta), t_total, num_batches, s_total, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+    fac_beta_pallas.launches += 1
+    return beta
+
+
+def fac_bwd_pallas(lat: AlignedLattice, alpha, beta, g):
+    """(dA (T, B, S), gself (B, S), gnext (B, S)): K8 on CUDA tensors, its
+    plain version on CPU ones.  Each thread sums its slot's edge terms over
+    t in order, so two runs give the same bits.
+    ``fac_bwd_pallas.launches`` counts the kernel's launches."""
+    if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, alpha, beta, g):
+        return fac_bwd_plain(lat, alpha, beta, g)
+    lat = _contiguous(lat)
+    _check_lattice(lat)
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev, dt = lat.inputs.device, lat.inputs.dtype
+    g = g.to(dt).contiguous()
+    check_tensor("alpha", alpha, dt, lat.inputs.shape, dev)
+    check_tensor("beta", beta, dt, lat.inputs.shape, dev)
+    check_tensor("g", g, dt, (num_batches,), dev)
+    gi = torch.empty_like(lat.inputs)
+    gself = torch.zeros_like(lat.self_trans)
+    gnext = torch.zeros_like(lat.self_trans)
+    if gi.numel() == 0:
+        return gi, gself, gnext
+    fn = c_function("fac", "fac_bwd", dt, 9, 3)
+    with torch.cuda.device(dev):
+        err = fn(ptr(lat.inputs), ptr(lat.self_trans), ptr(lat.next_trans), ptr(alpha),
+                 ptr(beta), ptr(g), ptr(gi), ptr(gself), ptr(gnext),
+                 t_total, num_batches, s_total, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+    fac_bwd_pallas.launches += 1
+    return gi, gself, gnext
+
+
+def _score(beta0, aligned0):
+    # every aligned path starts at (t = 0, s = 0)
+    return beta0[:, 0] + aligned0[:, 0]
+
+
+class _FacPallas(torch.autograd.Function):
+    """K6 and K7 forward, K8 + ``scatter_to_full`` backward."""
+
+    @staticmethod
+    def forward(ctx, transition, inputs, targets, input_lengths, target_lengths):
+        lat = make_aligned(transition, inputs, targets, input_lengths, target_lengths)
+        alpha = fac_alpha_pallas(lat)
+        beta = fac_beta_pallas(lat, input_lengths, target_lengths)
+        ctx.save_for_backward(*lat, alpha, beta)
+        ctx.num_labels = inputs.shape[2]
+        return _score(beta[0], lat.inputs[0])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        *fields, alpha, beta = ctx.saved_tensors
+        lat = AlignedLattice(*fields)
+        grads = fac_bwd_pallas(lat, alpha, beta, g)
+        grad_transition, grad_inputs = scatter_to_full(lat, *grads, ctx.num_labels)
+        return grad_transition, grad_inputs, None, None, None
+
+
+def fac_score_pallas(transition: torch.Tensor, inputs: torch.Tensor,
+                     targets: torch.Tensor, input_lengths: torch.Tensor,
+                     target_lengths: torch.Tensor) -> torch.Tensor:
+    """Per-lattice numerator scores, shape (B,); same contract as
+    ``ops.fac.fac_score``.  A call that autograd will not differentiate runs
+    K7 alone; otherwise K6 and K7 forward and K8 backward."""
+    transition = transition.to(inputs.dtype)
+    if wants_grad(transition, inputs):
+        return _FacPallas.apply(transition, inputs, targets, input_lengths,
+                                target_lengths)
+    lat = make_aligned(transition, inputs, targets, input_lengths, target_lengths)
+    beta = fac_beta_pallas(lat, input_lengths, target_lengths)
+    return _score(beta[0], lat.inputs[0])
+
+
+fac_alpha_pallas.launches = 0
+fac_beta_pallas.launches = 0
+fac_bwd_pallas.launches = 0
