@@ -13,11 +13,16 @@ Phases, each printed as one JSON line; any failure raises, so the exit code
 is nonzero:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``,
-     one process per source, all at once;
+     one process per source, all at once; the fp32 instances of K1's warp
+     route must not spill (``-Xptxas -v``);
   3. kernels: each kernel against its plain version on the card, at the
      serving and training shape B=64, T=1000, N=30, S=50 with ragged
      lengths, plus small fp64, degenerate-length and wide-label cases; times
-     are medians of CUDA-event timings.  K2 must give the same bits twice.
+     are medians of CUDA-event timings.  K1 and K1 with stores run on each
+     route that takes the case's width (the warp route up to 128 labels and
+     slots, at its width edges in fp32 and fp64; the block route in every
+     case), and both routes are timed at the serving shape, with the
+     microseconds per serial step.  K2 must give the same bits twice.
      K9 (the matmul tier's dual-stream kernel) at the wordpiece shape T=100,
      B=8, N=10,000 (fp32, ragged lengths) and at small fp64 shapes; twice
      with the same bits; and against the two matmul-tier scans, the
@@ -34,17 +39,20 @@ is nonzero:
   5. serve: the full-width Wav2Letter (random weights from a seed) answers 3
      requests of 64 utterances after one warm-up request: encoder ->
      viterbi_decode -> collapse_path -> asg_scores and asg_loss.  Every
-     serving kernel's launch count must rise in those 3 requests; the
-     outputs are checked against the log-domain oracle tiers, and one more
-     request, synchronised after each stage, shows where its time goes;
+     serving kernel's launch count must rise in those 3 requests, and every
+     K1 launch must take the route 'auto' takes; the outputs are checked
+     against the log-domain oracle tiers, one more request, synchronised
+     after each stage, shows where its time goes, and one asg_scores call
+     is timed and profiled alone (device busy time, idle share);
   6. train: the full-width Wav2Letter takes one warm-up step and 5 timed
      AdamW steps on one fixed batch of 64 utterances, prepared as
      ``examples/train_asg.py`` prepares them (cmvn -> pack_frames ->
-     encode_targets).  Each step must launch K1 with stores and K2 once and
-     the score-only K1 never; losses and gradients must be finite, the
-     first step's gradients must agree with the scan tier's, and the loss
-     must fall.  One more step, synchronised after each stage, and the
-     criterion's forward+backward alone show where the time goes;
+     encode_targets).  Each step must launch K1 with stores (on the route
+     'auto' takes) and K2 once and the score-only K1 never; losses and
+     gradients must be finite, the first step's gradients must agree with
+     the scan tier's, and the loss must fall.  One more step, synchronised
+     after each stage, and the criterion's forward+backward alone (timed and
+     profiled) show where the time goes;
   7. train_wordpiece: the full-width Wav2Letter with a 10,000-wordpiece head
      takes one warm-up step and 5 timed steps on a batch of 8 utterances
      (150-200 feature frames, 5-10 wordpiece targets), so 'auto' runs the
@@ -146,64 +154,141 @@ def lattice_case(rng, dev, dtype, b, t, n, s, li_range, lo_range, integer=False)
             cast(li, torch.int32), cast(lo, torch.int32))
 
 
-def check_k1(rng, dev):
-    """K1 against its plain version: fp32 at the serving shape (timed); fp64
-    at a small shape and on degenerate lengths (L_in = 1, L_out = 1,
-    L_out > L_in, L_in outside [1, T]); fp32 with E in opted-in shared
-    memory (N=200), with E in global memory (N=300), and at the widest
-    widths the front-end takes."""
+def k1_args(case):
+    """K1's arguments for a ``lattice_case``."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
 
-    def run_both(case):
-        trans, inputs, targets, li, lo = case
-        lat, e, _ = ak._prepare(trans, inputs, targets, li, lo)
-        args = (e, lat.self_trans.contiguous(), lat.next_trans.contiguous(),
-                inputs.contiguous(), lat.inputs.contiguous(), li, lo)
-        got = ak._fwd_scores_kernel(*args)
-        want = ak._fwd_scores_plain(*args)
-        torch.cuda.synchronize()
-        return args, got, want
+    trans, inputs, targets, li, lo = case
+    lat, e, _ = ak._prepare(trans, inputs, targets, li, lo)
+    return (e, lat.self_trans.contiguous(), lat.next_trans.contiguous(),
+            inputs.contiguous(), lat.inputs.contiguous(), li, lo)
+
+
+def k1_routes(n, s):
+    """The K1 routes that take width max(n, s)."""
+    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+
+    return ("warp", "block") if max(n, s) <= ak.WARP_MAX_WIDTH else ("block",)
+
+
+# K1's width edges for its warp route, fp32 and fp64: (N, S) = (32, 32),
+# (33, 64), (64, 65) and (128, 128), the last label or slot in lane 31 of a
+# lane's last register, and four more shapes so that every pair of label
+# and slot register counts (1, 2 or 4 each) is run.
+K1_WIDTH_CASES = tuple(
+    (f"{'fp32' if dt == torch.float32 else 'fp64'}_n{n}_s{s}", dt, (5, 300, n, s),
+     (max(n, s), 300), (1, s))
+    for dt in (torch.float32, torch.float64)
+    for n, s in ((32, 32), (33, 64), (64, 65), (128, 128), (20, 100), (100, 20),
+                 (64, 16), (100, 64)))
+
+
+def time_k1_routes(wrapper, args, serial_steps):
+    """K1's times at the serving shape, both routes in one run (``ms_warp``,
+    ``ms_block``; ``ms`` is the route 'auto' takes), and µs per serial
+    step."""
+    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+
+    auto = ak._fwd_route(N, S)
+    out = {"route_auto": auto}
+    for route in ("warp", "block"):
+        out[f"ms_{route}"] = time_ms(lambda: wrapper(*args, route=route))
+    out["ms"] = out[f"ms_{auto}"]
+    out["us_per_step"] = out["ms"] / serial_steps * 1e3
+    out["us_per_step_by_route"] = {r: out[f"ms_{r}"] / serial_steps * 1e3
+                                   for r in ("warp", "block")}
+    return out
+
+
+def check_k1(rng, dev):
+    """K1 against its plain version on each route that takes the case's
+    width: fp32 at the serving shape (both routes timed); fp64 at a small
+    shape and on degenerate lengths (L_in = 1, L_out = 1, L_out > L_in,
+    L_in outside [1, T]); the warp route's width edges (K1_WIDTH_CASES); on
+    the block route fp32 with E in opted-in shared memory (N=200), with E in
+    global memory (N=300), and at the widest widths the front-end takes."""
+    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
 
     results = {}
-    f64, f32, tol64, tol32 = torch.float64, torch.float32, (1e-10, 1e-10), (1e-4, 1e-3)
-    for name, dtype, shape, li_r, lo_r, tol in (
-        ("fp64_small", f64, (4, 40, 12, 9), (9, 40), (1, 9), tol64),
+    f64, f32 = torch.float64, torch.float32
+    tol = {f64: (1e-10, 1e-10), f32: (1e-4, 1e-3)}
+    edge_rng = np.random.default_rng([SEED, 6])  # keeps ``rng``'s stream as it was
+    edges = {c[0] for c in K1_WIDTH_CASES}
+    for name, dtype, (b, t, n, s), li_r, lo_r in (
+        ("fp64_small", f64, (4, 40, 12, 9), (9, 40), (1, 9)),
         ("fp64_degenerate", f64, (7, 40, 12, 9), [1, 40, 2, 3, 17, 0, 41],
-         [1, 1, 4, 9, 3, 2, 2], tol64),
-        ("fp32_n200_smem", f32, (4, 60, 200, 20), (20, 60), (1, 20), tol32),
-        ("fp32_n300_global", f32, (4, 60, 300, 20), (20, 60), (1, 20), tol32),
-        ("fp32_max_width", f32, (2, 600, 512, 512), (512, 600), (1, 512), tol32),
-        ("fp32_serving", f32, (B, T, N, S), (500, 1000), (10, 50), tol32),
+         [1, 1, 4, 9, 3, 2, 2]),
+        *K1_WIDTH_CASES,
+        ("fp32_n200_smem", f32, (4, 60, 200, 20), (20, 60), (1, 20)),
+        ("fp32_n300_global", f32, (4, 60, 300, 20), (20, 60), (1, 20)),
+        ("fp32_max_width", f32, (2, 600, 512, 512), (512, 600), (1, 512)),
+        ("fp32_serving", f32, (B, T, N, S), (500, 1000), (10, 50)),
     ):
-        b, t, n, s = shape
-        args, got, want = run_both(lattice_case(rng, dev, dtype, b, t, n, s, li_r, lo_r))
-        for g, w in zip(got, want):
-            check(not bool(torch.isnan(g).any()), f"K1 {name}: NaN scores")
-            torch.testing.assert_close(g, w, rtol=tol[0], atol=tol[1])
-        if name == "fp64_degenerate":
-            # L_out > L_in: unalignable; L_in outside [1, T]: no path at all
-            check(bool((got[1][[2, 3, 5, 6]] == -np.inf).all())
-                  and bool((got[0][[5, 6]] == -np.inf).all()),
-                  "K1: elements without a path must score -inf")
-        else:
-            check(bool(torch.isfinite(got[0]).all()), f"K1 {name}: non-finite full scores")
-        results[name] = max(float((g - w)[torch.isfinite(w)].abs().max())
-                            for g, w in zip(got, want))
+        case_rng = edge_rng if name in edges else rng
+        args = k1_args(lattice_case(case_rng, dev, dtype, b, t, n, s, li_r, lo_r))
+        want = ak._fwd_scores_plain(*args)
+        results[name] = {}
+        for route in k1_routes(n, s):
+            got = ak._fwd_scores_kernel(*args, route=route)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                check(not bool(torch.isnan(g).any()), f"K1 {route} {name}: NaN scores")
+                torch.testing.assert_close(g, w, rtol=tol[dtype][0], atol=tol[dtype][1],
+                                           msg=lambda m: f"K1 {route} {name}: {m}")
+            if name == "fp64_degenerate":
+                # L_out > L_in: unalignable; L_in outside [1, T]: no path at all
+                check(bool((got[1][[2, 3, 5, 6]] == -np.inf).all())
+                      and bool((got[0][[5, 6]] == -np.inf).all()),
+                      f"K1 {route}: elements without a path must score -inf")
+            else:
+                check(bool(torch.isfinite(got[0]).all()),
+                      f"K1 {route} {name}: non-finite full scores")
+            results[name][route] = max(max_err(g, w) for g, w in zip(got, want))
     li = args[5]  # the serving case's
     lsum = int(li.sum())
     nbytes = (lsum * (N + S) + N * N + 2 * B * S) * 4 + 2 * B * 4 + 2 * B * 4
     ops = (lsum - B) * (2 * N * N + 4 * N + 8 * S)
     bound_ms, bound_by = bound(nbytes, ops)
+    serial_steps = int(li.max()) - 1
+    times = time_k1_routes(ak._fwd_scores_kernel, args, serial_steps)
     return {
         "name": "asg_fwd_scores (K1, score-only)",
-        "max_abs_err": results["fp32_serving"],
+        "max_abs_err": results["fp32_serving"][times["route_auto"]],
         "max_abs_err_by_case": results,
         "tolerance": "fp32 rtol 1e-4 atol 1e-3 (1000 serial steps, other sum order); fp64 1e-10",
-        "ms": time_ms(lambda: ak._fwd_scores_kernel(*args)),
+        **times,
         "plain_ms": time_ms(lambda: ak._fwd_scores_plain(*args)),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "serial_steps": int(li.max()) - 1,
+        "serial_steps": serial_steps,
     }
+
+
+def k1_route_launches(reset=False):
+    """K1's launches by variant and route, {"<wrapper>.<route>": n}; with
+    ``reset`` the counts are set to 0 first."""
+    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+
+    out = {}
+    for wrapper in (ak._fwd_scores_kernel, ak._fwd_store_kernel):
+        for route in ak.FWD_ROUTES:
+            if reset:
+                setattr(wrapper, f"launches_{route}", 0)
+            out[f"{wrapper.__name__}.{route}"] = getattr(wrapper, f"launches_{route}")
+    return out
+
+
+def check_k1_auto_route(scores, store):
+    """Since the last reset, the score-only K1 launched ``scores`` times and
+    K1 with stores ``store`` times, all through the route 'auto' takes at
+    N, S."""
+    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+
+    got = k1_route_launches()
+    auto = ak._fwd_route(N, S)
+    want = dict.fromkeys(got, 0)
+    want.update({f"_fwd_scores_kernel.{auto}": scores, f"_fwd_store_kernel.{auto}": store})
+    check(got == want, f"every K1 launch must take the {auto} route: {got}")
+    return got
 
 
 def check_viterbi(rng, dev):
@@ -302,26 +387,41 @@ K1S_TOL = {torch.float64: {"scores": (1e-10, 1e-10), "pb": (1e-9, 1e-12), "qb": 
 K2_TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-3, 1e-5)}
 
 
+def check_k1s(args, name):
+    """K1 with stores against its plain version on each route that takes
+    the width: {route: max abs error}, and the plain version's outputs."""
+    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+
+    want = ak._fwd_store_plain(*args)
+    tol = K1S_TOL[args[3].dtype]
+    errs = {}
+    for route in k1_routes(args[3].shape[2], args[4].shape[2]):
+        got = ak._fwd_store_kernel(*args, route=route)
+        torch.cuda.synchronize()
+        for label, g, w in zip(("pb", "qb", "sful", "sfac"), got, want):
+            assert_near(f"K1s {route} {name} {label}", g, w, *tol.get(label, tol["scores"]))
+        errs[route] = max(max_err(g, w) for g, w in zip(got, want))
+    return errs, want
+
+
 def check_k1s_k2(rng, dev):
-    """K1 with stores and K2, each against its plain version on the card in
-    every case of TRAIN_CASES; K2 twice on the same inputs must give the
-    same bits.  K2 runs on the plain version's residuals, so both K2
-    versions see the same inputs.  Times at the training shape."""
+    """K1 with stores (on each route that takes the width) and K2, each
+    against its plain version on the card in every case of TRAIN_CASES, and
+    K1 with stores alone at the warp route's width edges (K1_WIDTH_CASES);
+    K2 twice on the same inputs must give the same bits.  K2 runs on the
+    plain version's residuals, so both K2 versions see the same inputs.
+    Times at the training shape."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
 
     errs1, errs2 = {}, {}
+    edge_rng = np.random.default_rng([SEED, 61])  # keeps ``rng``'s stream as it was
+    for name, dtype, (b, t, n, s), li_r, lo_r in K1_WIDTH_CASES:
+        errs1[name], _ = check_k1s(
+            k1_args(lattice_case(edge_rng, dev, dtype, b, t, n, s, li_r, lo_r)), name)
     for name, dtype, (b, t, n, s), li_r, lo_r in TRAIN_CASES:
-        trans, inputs, targets, li, lo = lattice_case(rng, dev, dtype, b, t, n, s, li_r, lo_r)
-        lat, e, _ = ak._prepare(trans, inputs, targets, li, lo)
-        args = (e, lat.self_trans.contiguous(), lat.next_trans.contiguous(),
-                inputs.contiguous(), lat.inputs.contiguous(), li, lo)
-        got = ak._fwd_store_kernel(*args)
-        want = ak._fwd_store_plain(*args)
-        torch.cuda.synchronize()
-        tol = K1S_TOL[dtype]
-        for label, g, w in zip(("pb", "qb", "sful", "sfac"), got, want):
-            assert_near(f"K1s {name} {label}", g, w, *tol.get(label, tol["scores"]))
-        errs1[name] = max(max_err(g, w) for g, w in zip(got, want))
+        args = k1_args(lattice_case(rng, dev, dtype, b, t, n, s, li_r, lo_r))
+        li = args[5]
+        errs1[name], want = check_k1s(args, name)
 
         g_full = torch.as_tensor(rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
         g_fac = -torch.as_tensor(rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
@@ -351,13 +451,16 @@ def check_k1s_k2(rng, dev):
     k1s_bound, k1s_by = bound(k1s_bytes, k1s_ops)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     tol1 = "; ".join(f"{k} rtol {r:g} atol {a:g}" for k, (r, a) in K1S_TOL[torch.float32].items())
+    serial_steps = int(li.max()) - 1
+    times = time_k1_routes(ak._fwd_store_kernel, args, serial_steps)
     k1s = {
-        "name": "asg_fwd_store (K1 with stores)", "max_abs_err": errs1["fp32_training"],
+        "name": "asg_fwd_store (K1 with stores)",
+        "max_abs_err": errs1["fp32_training"][times["route_auto"]],
         "max_abs_err_by_case": errs1,
         "tolerance": f"fp32 {tol1} (1000 serial steps, other sum order); fp64 1e-10",
-        "ms": time_ms(lambda: ak._fwd_store_kernel(*args)),
+        **times,
         "plain_ms": time_ms(lambda: ak._fwd_store_plain(*args), runs=5, warmup=1),
-        "bound_ms": k1s_bound, "bound_by": k1s_by, "serial_steps": int(li.max()) - 1,
+        "bound_ms": k1s_bound, "bound_by": k1s_by, "serial_steps": serial_steps,
     }
     k2 = {
         "name": "asg_bwd (K2)", "max_abs_err": errs2["fp32_training"],
@@ -753,6 +856,7 @@ def serve(rng, dev, counters):
     answer(*requests[0])  # warm-up: library loads, cuDNN set-up
     for c in counters:
         c.launches = 0
+    k1_route_launches(reset=True)
     latencies, outs = [], []
     for req in requests:
         out, stage_ms = answer(*req)
@@ -761,11 +865,22 @@ def serve(rng, dev, counters):
     launches = {c.__name__: c.launches for c in counters}
     for name, n in launches.items():
         check(n > 0, f"serving path never launched {name}")
+    k1_routes_seen = check_k1_auto_route(launches["asg_scores_fused"], 0)
     # where a request's time goes: the first request again, synchronised
     # after each stage (outside the counted run)
     _, stage_ms = answer(*requests[0], sync=torch.cuda.synchronize)
     stages = dict(zip(("encoder", "viterbi_decode", "paths_to_host_and_collapse",
                        "asg_scores", "asg_loss"), stage_ms))
+    # one asg_scores call alone: its CUDA-event median and the device's share
+    em, li, targets, lo = outs[0][:4]
+
+    def scores():
+        with torch.no_grad():
+            asg_scores(trans, em, targets, li, lo)
+
+    scores_ms = time_ms(scores)
+    scores_profile = device_profile(scores)
+    scores_profile["idle_share"] = 1.0 - scores_profile["device_busy_ms"] / scores_ms
 
     for em, li, targets, lo, dec, hyps, full, aligned, loss in outs:
         check(tuple(em.shape) == (T, B, N), f"emissions shape {tuple(em.shape)}")
@@ -786,7 +901,9 @@ def serve(rng, dev, counters):
     emit({"phase": "serve", "card": torch.cuda.get_device_name(0),
           "requests": 3, "batch": B, "frames": T,
           "latency_ms": latencies, "median_latency_ms": statistics.median(latencies),
-          "launches": launches, "stage_ms_first_request": stages,
+          "launches": launches, "k1_route_launches": k1_routes_seen,
+          "stage_ms_first_request": stages, "asg_scores_ms": scores_ms,
+          "asg_scores_profile": scores_profile,
           "max_abs_err_scores_vs_scan": max(float((full - ref_full).abs().max()),
                                             float((aligned - ref_aligned).abs().max())),
           "mean_loss": float(loss.mean()),
@@ -862,6 +979,7 @@ def train(rng, dev):
     counters = (asg_scores_fused, _fwd_store_kernel, _bwd_kernel)
     for c in counters:
         c.launches = 0
+    k1_route_launches(reset=True)
     losses, latencies = [], []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -877,6 +995,7 @@ def train(rng, dev):
           f"K1 with stores and K2 must launch once a step: {launches}")
     check(launches["asg_scores_fused"] == 0,
           f"the score-only K1 must not launch in a training step: {launches}")
+    k1_routes_seen = check_k1_auto_route(0, 5)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch))
@@ -916,6 +1035,8 @@ def train(rng, dev):
         torch.autograd.grad(out, (tr_fixed, em_fixed))
 
     criterion_ms = time_ms(criterion)
+    profiled = device_profile(criterion)
+    profiled["idle_share"] = 1.0 - profiled["device_busy_ms"] / criterion_ms
     # the spread guard alone: one (N, N) reduction and one host sync a call
     guard_ms = time_ms(lambda: _spread_guard(tr_fixed.detach(), "auto", 1.0, True))
     frames = int(li.sum())
@@ -924,10 +1045,12 @@ def train(rng, dev):
           "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
           "frames_per_s": frames / (median_ms * 1e-3), "losses": losses,
           "loss_after": loss_after, "launches": launches,
+          "k1_route_launches": k1_routes_seen,
           "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
           "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
           "criterion_fwd_bwd_ms": criterion_ms, "spread_guard_ms": guard_ms,
-          "criterion_frames_per_s": frames / (criterion_ms * 1e-3)})
+          "criterion_frames_per_s": frames / (criterion_ms * 1e-3),
+          "criterion_profile": profiled})
     return {k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")}, (utts, labels)
 
 
@@ -1399,6 +1522,23 @@ def serve_posterior(rng, dev):
     return launches
 
 
+def spill_bytes(log, marker):
+    """{kernel: spill store + load bytes} from an ``nvcc -Xptxas -v`` log, for
+    every kernel whose mangled name contains ``marker``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and "spill stores" in line:
+            if marker in name:
+                words = line.replace(",", " ").split()
+                # "<n> bytes stack frame, <n> bytes spill stores, <n> bytes spill loads"
+                out[name] = sum(int(words[i - 2]) for i, w in enumerate(words)
+                                if w == "spill")
+            name = None
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
@@ -1423,7 +1563,13 @@ def main():
     libs = _build.build_all()
     ptxas = [line.strip() for p in libs.values()
              for line in p.with_suffix(".log").read_text().splitlines() if "Used" in line]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    warp_spills = spill_bytes(libs["asg_fwd"].with_suffix(".log").read_text(),
+                              "asg_fwd_warp_kernelIf")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+          "k1_warp_fp32_spill_bytes": warp_spills})
+    # two variants x 3 label x 3 slot register counts
+    check(len(warp_spills) == 18 and not any(warp_spills.values()),
+          f"K1's fp32 warp-route instances must not spill: {warp_spills}")
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(rng, dev)
@@ -1473,6 +1619,9 @@ def main():
         "launches": launches[wrapper], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
+        # K1's two routes, timed in this run
+        **{key: k[key] for key in ("route_auto", "ms_warp", "ms_block", "us_per_step")
+           if key in k},
     } for k, wrapper, source, replaces in meta]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel never launched on its path: {[k['name'] for k in kernels]}")

@@ -34,6 +34,7 @@ sets the chain precision (``ops/semiring.py``) for the call.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -265,16 +266,23 @@ class ASGLoss(nn.Module):
     """Module front-end holding the learned transition matrix, an
     ``nn.Parameter`` initialised to zeros.
 
+    The constructor takes the reference's positional arguments
+    ``ASGLoss(num_labels, reduction='mean', forward_only=False,
+    gpu_no_stream_impl=False)``; ``gpu_no_stream_impl=True`` runs the
+    log-domain ``impl='scan'`` tier.  ``impl``, ``temperature``,
+    ``validate``, ``device`` and ``dtype`` are keyword-only; ``impl=None``
+    means ``'auto'`` (or ``'scan'`` under ``gpu_no_stream_impl``).
+
     ``loss = ASGLoss(num_labels)``; ``loss(inputs, targets, ...)`` computes
-    the loss with the module's settings (see ``asg_loss``).  With
-    ``forward_only=True`` the transition and the inputs are detached, so the
-    call runs the score-only path and keeps no residuals even where autograd
-    is recording.
+    the loss with the module's settings (see ``asg_loss``).  In eval mode
+    (``.eval()``) or with ``forward_only=True`` the call scores under
+    ``torch.no_grad()``: it runs the score-only path, keeps no residuals,
+    and ``.backward()`` on the result raises, as in the reference.
     """
 
     def __init__(self, num_labels: int, reduction: str = "mean",
-                 forward_only: bool = False, impl: str = "auto",
-                 temperature: float = 1.0, validate=True,
+                 forward_only: bool = False, gpu_no_stream_impl: bool = False, *,
+                 impl: Optional[str] = None, temperature: float = 1.0, validate=True,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
         if reduction not in REDUCTIONS:
@@ -282,17 +290,15 @@ class ASGLoss(nn.Module):
         self.num_labels = num_labels
         self.reduction = reduction
         self.forward_only = forward_only
-        self.impl = impl
+        self.impl = impl or ("scan" if gpu_no_stream_impl else "auto")
         self.temperature = temperature
         self.validate = validate
         self.transition = nn.Parameter(
             torch.zeros((num_labels, num_labels), device=device, dtype=dtype))
 
     def forward(self, inputs, targets, input_lengths=None, target_lengths=None):
-        transition = self.transition
-        if self.forward_only:
-            transition = transition.detach()
-            inputs = inputs.detach()
-        return asg_loss(transition, inputs, targets, input_lengths, target_lengths,
-                        reduction=self.reduction, impl=self.impl,
-                        temperature=self.temperature, validate=self.validate)
+        scores_only = self.forward_only or not self.training
+        with torch.no_grad() if scores_only else contextlib.nullcontext():
+            return asg_loss(self.transition, inputs, targets, input_lengths,
+                            target_lengths, reduction=self.reduction, impl=self.impl,
+                            temperature=self.temperature, validate=self.validate)

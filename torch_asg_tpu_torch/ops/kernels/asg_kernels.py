@@ -17,7 +17,10 @@ is the exact one, since ``c`` cancels against its repayment.
 On CUDA tensors the chains run in the hand-written kernels
 ``csrc/asg_fwd.cu`` (K1, both variants) and ``csrc/asg_bwd.cu`` (K2); on CPU
 tensors in ``_fwd_scores_plain``, ``_fwd_store_plain`` and ``_bwd_plain``,
-step-by-step loops of the same arithmetic.
+step-by-step loops of the same arithmetic.  K1 has two routes with the same
+outputs, chosen by ``_fwd_route``: up to ``WARP_MAX_WIDTH`` labels and
+target slots one warp walks each chain of an element, past it one block of
+one thread per label and slot walks both.
 
 Numeric domains: the FCC chains run in the exp domain with a per-step
 rescale to max 1 and the log-maxes summed into an offset (full connectivity
@@ -41,6 +44,12 @@ from ..semiring import NEG_INF, logaddexp
 
 # Widest label / target width the kernel's one-thread-per-lane block takes.
 KERNEL_MAX_WIDTH = 1024
+# K1's routes (csrc/asg_fwd.cu): the warp route, one warp per chain of an
+# element (lane l holds labels or slots l, l+32, ..., at most 4), up to
+# WARP_MAX_WIDTH; the block route, one thread per label and slot, up to
+# KERNEL_MAX_WIDTH.
+FWD_ROUTES = ("warp", "block")
+WARP_MAX_WIDTH = 128
 
 
 def _prepare(transition, inputs, targets, input_lengths, target_lengths):
@@ -249,12 +258,54 @@ def _lattice_args(e, self_trans, next_trans, inputs, aligned, input_lengths,
     return lengths
 
 
-def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
-                       input_lengths, target_lengths):
-    """Launch ``asg_fwd_scores_{f32,f64}`` (csrc/asg_fwd.cu): K1 without
-    stores."""
+def _fwd_route(num_labels, s_total):
+    """The route ``'auto'`` takes for K1: ``'warp'`` when
+    max(num_labels, s_total) <= WARP_MAX_WIDTH, else ``'block'``."""
+    return "warp" if max(num_labels, s_total) <= WARP_MAX_WIDTH else "block"
+
+
+def _check_route(route, num_labels, s_total):
+    """The route to launch: ``route``, or ``_fwd_route`` for None; raises
+    ValueError on an unknown route or a width the route does not take."""
+    if route is None:
+        return _fwd_route(num_labels, s_total)
+    if route not in FWD_ROUTES:
+        raise ValueError(f"unknown K1 route {route!r}; expected one of {FWD_ROUTES}")
+    if route == "warp" and max(num_labels, s_total) > WARP_MAX_WIDTH:
+        raise ValueError(
+            f"K1's warp route takes max(num_labels, s_total) <= {WARP_MAX_WIDTH}; "
+            f"got num_labels={num_labels}, s_total={s_total}")
+    return route
+
+
+def _launch_fwd(variant, route, e, self_trans, next_trans, inputs, aligned,
+                li, lo, outs):
+    """Launch K1's ``variant`` ('scores' or 'store') on ``route`` with the
+    output pointers ``outs``: ``asg_fwd_{variant}_{f32,f64}`` (the block
+    route) or ``asg_fwd_warp_{variant}_{f32,f64}``."""
     t_total, num_batches, num_labels = inputs.shape
-    s_total = aligned.shape[2]
+    dev = inputs.device
+    stem = f"asg_fwd_warp_{variant}" if route == "warp" else f"asg_fwd_{variant}"
+    fn = c_function("asg_fwd", stem, inputs.dtype, 7 + len(outs), 4)
+    with torch.cuda.device(dev):
+        err = fn(ptr(inputs), ptr(aligned), ptr(e), ptr(self_trans),
+                 ptr(next_trans), ptr(li), ptr(lo), *map(ptr, outs), t_total,
+                 num_batches, num_labels, aligned.shape[2], stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+
+
+def _count_route(wrapper, route):
+    setattr(wrapper, f"launches_{route}", getattr(wrapper, f"launches_{route}") + 1)
+
+
+def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
+                       input_lengths, target_lengths, *, route=None):
+    """Launch K1 without stores (csrc/asg_fwd.cu) on ``route`` ('warp',
+    'block', or None for ``_fwd_route``).  Counts every launch in
+    ``asg_scores_fused.launches`` and each route's in
+    ``_fwd_scores_kernel.launches_<route>``."""
+    num_batches, num_labels = inputs.shape[1:]
+    route = _check_route(route, num_labels, aligned.shape[2])
     dev, dt = inputs.device, inputs.dtype
     li, lo = _lattice_args(e, self_trans, next_trans, inputs, aligned,
                            input_lengths, target_lengths)
@@ -262,23 +313,23 @@ def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
     sfac = torch.empty((num_batches,), dtype=dt, device=dev)
     if num_batches == 0:
         return sful, sfac
-    fn = c_function("asg_fwd", "asg_fwd_scores", dt, 9, 4)
-    with torch.cuda.device(dev):
-        err = fn(ptr(inputs), ptr(aligned), ptr(e), ptr(self_trans),
-                 ptr(next_trans), ptr(li), ptr(lo), ptr(sful), ptr(sfac),
-                 t_total, num_batches, num_labels, s_total, stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+    _launch_fwd("scores", route, e, self_trans, next_trans, inputs, aligned, li, lo,
+                (sful, sfac))
     asg_scores_fused.launches += 1
+    _count_route(_fwd_scores_kernel, route)
     return sful, sfac
 
 
 def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
-                      input_lengths, target_lengths):
-    """Launch ``asg_fwd_store_{f32,f64}`` (csrc/asg_fwd.cu): K1 with stores.
-    Returns (PB, QB, sful, sfac); the kernel writes residual rows
-    t < L_in[b] and this wrapper fills the rest with the semiring zeros."""
+                      input_lengths, target_lengths, *, route=None):
+    """Launch K1 with stores (csrc/asg_fwd.cu) on ``route``, as
+    ``_fwd_scores_kernel`` does.  Returns (PB, QB, sful, sfac); the kernel
+    writes residual rows t < L_in[b] and this wrapper fills the rest with
+    the semiring zeros.  Counts every launch in ``.launches`` and each
+    route's in ``.launches_<route>``."""
     t_total, num_batches, num_labels = inputs.shape
     s_total = aligned.shape[2]
+    route = _check_route(route, num_labels, s_total)
     dev, dt = inputs.device, inputs.dtype
     li, lo = _lattice_args(e, self_trans, next_trans, inputs, aligned,
                            input_lengths, target_lengths)
@@ -288,14 +339,10 @@ def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
     sfac = torch.empty((num_batches,), dtype=dt, device=dev)
     if num_batches == 0:
         return pb, qb, sful, sfac
-    fn = c_function("asg_fwd", "asg_fwd_store", dt, 11, 4)
-    with torch.cuda.device(dev):
-        err = fn(ptr(inputs), ptr(aligned), ptr(e), ptr(self_trans),
-                 ptr(next_trans), ptr(li), ptr(lo), ptr(pb), ptr(qb), ptr(sful),
-                 ptr(sfac), t_total, num_batches, num_labels, s_total,
-                 stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+    _launch_fwd("store", route, e, self_trans, next_trans, inputs, aligned, li, lo,
+                (pb, qb, sful, sfac))
     _fwd_store_kernel.launches += 1
+    _count_route(_fwd_store_kernel, route)
     return pb, qb, sful, sfac
 
 
@@ -381,7 +428,9 @@ def asg_scores_fused(transition, inputs, targets, input_lengths, target_lengths)
 
     Launch counts: ``asg_scores_fused.launches`` (K1 without stores),
     ``_fwd_store_kernel.launches`` (K1 with stores) and
-    ``_bwd_kernel.launches`` (K2).
+    ``_bwd_kernel.launches`` (K2); K1's by route in
+    ``_fwd_scores_kernel.launches_{warp,block}`` and
+    ``_fwd_store_kernel.launches_{warp,block}``.
     """
     transition = transition.to(inputs.dtype)
     if wants_grad(transition, inputs):
@@ -397,3 +446,6 @@ def asg_scores_fused(transition, inputs, targets, input_lengths, target_lengths)
 asg_scores_fused.launches = 0
 _fwd_store_kernel.launches = 0
 _bwd_kernel.launches = 0
+for _wrapper in (_fwd_scores_kernel, _fwd_store_kernel):
+    for _route in FWD_ROUTES:
+        setattr(_wrapper, f"launches_{_route}", 0)
