@@ -13,16 +13,17 @@ Phases, each printed as one JSON line; any failure raises, so the exit code
 is nonzero:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``,
-     one process per source, all at once; the fp32 instances of K1's warp
-     route must not spill (``-Xptxas -v``);
+     one process per source, all at once; the fp32 instances of K1's and
+     K2's warp routes must not spill (``-Xptxas -v``);
   3. kernels: each kernel against its plain version on the card, at the
      serving and training shape B=64, T=1000, N=30, S=50 with ragged
      lengths, plus small fp64, degenerate-length and wide-label cases; times
-     are medians of CUDA-event timings.  K1 and K1 with stores run on each
-     route that takes the case's width (the warp route up to 128 labels and
-     slots, at its width edges in fp32 and fp64; the block route in every
-     case), and both routes are timed at the serving shape, with the
-     microseconds per serial step.  K2 must give the same bits twice.
+     are medians of CUDA-event timings.  K1, K1 with stores and K2 run on
+     each route that takes the case's width (the warp route up to 128
+     labels and slots, at its width edges in fp32 and fp64; the block route
+     in every case), and both routes are timed at the serving and training
+     shape, with the microseconds per serial step; one warp-route K2 call
+     is profiled by kernel.  K2 must give the same bits twice on each route.
      K9 (the matmul tier's dual-stream kernel) at the wordpiece shape T=100,
      B=8, N=10,000 (fp32, ragged lengths) and at small fp64 shapes; twice
      with the same bits; and against the two matmul-tier scans, the
@@ -47,8 +48,8 @@ is nonzero:
   6. train: the full-width Wav2Letter takes one warm-up step and 5 timed
      AdamW steps on one fixed batch of 64 utterances, prepared as
      ``examples/train_asg.py`` prepares them (cmvn -> pack_frames ->
-     encode_targets).  Each step must launch K1 with stores (on the route
-     'auto' takes) and K2 once and the score-only K1 never; losses and
+     encode_targets).  Each step must launch K1 with stores and K2 once,
+     each on the route 'auto' takes, and the score-only K1 never; losses and
      gradients must be finite, the first step's gradients must agree with
      the scan tier's, and the loss must fall.  One more step, synchronised
      after each stage, and the criterion's forward+backward alone (timed and
@@ -164,14 +165,14 @@ def k1_args(case):
             inputs.contiguous(), lat.inputs.contiguous(), li, lo)
 
 
-def k1_routes(n, s):
-    """The K1 routes that take width max(n, s)."""
+def width_routes(n, s):
+    """The K1 and K2 routes that take width max(n, s)."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
 
     return ("warp", "block") if max(n, s) <= ak.WARP_MAX_WIDTH else ("block",)
 
 
-# K1's width edges for its warp route, fp32 and fp64: (N, S) = (32, 32),
+# The warp routes' width edges (K1's and K2's), fp32 and fp64: (N, S) = (32, 32),
 # (33, 64), (64, 65) and (128, 128), the last label or slot in lane 31 of a
 # lane's last register, and four more shapes so that every pair of label
 # and slot register counts (1, 2 or 4 each) is run.
@@ -183,13 +184,10 @@ K1_WIDTH_CASES = tuple(
                  (64, 16), (100, 64)))
 
 
-def time_k1_routes(wrapper, args, serial_steps):
-    """K1's times at the serving shape, both routes in one run (``ms_warp``,
-    ``ms_block``; ``ms`` is the route 'auto' takes), and µs per serial
-    step."""
-    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
-
-    auto = ak._fwd_route(N, S)
+def time_routes(wrapper, args, serial_steps, auto):
+    """A K1 or K2 wrapper's times at the serving and training shape, both
+    routes in one run (``ms_warp``, ``ms_block``; ``ms`` is the route
+    'auto' takes, ``auto``), and µs per serial step."""
     out = {"route_auto": auto}
     for route in ("warp", "block"):
         out[f"ms_{route}"] = time_ms(lambda: wrapper(*args, route=route))
@@ -228,7 +226,7 @@ def check_k1(rng, dev):
         args = k1_args(lattice_case(case_rng, dev, dtype, b, t, n, s, li_r, lo_r))
         want = ak._fwd_scores_plain(*args)
         results[name] = {}
-        for route in k1_routes(n, s):
+        for route in width_routes(n, s):
             got = ak._fwd_scores_kernel(*args, route=route)
             torch.cuda.synchronize()
             for g, w in zip(got, want):
@@ -250,7 +248,7 @@ def check_k1(rng, dev):
     ops = (lsum - B) * (2 * N * N + 4 * N + 8 * S)
     bound_ms, bound_by = bound(nbytes, ops)
     serial_steps = int(li.max()) - 1
-    times = time_k1_routes(ak._fwd_scores_kernel, args, serial_steps)
+    times = time_routes(ak._fwd_scores_kernel, args, serial_steps, ak._fwd_route(N, S))
     return {
         "name": "asg_fwd_scores (K1, score-only)",
         "max_abs_err": results["fp32_serving"][times["route_auto"]],
@@ -263,31 +261,34 @@ def check_k1(rng, dev):
     }
 
 
-def k1_route_launches(reset=False):
-    """K1's launches by variant and route, {"<wrapper>.<route>": n}; with
-    ``reset`` the counts are set to 0 first."""
+def route_launches(reset=False):
+    """K1's (both variants) and K2's launches by route,
+    {"<wrapper>.<route>": n}; with ``reset`` the counts are set to 0
+    first."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
 
     out = {}
-    for wrapper in (ak._fwd_scores_kernel, ak._fwd_store_kernel):
-        for route in ak.FWD_ROUTES:
+    for wrapper in (ak._fwd_scores_kernel, ak._fwd_store_kernel, ak._bwd_kernel):
+        for route in ak.ROUTES:
             if reset:
                 setattr(wrapper, f"launches_{route}", 0)
             out[f"{wrapper.__name__}.{route}"] = getattr(wrapper, f"launches_{route}")
     return out
 
 
-def check_k1_auto_route(scores, store):
-    """Since the last reset, the score-only K1 launched ``scores`` times and
-    K1 with stores ``store`` times, all through the route 'auto' takes at
-    N, S."""
+def check_auto_route(scores, store, bwd):
+    """Since the last reset, the score-only K1 launched ``scores`` times, K1
+    with stores ``store`` times and K2 ``bwd`` times, each through the
+    route 'auto' takes at N, S."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
 
-    got = k1_route_launches()
-    auto = ak._fwd_route(N, S)
+    got = route_launches()
+    fwd, bwd_route = ak._fwd_route(N, S), ak._bwd_route(N, S)
     want = dict.fromkeys(got, 0)
-    want.update({f"_fwd_scores_kernel.{auto}": scores, f"_fwd_store_kernel.{auto}": store})
-    check(got == want, f"every K1 launch must take the {auto} route: {got}")
+    want.update({f"_fwd_scores_kernel.{fwd}": scores, f"_fwd_store_kernel.{fwd}": store,
+                 f"_bwd_kernel.{bwd_route}": bwd})
+    check(got == want, f"every K1 launch must take the {fwd} route and every K2 launch "
+          f"the {bwd_route} route: {got}")
     return got
 
 
@@ -395,7 +396,7 @@ def check_k1s(args, name):
     want = ak._fwd_store_plain(*args)
     tol = K1S_TOL[args[3].dtype]
     errs = {}
-    for route in k1_routes(args[3].shape[2], args[4].shape[2]):
+    for route in width_routes(args[3].shape[2], args[4].shape[2]):
         got = ak._fwd_store_kernel(*args, route=route)
         torch.cuda.synchronize()
         for label, g, w in zip(("pb", "qb", "sful", "sfac"), got, want):
@@ -404,55 +405,91 @@ def check_k1s(args, name):
     return errs, want
 
 
+K2_OUTPUTS = ("gI", "gA", "dT", "gself", "gnext")
+# K2's warp route in a device profile: its three kernels, by name.
+K2_WARP_PHASES = ("asg_bwd_warp_chain_kernel", "asg_bwd_warp_post_kernel",
+                  "asg_bwd_warp_sums_kernel")
+
+
+def check_k2(bargs, name):
+    """K2 against its plain version on each route that takes the width, on
+    the same inputs: two calls give the same bits, no output is non-finite,
+    every output within K2_TOL, and elements with L_in outside [1, T] get
+    zero gradients.  {route: max abs error}."""
+    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+
+    inputs, aligned, li = bargs[3], bargs[4], bargs[5]
+    t = inputs.shape[0]
+    no_path = ((li < 1) | (li > t)).nonzero().flatten()
+    want = ak._bwd_plain(*bargs)
+    errs = {}
+    for route in width_routes(inputs.shape[2], aligned.shape[2]):
+        got = ak._bwd_kernel(*bargs, route=route)
+        again = ak._bwd_kernel(*bargs, route=route)
+        torch.cuda.synchronize()
+        for label, g, g2, w in zip(K2_OUTPUTS, got, again, want):
+            check(torch.equal(g, g2), f"K2 {route} {name} {label}: two runs differ")
+            check(bool(torch.isfinite(g).all()), f"K2 {route} {name} {label}: non-finite")
+            assert_near(f"K2 {route} {name} {label}", g, w, *K2_TOL[inputs.dtype])
+        check(all(bool((x[:, no_path] == 0).all()) for x in got[:2])
+              and all(bool((x[no_path] == 0).all()) for x in got[3:]),
+              f"K2 {route} {name}: elements without a path must have zero gradients")
+        errs[route] = max(max_err(g, w) for g, w in zip(got, want))
+    return errs
+
+
 def check_k1s_k2(rng, dev):
-    """K1 with stores (on each route that takes the width) and K2, each
-    against its plain version on the card in every case of TRAIN_CASES, and
-    K1 with stores alone at the warp route's width edges (K1_WIDTH_CASES);
-    K2 twice on the same inputs must give the same bits.  K2 runs on the
-    plain version's residuals, so both K2 versions see the same inputs.
-    Times at the training shape."""
+    """K1 with stores and K2, each on every route that takes the width,
+    against its plain version on the card in every case of TRAIN_CASES and
+    at the warp routes' width edges (K1_WIDTH_CASES).  K2 runs on the plain
+    version's residuals, so both K2 versions see the same inputs.  Both
+    routes of each timed at the training shape, and one warp-route K2 call
+    profiled by kernel."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
 
     errs1, errs2 = {}, {}
     edge_rng = np.random.default_rng([SEED, 61])  # keeps ``rng``'s stream as it was
+    edge_grad_rng = np.random.default_rng([SEED, 62])  # and ``edge_rng``'s
+
+    def k2_args(args, want, b, dtype, g_rng):
+        g_full = torch.as_tensor(g_rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
+        g_fac = -torch.as_tensor(g_rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
+        return args[:6] + (want[0], want[1], g_full, g_fac)
+
     for name, dtype, (b, t, n, s), li_r, lo_r in K1_WIDTH_CASES:
-        errs1[name], _ = check_k1s(
-            k1_args(lattice_case(edge_rng, dev, dtype, b, t, n, s, li_r, lo_r)), name)
+        args = k1_args(lattice_case(edge_rng, dev, dtype, b, t, n, s, li_r, lo_r))
+        errs1[name], want = check_k1s(args, name)
+        errs2[name] = check_k2(k2_args(args, want, b, dtype, edge_grad_rng), name)
     for name, dtype, (b, t, n, s), li_r, lo_r in TRAIN_CASES:
         args = k1_args(lattice_case(rng, dev, dtype, b, t, n, s, li_r, lo_r))
         li = args[5]
         errs1[name], want = check_k1s(args, name)
-
-        g_full = torch.as_tensor(rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
-        g_fac = -torch.as_tensor(rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
-        bargs = args[:6] + (want[0], want[1], g_full, g_fac)
-        kg = ak._bwd_kernel(*bargs)
-        kg2 = ak._bwd_kernel(*bargs)
-        pg = ak._bwd_plain(*bargs)
-        torch.cuda.synchronize()
-        for label, g, g2, w in zip(("gI", "gA", "dT", "gself", "gnext"), kg, kg2, pg):
-            check(torch.equal(g, g2), f"K2 {name} {label}: two runs differ")
-            check(bool(torch.isfinite(g).all()), f"K2 {name} {label}: non-finite")
-            assert_near(f"K2 {name} {label}", g, w, *K2_TOL[dtype])
-        errs2[name] = max(max_err(g, w) for g, w in zip(kg, pg))
-        if name == "fp64_degenerate":
-            # L_in outside [1, T]: no path, no gradient
-            check(all(bool((x[:, [5, 6]] == 0).all()) for x in kg[:2]),
-                  "K2: elements without a path must have zero gradients")
+        bargs = k2_args(args, want, b, dtype, rng)
+        errs2[name] = check_k2(bargs, name)
     # the training-shape case's inputs: timing and bounds
     lsum = int(li.sum())
     w = 4  # float32 bytes
     k1s_bytes = ((lsum * (N + S) + N * N + 2 * B * S) * w + 2 * B * 4 + 2 * B * w
                  + T * B * (N + S) * w)
     k1s_ops = (lsum - B) * (2 * N * N + 4 * N + 8 * S)
+    # K2's bound counts the TPU kernel's inputs and outputs alone, each read
+    # or written once, so that it reads the same whatever implements it:
+    # I, A, PB, QB over the frames t < L_in; E and E^T; self and next;
+    # L_in; g_full and g_fac; gI and gA (all T rows); dT; gself and gnext.
+    # Operations: the alpha contraction and the rank-one update (4 N^2 a
+    # frame) and the softmaxes and edge fractions; dT's product with E.
     k2_bytes = (lsum * 2 * (N + S) * w + 2 * N * N * w + 2 * B * S * w + B * 4 + 2 * B * w
-                + T * B * (N + S) * w + B * N * N * w + N * N * w + 2 * B * S * w)
-    k2_ops = lsum * (4 * N * N + 16 * N + 24 * S) + B * N * N
+                + T * B * (N + S) * w + N * N * w + 2 * B * S * w)
+    k2_ops = lsum * (4 * N * N + 16 * N + 24 * S) + N * N
     k1s_bound, k1s_by = bound(k1s_bytes, k1s_ops)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     tol1 = "; ".join(f"{k} rtol {r:g} atol {a:g}" for k, (r, a) in K1S_TOL[torch.float32].items())
     serial_steps = int(li.max()) - 1
-    times = time_k1_routes(ak._fwd_store_kernel, args, serial_steps)
+    times = time_routes(ak._fwd_store_kernel, args, serial_steps, ak._fwd_route(N, S))
+    k2_times = time_routes(ak._bwd_kernel, bargs, int(li.max()), ak._bwd_route(N, S))
+    k2_profile = device_profile(lambda: ak._bwd_kernel(*bargs, route="warp"), K2_WARP_PHASES)
+    check(all(v > 0 for v in k2_profile["phase_ms"].values()),
+          f"K2's warp route must run its three kernels: {k2_profile['phase_ms']}")
     k1s = {
         "name": "asg_fwd_store (K1 with stores)",
         "max_abs_err": errs1["fp32_training"][times["route_auto"]],
@@ -463,12 +500,13 @@ def check_k1s_k2(rng, dev):
         "bound_ms": k1s_bound, "bound_by": k1s_by, "serial_steps": serial_steps,
     }
     k2 = {
-        "name": "asg_bwd (K2)", "max_abs_err": errs2["fp32_training"],
+        "name": "asg_bwd (K2)", "max_abs_err": errs2["fp32_training"][k2_times["route_auto"]],
         "max_abs_err_by_case": errs2,
         "tolerance": ("fp32 rtol 1e-3, atol 1e-5 x max|output| per output (1000 serial "
                       "steps, other sum order); fp64 rtol 1e-9, atol 1e-12 x max; two "
-                      "runs bit-identical"),
-        "ms": time_ms(lambda: ak._bwd_kernel(*bargs)),
+                      "runs bit-identical on each route"),
+        **k2_times,
+        "warp_profile": k2_profile,
         "plain_ms": time_ms(lambda: ak._bwd_plain(*bargs), runs=5, warmup=1),
         "bound_ms": k2_bound, "bound_by": k2_by, "serial_steps": int(li.max()),
     }
@@ -856,7 +894,7 @@ def serve(rng, dev, counters):
     answer(*requests[0])  # warm-up: library loads, cuDNN set-up
     for c in counters:
         c.launches = 0
-    k1_route_launches(reset=True)
+    route_launches(reset=True)
     latencies, outs = [], []
     for req in requests:
         out, stage_ms = answer(*req)
@@ -865,7 +903,7 @@ def serve(rng, dev, counters):
     launches = {c.__name__: c.launches for c in counters}
     for name, n in launches.items():
         check(n > 0, f"serving path never launched {name}")
-    k1_routes_seen = check_k1_auto_route(launches["asg_scores_fused"], 0)
+    routes_seen = check_auto_route(launches["asg_scores_fused"], 0, 0)
     # where a request's time goes: the first request again, synchronised
     # after each stage (outside the counted run)
     _, stage_ms = answer(*requests[0], sync=torch.cuda.synchronize)
@@ -901,7 +939,7 @@ def serve(rng, dev, counters):
     emit({"phase": "serve", "card": torch.cuda.get_device_name(0),
           "requests": 3, "batch": B, "frames": T,
           "latency_ms": latencies, "median_latency_ms": statistics.median(latencies),
-          "launches": launches, "k1_route_launches": k1_routes_seen,
+          "launches": launches, "route_launches": routes_seen,
           "stage_ms_first_request": stages, "asg_scores_ms": scores_ms,
           "asg_scores_profile": scores_profile,
           "max_abs_err_scores_vs_scan": max(float((full - ref_full).abs().max()),
@@ -979,7 +1017,7 @@ def train(rng, dev):
     counters = (asg_scores_fused, _fwd_store_kernel, _bwd_kernel)
     for c in counters:
         c.launches = 0
-    k1_route_launches(reset=True)
+    route_launches(reset=True)
     losses, latencies = [], []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -995,7 +1033,7 @@ def train(rng, dev):
           f"K1 with stores and K2 must launch once a step: {launches}")
     check(launches["asg_scores_fused"] == 0,
           f"the score-only K1 must not launch in a training step: {launches}")
-    k1_routes_seen = check_k1_auto_route(0, 5)
+    routes_seen = check_auto_route(0, 5, 5)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch))
@@ -1045,7 +1083,7 @@ def train(rng, dev):
           "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
           "frames_per_s": frames / (median_ms * 1e-3), "losses": losses,
           "loss_after": loss_after, "launches": launches,
-          "k1_route_launches": k1_routes_seen,
+          "route_launches": routes_seen,
           "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
           "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
           "criterion_fwd_bwd_ms": criterion_ms, "spread_guard_ms": guard_ms,
@@ -1054,10 +1092,12 @@ def train(rng, dev):
     return {k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")}, (utts, labels)
 
 
-def device_profile(fn):
+def device_profile(fn, phases=()):
     """One call of ``fn`` under torch.profiler: the device's busy time (the
-    sum of its kernels' own times, ms), the number of kernels, and the five
-    kernels that took longest in all ([name cut to 80 characters, ms])."""
+    sum of its kernels' own times, ms), the number of kernels, the five
+    kernels that took longest in all ([name cut to 80 characters, ms]), and
+    for each name in ``phases`` the time of the kernels whose name holds
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1069,8 +1109,12 @@ def device_profile(fn):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     check(busy > 0, "the profiler saw no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return {"device_busy_ms": busy, "kernels": sum(e.count for e in kernels),
-            "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3] for e in top]}
+    out = {"device_busy_ms": busy, "kernels": sum(e.count for e in kernels),
+           "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3] for e in top]}
+    if phases:
+        out["phase_ms"] = {p: sum(e.self_device_time_total for e in kernels if p in e.key) / 1e3
+                           for p in phases}
+    return out
 
 
 def wordpiece_batch(rng, dev):
@@ -1565,11 +1609,18 @@ def main():
              for line in p.with_suffix(".log").read_text().splitlines() if "Used" in line]
     warp_spills = spill_bytes(libs["asg_fwd"].with_suffix(".log").read_text(),
                               "asg_fwd_warp_kernelIf")
+    bwd_log = libs["asg_bwd"].with_suffix(".log").read_text()
+    k2_spills = {**spill_bytes(bwd_log, "asg_bwd_warp_chain_kernelIf"),
+                 **spill_bytes(bwd_log, "asg_bwd_warp_post_kernelIf"),
+                 **spill_bytes(bwd_log, "asg_bwd_warp_sums_kernelIf")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
-          "k1_warp_fp32_spill_bytes": warp_spills})
-    # two variants x 3 label x 3 slot register counts
+          "k1_warp_fp32_spill_bytes": warp_spills, "k2_warp_fp32_spill_bytes": k2_spills})
+    # K1: two variants x 3 label x 3 slot register counts; K2: the chain and
+    # posterior kernels x 3 x 3, and the sums
     check(len(warp_spills) == 18 and not any(warp_spills.values()),
           f"K1's fp32 warp-route instances must not spill: {warp_spills}")
+    check(len(k2_spills) == 19 and not any(k2_spills.values()),
+          f"K2's fp32 warp-route instances must not spill: {k2_spills}")
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(rng, dev)
@@ -1619,7 +1670,7 @@ def main():
         "launches": launches[wrapper], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
-        # K1's two routes, timed in this run
+        # K1's and K2's two routes, timed in this run
         **{key: k[key] for key in ("route_auto", "ms_warp", "ms_block", "us_per_step")
            if key in k},
     } for k, wrapper, source, replaces in meta]

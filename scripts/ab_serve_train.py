@@ -37,7 +37,8 @@ c.train(np.random.default_rng(c.SEED), dev)
 
 KEEP = {
     "serve": ("median_latency_ms", "latency_ms", "stage_ms_first_request"),
-    "train": ("median_step_ms", "step_ms", "stage_ms", "criterion_fwd_bwd_ms"),
+    "train": ("median_step_ms", "step_ms", "stage_ms", "criterion_fwd_bwd_ms",
+              "criterion_profile"),
 }
 
 
@@ -69,6 +70,9 @@ def main(argv):
         "serve_median_latency_ms": [t["serve"]["median_latency_ms"] for t in ts],
         "train_median_step_ms": [t["train"]["median_step_ms"] for t in ts],
         "criterion_fwd_bwd_ms": [t["train"]["criterion_fwd_bwd_ms"] for t in ts],
+        "criterion_device_busy_ms": [t["train"]["criterion_profile"]["device_busy_ms"]
+                                     for t in ts],
+        "criterion_idle_share": [t["train"]["criterion_profile"]["idle_share"] for t in ts],
         "asg_scores_stage_ms": [t["serve"]["stage_ms_first_request"]["asg_scores"] for t in ts],
         "asg_loss_stage_ms": [t["serve"]["stage_ms_first_request"]["asg_loss"] for t in ts],
     } for label, ts in turns.items()}), flush=True)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) at first use into ``build/``
-beside this file.  The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+beside this file.  The library's file name carries a hash of its source,
+the headers beside it and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.
 ``build_all`` starts one nvcc per source at once and waits for all of them;
 the compiler's output (register and shared-memory use, from
 ``-Xptxas -v``) is kept beside each library as ``<name>-<hash>.log``.
@@ -44,9 +45,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"{name}-{digest}.so"
+    """The library's path; its hash covers the source, every header under
+    ``csrc/`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> dict:

@@ -17,10 +17,14 @@ is the exact one, since ``c`` cancels against its repayment.
 On CUDA tensors the chains run in the hand-written kernels
 ``csrc/asg_fwd.cu`` (K1, both variants) and ``csrc/asg_bwd.cu`` (K2); on CPU
 tensors in ``_fwd_scores_plain``, ``_fwd_store_plain`` and ``_bwd_plain``,
-step-by-step loops of the same arithmetic.  K1 has two routes with the same
-outputs, chosen by ``_fwd_route``: up to ``WARP_MAX_WIDTH`` labels and
-target slots one warp walks each chain of an element, past it one block of
-one thread per label and slot walks both.
+step-by-step loops of the same arithmetic.  K1 and K2 each have two routes
+with the same outputs, chosen by ``_fwd_route`` and ``_bwd_route``: up to
+``WARP_MAX_WIDTH`` labels and target slots one warp walks each chain of an
+element, past it one block of one thread per label and slot walks both.
+K2's warp route keeps only the chains on those warps: a second kernel
+computes the posteriors and the transition product over chunks of frames
+in parallel, and a third sums the partials (``_bwd_split_plain`` is its
+algorithm in torch).
 
 Numeric domains: the FCC chains run in the exp domain with a per-step
 rescale to max 1 and the log-maxes summed into an offset (full connectivity
@@ -44,12 +48,17 @@ from ..semiring import NEG_INF, logaddexp
 
 # Widest label / target width the kernel's one-thread-per-lane block takes.
 KERNEL_MAX_WIDTH = 1024
-# K1's routes (csrc/asg_fwd.cu): the warp route, one warp per chain of an
-# element (lane l holds labels or slots l, l+32, ..., at most 4), up to
-# WARP_MAX_WIDTH; the block route, one thread per label and slot, up to
-# KERNEL_MAX_WIDTH.
-FWD_ROUTES = ("warp", "block")
+# The routes of K1 (csrc/asg_fwd.cu) and K2 (csrc/asg_bwd.cu): the warp
+# route, one warp per chain of an element (lane l holds labels or slots l,
+# l+32, ..., at most 4), up to WARP_MAX_WIDTH; the block route, one thread
+# per label and slot, up to KERNEL_MAX_WIDTH.
+ROUTES = ("warp", "block")
 WARP_MAX_WIDTH = 128
+# K2's warp route runs its posterior phase as one block of four warps per
+# (element, chunk of frames), with enough chunks for 16 blocks on each of
+# the H100's 132 SMs: the phase waits on memory latency, so it wants every
+# warp slot filled (scripts/k2_diag.py sweeps the count; PERF.md §6).
+POST_BLOCKS = 16 * 132
 
 
 def _prepare(transition, inputs, targets, input_lengths, target_lengths):
@@ -219,6 +228,105 @@ def _bwd_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
     return gi_all, ga_all, d_trans, acc_self, _shift_left_s(acc_diag, fill=0.0)
 
 
+def _bwd_chunk(t_total, num_batches):
+    """Frames per chunk of K2's posterior phase: ``POST_BLOCKS`` blocks over
+    the batch, each chunk at least one frame."""
+    chunks = -(-POST_BLOCKS // max(num_batches, 1))
+    return max(1, -(-t_total // chunks))
+
+
+def _alpha_rows(e, self_trans, next_trans, inputs, aligned):
+    """Phase 1 of K2's warp route, both alpha chains for every element and
+    frame: (S (T, B, N), QA (T, B, S)).
+
+    FCC, exp domain: s_t = pa_{t-1} @ E^T (s_0 = 1) and
+    pa_t = rescale(s_t * exp(I_t - max I_t)) to max 1, the block route's
+    exp(log s_t + I_t - max) without a log on the chain; S holds the raw
+    rows s_t.  FAC, log domain: qa_t = A_t + logaddexp(qa_{t-1} + self,
+    shift_right(qa_{t-1} + next)), seeded on slot 0 at t = 0.  Rows at
+    t >= L_in are computed but never read.
+    """
+    t_total, num_batches, num_labels = inputs.shape
+    s_total = aligned.shape[2]
+    dev, dt = inputs.device, inputs.dtype
+    e_t = e.T
+    s_rows = torch.empty((t_total, num_batches, num_labels), dtype=dt, device=dev)
+    qa_rows = torch.empty((t_total, num_batches, s_total), dtype=dt, device=dev)
+    s_idx = torch.arange(s_total, device=dev)
+    pa = qa = None
+    for t in range(t_total):
+        s = torch.ones((num_batches, num_labels), dtype=dt, device=dev) if t == 0 else pa @ e_t
+        x = s * _exp_rows(inputs[t])[0]
+        m = torch.amax(x, dim=1, keepdim=True)
+        pa = x * (1.0 / torch.where(m > 0, m, torch.ones_like(m)))
+        s_rows[t] = s
+        if t == 0:
+            qa = aligned[0].masked_fill(s_idx[None, :] != 0, NEG_INF)
+        else:
+            qa = aligned[t] + logaddexp(qa + self_trans, _shift_right_s(qa + next_trans))
+        qa_rows[t] = qa
+    return s_rows, qa_rows
+
+
+def _bwd_split_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
+                     pb, qb, g_full, g_fac, chunk=None):
+    """Plain version of K2's warp route: ``_bwd_plain``'s outputs, computed
+    in the route's three phases.  Used by the tests; the main path runs
+    ``_bwd_plain`` on CPU tensors.
+
+    1. ``_alpha_rows``: the two chains, keeping only their rows S and QA.
+    2. Posteriors, with no recurrence, per (element, chunk of ``chunk``
+       frames; default ``_bwd_chunk``): every quantity of frame t comes
+       from rows t and t-1 of S, I, PB, QA, A, QB.  lpa_t = log s_t + I_t,
+       gI_t = softmax(lpa_t + log PB_t) * g_full, gA_t = softmax(qa_t +
+       QB_t) * g_fac; the chunk's (N, N) partial sum over t >= 1 of
+       (gI_t / s_t) outer pa_{t-1}, pa_{t-1} = exp(lpa_{t-1} - max); and the
+       chunk's gself and diagonal partials from the FAC edge fractions.
+    3. The sums of the partials: dT = (sum of the partials) * E, gself, and
+       gnext, the diagonal mass shifted left one slot.
+    Frames t >= L_in, and every frame of an element with L_in outside
+    [1, T], contribute nothing.
+    """
+    t_total, num_batches, num_labels = inputs.shape
+    s_total = aligned.shape[2]
+    dev, dt = inputs.device, inputs.dtype
+    if chunk is None:
+        chunk = _bwd_chunk(t_total, num_batches)
+    li = input_lengths.to(device=dev, dtype=torch.long)
+    bad = (li < 1) | (li > t_total)
+    live = (torch.arange(t_total, device=dev)[:, None] < li[None, :]) & ~bad[None, :]
+    live = live[..., None]  # (T, B, 1)
+    s_rows, qa_rows = _alpha_rows(e, self_trans, next_trans, inputs, aligned)
+
+    # ---- phase 2: posteriors and per-chunk partials
+    lpa = torch.log(s_rows) + inputs
+    gi = torch.where(live, _softmax_rows(lpa + torch.log(pb)) * g_full.to(dt)[:, None], 0.0)
+    m_a = torch.amax(lpa, dim=2, keepdim=True)
+    pa = torch.where(live, torch.exp(lpa - torch.where(torch.isfinite(m_a), m_a, 0.0)), 0.0)
+    u = gi / torch.where(s_rows > 0, s_rows, torch.ones_like(s_rows))
+    ga = torch.where(live, _softmax_rows(qa_rows + qb) * g_fac.to(dt)[:, None], 0.0)
+    qa, qa_prev = qa_rows[1:], qa_rows[:-1]
+    sub = torch.where(torch.isfinite(qa), aligned[1:] - qa, NEG_INF)
+    hori = torch.exp(qa_prev + self_trans + sub)
+    hori[..., 0] = 1.0  # slot 0 has only the self-loop in-edge, fraction 1
+    diag = torch.exp(_shift_right_s(qa_prev + next_trans) + sub)
+    edge_self = torch.where(live[1:], ga[1:] * hori, 0.0)  # frames 1 .. T-1
+    edge_diag = torch.where(live[1:], ga[1:] * diag, 0.0)
+    nchunks = -(-t_total // chunk)
+    part = torch.zeros((num_batches, nchunks, num_labels, num_labels), dtype=dt, device=dev)
+    pself = torch.zeros((num_batches, nchunks, s_total), dtype=dt, device=dev)
+    pdiag = torch.zeros_like(pself)
+    for c in range(nchunks):
+        lo, hi = max(c * chunk, 1), min((c + 1) * chunk, t_total)
+        part[:, c] = torch.einsum("tbi,tbj->bij", u[lo:hi], pa[lo - 1:hi - 1])
+        pself[:, c] = edge_self[lo - 1:hi - 1].sum(dim=0)
+        pdiag[:, c] = edge_diag[lo - 1:hi - 1].sum(dim=0)
+
+    # ---- phase 3: the sums
+    d_trans = part.sum(dim=(0, 1)) * e
+    return gi, ga, d_trans, pself.sum(dim=1), _shift_left_s(pdiag.sum(dim=1), fill=0.0)
+
+
 def _softmax_rows(x):
     """Row softmax with all--inf rows giving zeros, as the kernel takes it:
     exp(x - max) times the reciprocal of the row sum."""
@@ -264,16 +372,23 @@ def _fwd_route(num_labels, s_total):
     return "warp" if max(num_labels, s_total) <= WARP_MAX_WIDTH else "block"
 
 
-def _check_route(route, num_labels, s_total):
-    """The route to launch: ``route``, or ``_fwd_route`` for None; raises
+def _bwd_route(num_labels, s_total):
+    """The route ``'auto'`` takes for K2: ``'warp'`` when
+    max(num_labels, s_total) <= WARP_MAX_WIDTH, else ``'block'``."""
+    return "warp" if max(num_labels, s_total) <= WARP_MAX_WIDTH else "block"
+
+
+def _check_route(kernel, route, num_labels, s_total):
+    """The route to launch for ``kernel`` ('K1' or 'K2'): ``route``, or the
+    kernel's rule (``_fwd_route``, ``_bwd_route``) for None; raises
     ValueError on an unknown route or a width the route does not take."""
     if route is None:
-        return _fwd_route(num_labels, s_total)
-    if route not in FWD_ROUTES:
-        raise ValueError(f"unknown K1 route {route!r}; expected one of {FWD_ROUTES}")
+        return (_fwd_route if kernel == "K1" else _bwd_route)(num_labels, s_total)
+    if route not in ROUTES:
+        raise ValueError(f"unknown {kernel} route {route!r}; expected one of {ROUTES}")
     if route == "warp" and max(num_labels, s_total) > WARP_MAX_WIDTH:
         raise ValueError(
-            f"K1's warp route takes max(num_labels, s_total) <= {WARP_MAX_WIDTH}; "
+            f"{kernel}'s warp route takes max(num_labels, s_total) <= {WARP_MAX_WIDTH}; "
             f"got num_labels={num_labels}, s_total={s_total}")
     return route
 
@@ -305,7 +420,7 @@ def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
     ``asg_scores_fused.launches`` and each route's in
     ``_fwd_scores_kernel.launches_<route>``."""
     num_batches, num_labels = inputs.shape[1:]
-    route = _check_route(route, num_labels, aligned.shape[2])
+    route = _check_route("K1", route, num_labels, aligned.shape[2])
     dev, dt = inputs.device, inputs.dtype
     li, lo = _lattice_args(e, self_trans, next_trans, inputs, aligned,
                            input_lengths, target_lengths)
@@ -329,7 +444,7 @@ def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
     route's in ``.launches_<route>``."""
     t_total, num_batches, num_labels = inputs.shape
     s_total = aligned.shape[2]
-    route = _check_route(route, num_labels, s_total)
+    route = _check_route("K1", route, num_labels, s_total)
     dev, dt = inputs.device, inputs.dtype
     li, lo = _lattice_args(e, self_trans, next_trans, inputs, aligned,
                            input_lengths, target_lengths)
@@ -346,13 +461,46 @@ def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
     return pb, qb, sful, sfac
 
 
-def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
-                pb, qb, g_full, g_fac):
-    """Launch ``asg_bwd_{f32,f64}`` (csrc/asg_bwd.cu): K2.  Returns (gI, gA,
-    dT, gself, gnext).  The per-element (N, N) transition partials go to a
-    (B, N, N) scratch that a second kernel sums in a fixed order."""
+def _launch_bwd(route, e, self_trans, next_trans, inputs, aligned, li, pb, qb,
+                g_full, g_fac, outs):
+    """Launch K2 on ``route`` with the output pointers ``outs`` (gI, gA, dT,
+    gself, gnext) and the route's scratch: ``asg_bwd_{f32,f64}`` (the block
+    route; per-element (N, N) partials) or ``asg_bwd_warp_{f32,f64}`` (the
+    chain rows S and QA, and per-(element, chunk) partials)."""
     t_total, num_batches, num_labels = inputs.shape
     s_total = aligned.shape[2]
+    dev, dt = inputs.device, inputs.dtype
+    gi, ga, d_trans, gself, gnext = outs
+    sizes = [t_total, num_batches, num_labels, s_total]
+    ptrs = [inputs, aligned, e, e.T.contiguous(), self_trans, next_trans, li, pb, qb,
+            g_full, g_fac, gi, ga]
+    if route == "warp":
+        chunk = _bwd_chunk(t_total, num_batches)
+        nparts = num_batches * -(-t_total // chunk)
+        ptrs += [d_trans, gself, gnext,
+                 torch.empty((t_total, num_batches, num_labels), dtype=dt, device=dev),
+                 torch.empty((t_total, num_batches, s_total), dtype=dt, device=dev),
+                 torch.empty((nparts, num_labels, num_labels), dtype=dt, device=dev),
+                 torch.empty((2, nparts, s_total), dtype=dt, device=dev)]
+        sizes.append(chunk)
+    else:
+        ptrs += [torch.empty((num_batches, num_labels, num_labels), dtype=dt, device=dev),
+                 d_trans, gself, gnext]
+    stem = "asg_bwd_warp" if route == "warp" else "asg_bwd"
+    fn = c_function("asg_bwd", stem, dt, len(ptrs), len(sizes))
+    with torch.cuda.device(dev):
+        err = fn(*map(ptr, ptrs), *sizes, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+
+
+def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
+                pb, qb, g_full, g_fac, *, route=None):
+    """Launch K2 (csrc/asg_bwd.cu) on ``route`` ('warp', 'block', or None
+    for ``_bwd_route``).  Returns (gI, gA, dT, gself, gnext).  Counts every
+    launch in ``.launches`` and each route's in ``.launches_<route>``."""
+    t_total, num_batches, num_labels = inputs.shape
+    s_total = aligned.shape[2]
+    route = _check_route("K2", route, num_labels, s_total)
     dev, dt = inputs.device, inputs.dtype
     (li,) = _lattice_args(e, self_trans, next_trans, inputs, aligned, input_lengths)
     g_full = g_full.to(device=dev, dtype=dt).contiguous()
@@ -362,7 +510,6 @@ def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
                            ("g_full", g_full, (num_batches,)),
                            ("g_fac", g_fac, (num_batches,))):
         check_tensor(name, t, dt, shape, dev)
-    e_t = e.T.contiguous()
     gi = torch.zeros((t_total, num_batches, num_labels), dtype=dt, device=dev)
     ga = torch.zeros((t_total, num_batches, s_total), dtype=dt, device=dev)
     d_trans = torch.empty((num_labels, num_labels), dtype=dt, device=dev)
@@ -370,16 +517,10 @@ def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
     gnext = torch.empty((num_batches, s_total), dtype=dt, device=dev)
     if num_batches == 0:
         return gi, ga, d_trans.zero_(), gself, gnext
-    partial = torch.empty((num_batches, num_labels, num_labels), dtype=dt, device=dev)
-    fn = c_function("asg_bwd", "asg_bwd", dt, 17, 4)
-    with torch.cuda.device(dev):
-        err = fn(ptr(inputs), ptr(aligned), ptr(e), ptr(e_t), ptr(self_trans),
-                 ptr(next_trans), ptr(li), ptr(pb), ptr(qb), ptr(g_full),
-                 ptr(g_fac), ptr(gi), ptr(ga), ptr(partial), ptr(d_trans),
-                 ptr(gself), ptr(gnext), t_total, num_batches, num_labels,
-                 s_total, stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+    _launch_bwd(route, e, self_trans, next_trans, inputs, aligned, li, pb, qb, g_full,
+                g_fac, (gi, ga, d_trans, gself, gnext))
     _bwd_kernel.launches += 1
+    _count_route(_bwd_kernel, route)
     return gi, ga, d_trans, gself, gnext
 
 
@@ -428,9 +569,10 @@ def asg_scores_fused(transition, inputs, targets, input_lengths, target_lengths)
 
     Launch counts: ``asg_scores_fused.launches`` (K1 without stores),
     ``_fwd_store_kernel.launches`` (K1 with stores) and
-    ``_bwd_kernel.launches`` (K2); K1's by route in
-    ``_fwd_scores_kernel.launches_{warp,block}`` and
-    ``_fwd_store_kernel.launches_{warp,block}``.
+    ``_bwd_kernel.launches`` (K2); by route in
+    ``_fwd_scores_kernel.launches_{warp,block}``,
+    ``_fwd_store_kernel.launches_{warp,block}`` and
+    ``_bwd_kernel.launches_{warp,block}``.
     """
     transition = transition.to(inputs.dtype)
     if wants_grad(transition, inputs):
@@ -446,6 +588,6 @@ def asg_scores_fused(transition, inputs, targets, input_lengths, target_lengths)
 asg_scores_fused.launches = 0
 _fwd_store_kernel.launches = 0
 _bwd_kernel.launches = 0
-for _wrapper in (_fwd_scores_kernel, _fwd_store_kernel):
-    for _route in FWD_ROUTES:
+for _wrapper in (_fwd_scores_kernel, _fwd_store_kernel, _bwd_kernel):
+    for _route in ROUTES:
         setattr(_wrapper, f"launches_{_route}", 0)
