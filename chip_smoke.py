@@ -10,7 +10,11 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line; any failure raises, so the exit code
-is nonzero:
+is nonzero.  Each profile (PROFILES: device busy time, idle share, a warp
+route's kernels by device time) is one call taken in a new process of its
+own, ``python3 chip_smoke.py --profile NAME``, on inputs of the phase's
+shape, and taken again if it lacks one of the port's kernels the call
+launches:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``,
      one process per source, all at once; the fp32 instances of K1's and
@@ -23,7 +27,8 @@ is nonzero:
      labels and slots, at its width edges in fp32 and fp64; the block route
      in every case), and both routes are timed at the serving and training
      shape, with the microseconds per serial step; one warp-route K2 call
-     is profiled by kernel.  K2 must give the same bits twice on each route.
+     is profiled by kernel (profile ``k2_warp``).  K2 must give the same
+     bits twice on each route.
      K9 (the matmul tier's dual-stream kernel) at the wordpiece shape T=100,
      B=8, N=10,000 (fp32, ragged lengths) and at small fp64 shapes; twice
      with the same bits; and against the two matmul-tier scans, the
@@ -32,7 +37,9 @@ is nonzero:
      at S=512, on ties and at fp64.  K3-K8 (the per-lattice tier) at the
      training shape, at small fp64 shapes, on degenerate lengths, with -inf
      transitions, with E in and out of shared memory and at the width cap
-     N = S = 512; K5 and K8 twice with the same bits;
+     N = S = 512; K3 and K5 on each route that takes the width, also at the
+     warp route's width edges; K5 and K8 twice with the same bits; one K3
+     and one K5 warp-route call profiled by kernel (``k3_k5_warp``);
   4. grads: the fused tier's gradients (K1 with stores -> K2 ->
      scatter_to_full) and the per-lattice tier's (K3, K6, K7 -> K5, K8 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
@@ -68,14 +75,16 @@ is nonzero:
   9. train_pallas: the full-width letter model takes one warm-up step and 5
      timed steps of make_train_step(..., impl='pallas') on ``train``'s
      batch.  Each step must launch K3, K5, K6, K7 and K8 once and K4, K1,
-     K1s, K2 and K9 never; the first step's gradients must agree with the
-     scan tier's and the loss must fall; a score-only asg_scores call must
-     launch K4 and K7 alone;
+     K1s, K2 and K9 never, K3 and K5 on the route 'auto' takes; the first
+     step's gradients must agree with the scan tier's and the loss must
+     fall; a score-only asg_scores call must launch K4 and K7 alone; the
+     criterion alone is timed and profiled (``pallas_criterion``);
  10. serve_posterior: the full-width letter model answers 3 requests of 64
      utterances after a warm-up: encoder -> posterior_decode ('auto', so the
      per-lattice tier: K3 and K5 once a request, K4 never) ->
      collapse_path.  The posteriors must agree with the scan tier's, and the
-     paths wherever the posteriors decide;
+     paths wherever the posteriors decide; one request is profiled
+     (``posterior_request``);
  11. the kernel table (every kernel launched on its path), the nvidia-smi
      line, and last the result line.
 
@@ -89,6 +98,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -165,11 +175,11 @@ def k1_args(case):
             inputs.contiguous(), lat.inputs.contiguous(), li, lo)
 
 
-def width_routes(n, s):
-    """The K1 and K2 routes that take width max(n, s)."""
-    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+def width_routes(*widths):
+    """The routes of K1, K2, K3 and K5 that take rows of these widths."""
+    from torch_asg_tpu_torch.ops.kernels.common import WARP_MAX_WIDTH
 
-    return ("warp", "block") if max(n, s) <= ak.WARP_MAX_WIDTH else ("block",)
+    return ("warp", "block") if max(widths) <= WARP_MAX_WIDTH else ("block",)
 
 
 # The warp routes' width edges (K1's and K2's), fp32 and fp64: (N, S) = (32, 32),
@@ -206,6 +216,7 @@ def check_k1(rng, dev):
     the block route fp32 with E in opted-in shared memory (N=200), with E in
     global memory (N=300), and at the widest widths the front-end takes."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+    from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     results = {}
     f64, f32 = torch.float64, torch.float32
@@ -248,7 +259,7 @@ def check_k1(rng, dev):
     ops = (lsum - B) * (2 * N * N + 4 * N + 8 * S)
     bound_ms, bound_by = bound(nbytes, ops)
     serial_steps = int(li.max()) - 1
-    times = time_routes(ak._fwd_scores_kernel, args, serial_steps, ak._fwd_route(N, S))
+    times = time_routes(ak._fwd_scores_kernel, args, serial_steps, width_route(max(N, S)))
     return {
         "name": "asg_fwd_scores (K1, score-only)",
         "max_abs_err": results["fp32_serving"][times["route_auto"]],
@@ -266,10 +277,11 @@ def route_launches(reset=False):
     {"<wrapper>.<route>": n}; with ``reset`` the counts are set to 0
     first."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+    from torch_asg_tpu_torch.ops.kernels.common import ROUTES
 
     out = {}
     for wrapper in (ak._fwd_scores_kernel, ak._fwd_store_kernel, ak._bwd_kernel):
-        for route in ak.ROUTES:
+        for route in ROUTES:
             if reset:
                 setattr(wrapper, f"launches_{route}", 0)
             out[f"{wrapper.__name__}.{route}"] = getattr(wrapper, f"launches_{route}")
@@ -280,15 +292,14 @@ def check_auto_route(scores, store, bwd):
     """Since the last reset, the score-only K1 launched ``scores`` times, K1
     with stores ``store`` times and K2 ``bwd`` times, each through the
     route 'auto' takes at N, S."""
-    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+    from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     got = route_launches()
-    fwd, bwd_route = ak._fwd_route(N, S), ak._bwd_route(N, S)
+    route = width_route(max(N, S))
     want = dict.fromkeys(got, 0)
-    want.update({f"_fwd_scores_kernel.{fwd}": scores, f"_fwd_store_kernel.{fwd}": store,
-                 f"_bwd_kernel.{bwd_route}": bwd})
-    check(got == want, f"every K1 launch must take the {fwd} route and every K2 launch "
-          f"the {bwd_route} route: {got}")
+    want.update({f"_fwd_scores_kernel.{route}": scores, f"_fwd_store_kernel.{route}": store,
+                 f"_bwd_kernel.{route}": bwd})
+    check(got == want, f"every K1 and K2 launch must take the {route} route: {got}")
     return got
 
 
@@ -446,6 +457,7 @@ def check_k1s_k2(rng, dev):
     routes of each timed at the training shape, and one warp-route K2 call
     profiled by kernel."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+    from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     errs1, errs2 = {}, {}
     edge_rng = np.random.default_rng([SEED, 61])  # keeps ``rng``'s stream as it was
@@ -485,9 +497,10 @@ def check_k1s_k2(rng, dev):
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     tol1 = "; ".join(f"{k} rtol {r:g} atol {a:g}" for k, (r, a) in K1S_TOL[torch.float32].items())
     serial_steps = int(li.max()) - 1
-    times = time_routes(ak._fwd_store_kernel, args, serial_steps, ak._fwd_route(N, S))
-    k2_times = time_routes(ak._bwd_kernel, bargs, int(li.max()), ak._bwd_route(N, S))
-    k2_profile = device_profile(lambda: ak._bwd_kernel(*bargs, route="warp"), K2_WARP_PHASES)
+    auto = width_route(max(N, S))
+    times = time_routes(ak._fwd_store_kernel, args, serial_steps, auto)
+    k2_times = time_routes(ak._bwd_kernel, bargs, int(li.max()), auto)
+    k2_profile = profile_call("k2_warp")
     check(all(v > 0 for v in k2_profile["phase_ms"].values()),
           f"K2's warp route must run its three kernels: {k2_profile['phase_ms']}")
     k1s = {
@@ -506,7 +519,7 @@ def check_k1s_k2(rng, dev):
                       "steps, other sum order); fp64 rtol 1e-9, atol 1e-12 x max; two "
                       "runs bit-identical on each route"),
         **k2_times,
-        "warp_profile": k2_profile,
+        "warp_profile": k2_profile, "warp_device_ms": k2_profile["phase_ms"],
         "plain_ms": time_ms(lambda: ak._bwd_plain(*bargs), runs=5, warmup=1),
         "bound_ms": k2_bound, "bound_by": k2_by, "serial_steps": int(li.max()),
     }
@@ -683,61 +696,101 @@ LATTICE_CASES = (
     ("fp32_width_cap", torch.float32, (2, 600, 512, 512), (512, 600), (1, 512), False),
     ("fp32_training", torch.float32, (B, T, N, S), (500, 1000), (10, 50), False),
 )
+# K3's and K5's warp-route width edges, fp32 and fp64 (from their own
+# seeded stream): N = 32, 33, 64, 65 and 128, the last label in lane 31 of
+# a lane's last register, so that every label register count (1, 2 or 4)
+# runs, with E (fp64 N = 128: 132 KB) in the warp route's shared memory.
+FCC_WIDTH_CASES = tuple(
+    (f"{'fp32' if dt == torch.float32 else 'fp64'}_n{n}", dt, (3, 200, n, 10), (100, 200),
+     (1, 10), False)
+    for dt in (torch.float32, torch.float64) for n in (32, 33, 64, 65, 128))
 # Every output of K3-K8 against its plain version: fp32 covers 1000 serial
 # steps summed in another order (K1's bound); fp64 is the same arithmetic
 # to rounding.
 LATTICE_TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-4, 1e-3)}
+# The kernels of K3's and K5's warp routes, by name, in launch order.
+K3_WARP_PHASES = ("fcc_fwd_warp_kernel", "fcc_fwd_log_kernel")
+K5_WARP_PHASES = ("fcc_bwd_post_kernel", "fcc_bwd_sums_kernel")
 
 
-def check_lattice_kernels(rng, dev):
+def check_lattice_kernels(rng, dev, only=None):
     """K3-K8 against their plain versions on the card in every case of
-    LATTICE_CASES; K5 and K8 run on the plain versions' chains, so both
-    versions see the same inputs, and twice, which must give the same bits.
-    Times and bounds at the training shape."""
+    LATTICE_CASES, and K3 and K5 also in FCC_WIDTH_CASES; K3 and K5 on each
+    route that takes the case's width; K5 and K8 run on the plain versions'
+    chains, so both versions see the same inputs, and twice (K5 on each
+    route), which must give the same bits.  Times and bounds at the
+    training shape, both routes of K3 and K5, and the device time of each
+    kernel of their warp routes (the profile ``k3_k5_warp``).  ``only``
+    (kernel ids) restricts the checks and times to those kernels."""
     from torch_asg_tpu_torch.ops.fac import make_aligned
     from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
     from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
+    from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     names = ("K3", "K4", "K5", "K6", "K7", "K8")
     errs = {k: {} for k in names}
-    for name, dtype, (b, t, n, s), li_r, lo_r, neg_inf in LATTICE_CASES:
-        trans, inputs, targets, li, lo = lattice_case(rng, dev, dtype, b, t, n, s, li_r, lo_r)
+    width_rng = np.random.default_rng([SEED, 8])  # keeps ``rng``'s stream as it was
+    widths = {c[0] for c in FCC_WIDTH_CASES}
+    # the width edges first, so that the loop ends on the training shape
+    for name, dtype, (b, t, n, s), li_r, lo_r, neg_inf in FCC_WIDTH_CASES + LATTICE_CASES:
+        case_rng = width_rng if name in widths else rng
+        trans, inputs, targets, li, lo = lattice_case(case_rng, dev, dtype, b, t, n, s, li_r,
+                                                      lo_r)
         if neg_inf:
-            forbid = torch.as_tensor(rng.random((n, n)) < 0.3, device=dev)
+            forbid = torch.as_tensor(case_rng.random((n, n)) < 0.3, device=dev)
             trans = trans.masked_fill(forbid, -np.inf)
-        g = torch.as_tensor(rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
+        g = torch.as_tensor(case_rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
         e, c, x, li32 = fk._prepare(trans, inputs, li)
         lat = make_aligned(trans, inputs, targets, li, lo)
         fwd_want = fk.fcc_fwd_plain(e, c, x, li32)
         fac_want = (ak.fac_alpha_plain(lat), ak.fac_beta_plain(lat, li, lo))
-        runs = {
-            "K3": (lambda: fk.fcc_fwd_pallas(e, c, x, li32),
-                   lambda: fk.fcc_fwd_plain(e, c, x, li32)),
-            "K4": (lambda: (fk.fcc_beta_pallas(e, c, x, li32),),
-                   lambda: (fk.fcc_beta_plain(e, c, x, li32),)),
-            "K5": (lambda: fk.fcc_bwd_pallas(e, c, x, li32, *fwd_want, g),
-                   lambda: fk.fcc_bwd_plain(e, c, x, li32, *fwd_want, g)),
-            "K6": (lambda: (ak.fac_alpha_pallas(lat),), lambda: (ak.fac_alpha_plain(lat),)),
-            "K7": (lambda: (ak.fac_beta_pallas(lat, li, lo),),
-                   lambda: (ak.fac_beta_plain(lat, li, lo),)),
-            "K8": (lambda: ak.fac_bwd_pallas(lat, *fac_want, g),
-                   lambda: ak.fac_bwd_plain(lat, *fac_want, g)),
-        }
+
+        # (kernel id, route or "block"/"cuda" for one-route kernels) ->
+        # (kernel, plain)
+        runs = {}
+        for route in width_routes(n):
+            runs[("K3", route)] = (
+                lambda route=route: fk.fcc_fwd_pallas(e, c, x, li32, route=route),
+                lambda: fk.fcc_fwd_plain(e, c, x, li32))
+        if name not in widths:
+            runs[("K4", "block")] = (lambda: (fk.fcc_beta_pallas(e, c, x, li32),),
+                                     lambda: (fk.fcc_beta_plain(e, c, x, li32),))
+        for route in width_routes(n):
+            runs[("K5", route)] = (
+                lambda route=route: fk.fcc_bwd_pallas(e, c, x, li32, *fwd_want, g, route=route),
+                lambda: fk.fcc_bwd_plain(e, c, x, li32, *fwd_want, g))
+        if name not in widths:
+            runs.update({
+                ("K6", "cuda"): (lambda: (ak.fac_alpha_pallas(lat),),
+                                 lambda: (ak.fac_alpha_plain(lat),)),
+                ("K7", "cuda"): (lambda: (ak.fac_beta_pallas(lat, li, lo),),
+                                 lambda: (ak.fac_beta_plain(lat, li, lo),)),
+                ("K8", "cuda"): (lambda: ak.fac_bwd_pallas(lat, *fac_want, g),
+                                 lambda: ak.fac_bwd_plain(lat, *fac_want, g)),
+            })
+        if only is not None:
+            runs = {key: run for key, run in runs.items() if key[0] in only}
+
         rtol, atol = LATTICE_TOL[dtype]
-        for kname, (kernel, plain) in runs.items():
+        for (kname, variant), (kernel, plain) in runs.items():
             got, want = kernel(), plain()
+            label = f"{kname} {variant} {name}"
             if kname in ("K5", "K8"):
                 again = kernel()
                 torch.cuda.synchronize()
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                      f"{kname} {name}: two runs differ")
+                      f"{label}: two runs differ")
             torch.cuda.synchronize()
             for i, (gv, wv) in enumerate(zip(got, want)):
-                check(not bool(torch.isnan(gv).any()), f"{kname} {name} output {i}: NaN")
+                check(not bool(torch.isnan(gv).any()), f"{label} output {i}: NaN")
                 torch.testing.assert_close(gv, wv, rtol=rtol, atol=atol,
-                                           msg=lambda m: f"{kname} {name} output {i}: {m}")
-            errs[kname][name] = max(max_err(gv, wv) for gv, wv in zip(got, want))
-        if name == "fp64_degenerate":
+                                           msg=lambda m: f"{label} output {i}: {m}")
+            err = max(max_err(gv, wv) for gv, wv in zip(got, want))
+            if kname in ("K3", "K5"):
+                errs[kname].setdefault(name, {})[variant] = err
+            else:
+                errs[kname][name] = err
+        if name == "fp64_degenerate" and only is None:
             # L_in outside [1, T] (elements 5, 6) has no beta; L_out > L_in
             # (elements 2, 3) no aligned path
             beta = fk.fcc_beta_pallas(e, c, x, li32)
@@ -745,7 +798,16 @@ def check_lattice_kernels(rng, dev):
             check(bool((beta[:, [5, 6]] == -np.inf).all())
                   and bool((fac_beta[0, [2, 3, 5, 6], 0] == -np.inf).all()),
                   "K4/K7: elements without a path must have no beta")
+            for route in width_routes(n):
+                alpha_r, beta_r = fk.fcc_fwd_pallas(e, c, x, li32, route=route)
+                gi_r, _ = fk.fcc_bwd_pallas(e, c, x, li32, *fwd_want, g, route=route)
+                check(bool((beta_r[:, [5, 6]] == -np.inf).all())
+                      and bool((alpha_r[:, 5] == -np.inf).all())
+                      and bool((gi_r[:, [5, 6]] == 0).all()),
+                      f"K3/K5 {route}: elements without a path must have no beta and "
+                      "zero posteriors")
     # timing and bounds at the training shape (the last case)
+    check(name == "fp32_training", "the loop must end on the training shape")
     lsum, w = int(li.sum()), 4
     tbn, tbs = T * B * N * w, T * B * S * w
     step = 2 * N * N + 8 * N
@@ -763,24 +825,72 @@ def check_lattice_kernels(rng, dev):
             "K5": ("fcc_bwd", "fcc_kernels.py:284"), "K6": ("fac_alpha", "fac_kernels.py:146"),
             "K7": ("fac_beta", "fac_kernels.py:163"), "K8": ("fac_bwd", "fac_kernels.py:185")}
     rtol, atol = LATTICE_TOL[torch.float32]
+    serial = int(li.max()) - 1
+    routed = {
+        "K3": (fk.fcc_fwd_pallas, (e, c, x, li32), serial, K3_WARP_PHASES),
+        "K5": (fk.fcc_bwd_pallas, (e, c, x, li32, *fwd_want, g), int(li.max()),
+               K5_WARP_PHASES),
+    }
+    # the warp routes' kernels by device time, K3's and K5's in one profile
+    split = profile_call("k3_k5_warp") if any(k in routed for k, _ in runs) else None
+    check(split is None or split["complete"],
+          f"K3's and K5's warp routes must run their four kernels: {split}")
     out = []
-    for kname, (kernel, plain) in runs.items():
+    for (kname, variant), (kernel, plain) in runs.items():
+        if kname in ("K3", "K5") and variant != width_route(N):
+            continue
         bound_ms, bound_by = bound(*cost[kname])
         stem, replaces = meta[kname]
-        out.append({
+        entry = {
             "name": f"{stem} ({kname})", "wrapper": f"{stem}_pallas",
             "source": f"torch_asg_tpu_torch/ops/kernels/csrc/{stem[:3]}.cu",
             "replaces": f"torch_asg_tpu/ops/pallas/{replaces}",
-            "max_abs_err": errs[kname]["fp32_training"], "max_abs_err_by_case": errs[kname],
+            "max_abs_err_by_case": errs[kname],
             "tolerance": (f"fp32 rtol {rtol:g} atol {atol:g} (1000 serial steps, other sum "
                           "order); fp64 1e-10" + ("; two runs bit-identical"
                                                   if kname in ("K5", "K8") else "")),
-            "ms": time_ms(kernel),
             "plain_ms": time_ms(plain, runs=5, warmup=1),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "serial_steps": T - 1 if kname in ("K6", "K8") else int(li.max()) - 1,
-        })
+            "serial_steps": T - 1 if kname in ("K6", "K8") else serial,
+        }
+        if kname in routed:
+            wrapper, args, steps, phases = routed[kname]
+            entry.update(time_routes(wrapper, args, steps, width_route(N)))
+            entry["max_abs_err"] = errs[kname]["fp32_training"][entry["route_auto"]]
+            entry["warp_device_ms"] = {p: split["phase_ms"][p] for p in phases}
+        else:
+            entry["max_abs_err"] = errs[kname]["fp32_training"]
+            entry["ms"] = time_ms(kernel)
+        out.append(entry)
     return out
+
+
+def lattice_route_launches(reset=False):
+    """K3's and K5's launches by route, {"<wrapper>.<route>": n}; with
+    ``reset`` the counts are set to 0 first."""
+    from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
+    from torch_asg_tpu_torch.ops.kernels.common import ROUTES
+
+    out = {}
+    for wrapper in (fk.fcc_fwd_pallas, fk.fcc_bwd_pallas):
+        for route in ROUTES:
+            if reset:
+                setattr(wrapper, f"launches_{route}", 0)
+            out[f"{wrapper.__name__}.{route}"] = getattr(wrapper, f"launches_{route}")
+    return out
+
+
+def check_lattice_auto_route(count):
+    """Since the last reset, K3 and K5 launched ``count`` times each, every
+    time through the route 'auto' takes at N."""
+    from torch_asg_tpu_torch.ops.kernels.common import width_route
+
+    got = lattice_route_launches()
+    want = dict.fromkeys(got, 0)
+    route = width_route(N)
+    want.update({f"fcc_fwd_pallas.{route}": count, f"fcc_bwd_pallas.{route}": count})
+    check(got == want, f"every K3 and K5 launch must take the {route} route: {got}")
+    return got
 
 
 def lattice_counters():
@@ -917,8 +1027,7 @@ def serve(rng, dev, counters):
             asg_scores(trans, em, targets, li, lo)
 
     scores_ms = time_ms(scores)
-    scores_profile = device_profile(scores)
-    scores_profile["idle_share"] = 1.0 - scores_profile["device_busy_ms"] / scores_ms
+    scores_profile = profile_call("serve_scores")
 
     for em, li, targets, lo, dec, hyps, full, aligned, loss in outs:
         check(tuple(em.shape) == (T, B, N), f"emissions shape {tuple(em.shape)}")
@@ -1073,8 +1182,7 @@ def train(rng, dev):
         torch.autograd.grad(out, (tr_fixed, em_fixed))
 
     criterion_ms = time_ms(criterion)
-    profiled = device_profile(criterion)
-    profiled["idle_share"] = 1.0 - profiled["device_busy_ms"] / criterion_ms
+    profiled = profile_call("train_criterion")
     # the spread guard alone: one (N, N) reduction and one host sync a call
     guard_ms = time_ms(lambda: _spread_guard(tr_fixed.detach(), "auto", 1.0, True))
     frames = int(li.sum())
@@ -1092,12 +1200,12 @@ def train(rng, dev):
     return {k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")}, (utts, labels)
 
 
-def device_profile(fn, phases=()):
+def device_profile(fn, names=()):
     """One call of ``fn`` under torch.profiler: the device's busy time (the
     sum of its kernels' own times, ms), the number of kernels, the five
     kernels that took longest in all ([name cut to 80 characters, ms]), and
-    for each name in ``phases`` the time of the kernels whose name holds
-    it."""
+    for each name in ``names`` the time (``phase_ms``) and the number
+    (``phase_launches``) of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1106,15 +1214,163 @@ def device_profile(fn, phases=()):
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(busy > 0, "the profiler saw no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    out = {"device_busy_ms": busy, "kernels": sum(e.count for e in kernels),
-           "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3] for e in top]}
-    if phases:
-        out["phase_ms"] = {p: sum(e.self_device_time_total for e in kernels if p in e.key) / 1e3
-                           for p in phases}
+    return {
+        "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+        "kernels": sum(e.count for e in kernels),
+        "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3] for e in top],
+        "phase_ms": {p: sum(e.self_device_time_total for e in kernels if p in e.key) / 1e3
+                     for p in names},
+        "phase_launches": {p: sum(e.count for e in kernels if p in e.key) for p in names},
+    }
+
+
+# The profiles of single calls, by name, each with the port's kernels that
+# one call launches once each.  ``profile_call`` takes each in a process of
+# its own, as that process's first profiler session: sessions that came
+# later in a long process lost kernel records (scripts/fcc_diag.py
+# --profiler).
+PROFILES = {
+    "k2_warp": K2_WARP_PHASES,
+    "k3_k5_warp": K3_WARP_PHASES + K5_WARP_PHASES,
+    "serve_scores": ("asg_fwd_warp_kernel",),
+    "train_criterion": ("asg_fwd_warp_kernel",) + K2_WARP_PHASES,
+    "wordpiece_criterion": ("row_max_kernel", "dual_init_kernel"),
+    "pallas_criterion": (K3_WARP_PHASES + K5_WARP_PHASES
+                         + ("fac_alpha_kernel", "fac_beta_kernel", "fac_bwd_kernel")),
+    "posterior_request": K3_WARP_PHASES + K5_WARP_PHASES,
+}
+PROFILE_TRIES = 3
+
+
+def profile_call(name, root=None):
+    """Profile ``name`` (a key of PROFILES) in a new process, ``python3
+    chip_smoke.py --profile NAME``: ``device_profile``'s reading of one
+    call, the call's CUDA-event median (``call_ms``) and its idle share,
+    1 - busy / call_ms.  A profile that does not show each kernel PROFILES
+    names exactly once is short: it is taken again in another new process,
+    up to PROFILE_TRIES times, and if the last is short too, ``complete``
+    is False and it gives no idle share.  ``root``: the checkout whose port
+    the new process imports, for timing two checkouts with one instrument
+    (``scripts/ab_serve_train.py``); its kernels go unchecked (``complete``
+    None)."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--profile", name]
+    if root is not None:
+        cmd += ["--root", str(Path(root).resolve())]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0,
+              f"profile {name} failed:\n{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+        out = json.loads(run.stdout.strip().splitlines()[-1])
+        out["attempts"] = attempt
+        if out["complete"] is not False:
+            break
     return out
+
+
+def profile_target(name, dev):
+    """The call that profile ``name`` takes, at the shape its phase gives
+    it, on inputs drawn from a seed of its own: (the call, the runs its
+    CUDA-event median takes)."""
+    from torch_asg_tpu_torch import asg_loss, asg_scores, posterior_decode
+    from torch_asg_tpu_torch.convert import transition_from_numpy
+    from torch_asg_tpu_torch.runtime import collapse_path
+
+    rng = np.random.default_rng([SEED, 90])
+    if name in ("k2_warp", "k3_k5_warp"):
+        # the kernels' training-shape case
+        case = lattice_case(rng, dev, torch.float32, B, T, N, S, (500, 1000), (10, S))
+        g = torch.as_tensor(rng.uniform(0.5, 1.5, size=B), dtype=torch.float32, device=dev)
+        if name == "k2_warp":
+            from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+
+            args = k1_args(case)
+            pb, qb = ak._fwd_store_kernel(*args, route="warp")[:2]
+            bargs = args[:6] + (pb, qb, g, -g)
+            return (lambda: ak._bwd_kernel(*bargs, route="warp")), RUNS
+        from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
+
+        trans, inputs, _, li, _ = case
+        args = fk._prepare(trans, inputs, li)
+
+        def k3_k5():
+            alpha, beta = fk.fcc_fwd_pallas(*args, route="warp")
+            fk.fcc_bwd_pallas(*args, alpha, beta, g, route="warp")
+
+        return k3_k5, RUNS
+    if name.endswith("criterion"):
+        # asg_loss forward + backward on fixed emissions, as the training
+        # phases time it
+        if name == "wordpiece_criterion":
+            n, impl, runs = WP_N, "auto", 10
+            model, batch = letter_model(rng, dev, WP_N), wordpiece_batch(rng, dev)
+        else:
+            n, impl, runs = N, "pallas" if name == "pallas_criterion" else "auto", RUNS
+            model = letter_model(rng, dev)
+            batch = prepare_batch(*train_batch(rng), dev)
+        li = model.output_length(batch["feature_lengths"]).to(torch.int32)
+        with torch.no_grad():
+            em = model(batch["features"]).requires_grad_(True)
+        # the transition a training run starts from (create_train_state)
+        tr = torch.zeros((n, n), device=dev, requires_grad=True)
+
+        def criterion():
+            out = asg_loss(tr, em, batch["targets"], li, batch["target_lengths"], impl=impl)
+            torch.autograd.grad(out, (tr, em))
+
+        return criterion, runs
+    # a serving request's inputs, as ``serve`` and ``serve_posterior`` draw them
+    model = letter_model(rng, dev).eval()
+    trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
+                                  dtype=torch.float32)
+    feat_lengths = torch.as_tensor(rng.integers(1000, 2001, size=B), device=dev)
+    feats = torch.as_tensor(rng.normal(size=(B, 2000, FEATURES)).astype(np.float32),
+                            device=dev)
+    if name == "serve_scores":
+        lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
+        targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
+                                  device=dev)
+        with torch.no_grad():
+            em = model(feats)
+            li = model.output_length(feat_lengths).to(torch.int32)
+
+        def scores():
+            with torch.no_grad():
+                asg_scores(trans, em, targets, li, lo)
+
+        return scores, RUNS
+    check(name == "posterior_request", f"no profile named {name!r}")
+
+    def request():
+        with torch.no_grad():
+            em = model(feats)
+            li = model.output_length(feat_lengths).to(torch.int32)
+            paths = posterior_decode(trans, em, li).paths.cpu().numpy()
+            for b in range(B):
+                collapse_path(paths[:, b], ALPHABET, MAX_REPS)
+        torch.cuda.synchronize()
+
+    return request, 5
+
+
+def profile_main(argv):
+    """``chip_smoke.py --profile NAME [--root DIR]``: print ``profile_call``'s
+    reading of one profile, taken as this process's first profiler
+    session."""
+    name = argv[argv.index("--profile") + 1]
+    checked = "--root" not in argv
+    if not checked:
+        sys.path.insert(0, argv[argv.index("--root") + 1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn, runs = profile_target(name, torch.device("cuda", 0))
+    call_ms = time_ms(fn, runs=runs)
+    out = device_profile(fn, PROFILES[name])
+    complete = (all(n == 1 for n in out["phase_launches"].values()) if checked else None)
+    emit({"profile": name, **out, "call_ms": call_ms, "complete": complete,
+          "idle_share": (None if complete is False
+                         else 1.0 - out["device_busy_ms"] / call_ms)})
+    return 0
 
 
 def wordpiece_batch(rng, dev):
@@ -1145,19 +1401,14 @@ def train_wordpiece(rng, dev):
     tier): one warm-up step, then 5 timed steps, each ending in a device
     synchronise."""
     from torch_asg_tpu_torch import asg_loss, asg_scores
-    from torch_asg_tpu_torch.convert import wav2letter_from_flax
-    from torch_asg_tpu_torch.models import (Wav2Letter, create_train_state, loss_fn,
-                                            make_train_step)
+    from torch_asg_tpu_torch.models import create_train_state, loss_fn, make_train_step
     from torch_asg_tpu_torch.ops.fcc import force_dual_streams
     from torch_asg_tpu_torch.ops.kernels.asg_kernels import (_bwd_kernel,
                                                               _fwd_store_kernel,
                                                               asg_scores_fused)
     from torch_asg_tpu_torch.ops.kernels.bigvocab_kernels import fcc_dual_streams
 
-    cfg = dict(num_labels=WP_N, channels=256, depth=6, head_channels=512,
-               frontend_kernel=11, frontend_stride=2, kernel=7)
-    model = Wav2Letter(in_features=FEATURES, device=dev, **cfg)
-    model.load_state_dict(wav2letter_from_flax(flax_layout_params(rng, cfg)))
+    model = letter_model(rng, dev, WP_N)
     state = create_train_state(model)
     step = make_train_step(model, state.optimizer)
     batch = wordpiece_batch(rng, dev)
@@ -1244,9 +1495,7 @@ def train_wordpiece(rng, dev):
         torch.autograd.grad(out, (tr_fixed, em_fixed))
 
     criterion_ms = time_ms(criterion, runs=10)
-    profiled = device_profile(criterion)
-    # the busy time against the unprofiled median: the profiler slows the host
-    profiled["idle_share"] = 1.0 - profiled["device_busy_ms"] / criterion_ms
+    profiled = profile_call("wordpiece_criterion")
     frames = int(li.sum())
     emit({"phase": "train_wordpiece", "card": torch.cuda.get_device_name(0),
           "batch": WP_B, "labels": WP_N, "frames_max": int(li.max()), "frames_sum": frames,
@@ -1325,13 +1574,14 @@ def align(rng, dev):
     return launches
 
 
-def letter_model(rng, dev):
-    """The full-width letter Wav2Letter (the JAX package's defaults) with
-    random weights from ``rng``."""
+def letter_model(rng, dev, num_labels=N):
+    """The full-width Wav2Letter (the JAX package's defaults) with a head of
+    ``num_labels`` (letters unless told otherwise) and random weights from
+    ``rng``."""
     from torch_asg_tpu_torch.convert import wav2letter_from_flax
     from torch_asg_tpu_torch.models import Wav2Letter
 
-    cfg = dict(num_labels=N, channels=256, depth=6, head_channels=512,
+    cfg = dict(num_labels=num_labels, channels=256, depth=6, head_channels=512,
                frontend_kernel=11, frontend_stride=2, kernel=7)
     model = Wav2Letter(in_features=FEATURES, device=dev, **cfg)
     model.load_state_dict(wav2letter_from_flax(flax_layout_params(rng, cfg)))
@@ -1385,6 +1635,7 @@ def train_pallas(rng, dev, utts, labels):
     counters = (*lattice, asg_scores_fused, _fwd_store_kernel, _bwd_kernel, fcc_dual_streams)
     for c in counters:
         c.launches = 0
+    lattice_route_launches(reset=True)
     losses, latencies = [], []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1400,6 +1651,7 @@ def train_pallas(rng, dev, utts, labels):
     check(launches == want,
           f"each step must launch K3, K5, K6, K7, K8 once and K4, K1, K1s, K2, K9 never: "
           f"{launches}")
+    routes_seen = check_lattice_auto_route(5)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch, impl="pallas"))
@@ -1447,15 +1699,14 @@ def train_pallas(rng, dev, utts, labels):
         torch.autograd.grad(out, (tr_fixed, em_fixed))
 
     criterion_ms = time_ms(criterion)
-    profiled = device_profile(criterion)
-    profiled["idle_share"] = 1.0 - profiled["device_busy_ms"] / criterion_ms
+    profiled = profile_call("pallas_criterion")
     frames = int(li.sum())
     emit({"phase": "train_pallas", "card": torch.cuda.get_device_name(0), "batch": B,
           "frames_max": int(li.max()), "frames_sum": frames,
           "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
           "frames_per_s": frames / (median_ms * 1e-3), "losses": losses,
           "loss_after": loss_after, "launches": launches,
-          "score_only_launches": score_only,
+          "route_launches": routes_seen, "score_only_launches": score_only,
           "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
           "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
           "criterion_fwd_bwd_ms": criterion_ms,
@@ -1517,6 +1768,7 @@ def serve_posterior(rng, dev):
     counters = lattice_counters()
     for c in counters:
         c.launches = 0
+    lattice_route_launches(reset=True)
     latencies, outs = [], []
     for req in requests[1:]:
         out, stage_ms = answer(*req)
@@ -1526,9 +1778,13 @@ def serve_posterior(rng, dev):
     want = dict.fromkeys(launches, 0)
     want.update(fcc_fwd_pallas=3, fcc_bwd_pallas=3)
     check(launches == want, f"each request must launch K3 and K5 once, K4 never: {launches}")
+    routes_seen = check_lattice_auto_route(3)
     _, stage_ms = answer(*requests[1], sync=torch.cuda.synchronize)
     stages = dict(zip(("encoder", "posterior_decode", "paths_to_host_and_collapse"),
                       stage_ms))
+    median_ms = statistics.median(latencies)
+    # one request under the profiler: the device's busy time and idle share
+    request_profile = profile_call("posterior_request")
 
     for em, li, dec, hyps in outs:
         check(tuple(em.shape) == (T, B, N), f"emissions shape {tuple(em.shape)}")
@@ -1557,8 +1813,9 @@ def serve_posterior(rng, dev):
           "decode scores differ from the scan tier's")
     emit({"phase": "serve_posterior", "card": torch.cuda.get_device_name(0),
           "requests": 3, "batch": B, "frames": T, "latency_ms": latencies,
-          "median_latency_ms": statistics.median(latencies), "launches": launches,
-          "stage_ms_second_request": stages, "posterior_tolerance": POST_TOL,
+          "median_latency_ms": median_ms, "launches": launches,
+          "route_launches": routes_seen, "stage_ms_second_request": stages,
+          "request_profile": request_profile, "posterior_tolerance": POST_TOL,
           "max_abs_err_posteriors_vs_scan": post_err,
           "frames_decided": int(decided.sum()), "frames_valid": int(valid.sum()),
           "paths_equal_scan_share": float((dec.paths == ref.paths)[valid].float().mean()),
@@ -1583,10 +1840,12 @@ def spill_bytes(log, marker):
     return out
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 1
+    if "--profile" in argv:
+        return profile_main(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1613,14 +1872,23 @@ def main():
     k2_spills = {**spill_bytes(bwd_log, "asg_bwd_warp_chain_kernelIf"),
                  **spill_bytes(bwd_log, "asg_bwd_warp_post_kernelIf"),
                  **spill_bytes(bwd_log, "asg_bwd_warp_sums_kernelIf")}
+    fcc_log = libs["fcc"].with_suffix(".log").read_text()
+    k3_k5_spills = {k: v for marker in ("fcc_fwd_warp_kernelIf", "fcc_fwd_log_kernelIf",
+                                        "fcc_bwd_post_kernelIf", "fcc_bwd_sums_kernelIf")
+                    for k, v in spill_bytes(fcc_log, marker).items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
-          "k1_warp_fp32_spill_bytes": warp_spills, "k2_warp_fp32_spill_bytes": k2_spills})
+          "k1_warp_fp32_spill_bytes": warp_spills, "k2_warp_fp32_spill_bytes": k2_spills,
+          "k3_k5_warp_fp32_spill_bytes": k3_k5_spills})
     # K1: two variants x 3 label x 3 slot register counts; K2: the chain and
     # posterior kernels x 3 x 3, and the sums
     check(len(warp_spills) == 18 and not any(warp_spills.values()),
           f"K1's fp32 warp-route instances must not spill: {warp_spills}")
     check(len(k2_spills) == 19 and not any(k2_spills.values()),
           f"K2's fp32 warp-route instances must not spill: {k2_spills}")
+    # K3: the chain kernel x 3 label register counts, and the log pass; K5:
+    # the posterior kernel x 3, and the sums
+    check(len(k3_k5_spills) == 8 and not any(k3_k5_spills.values()),
+          f"K3's and K5's fp32 warp-route instances must not spill: {k3_k5_spills}")
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(rng, dev)
@@ -1670,9 +1938,10 @@ def main():
         "launches": launches[wrapper], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
-        # K1's and K2's two routes, timed in this run
-        **{key: k[key] for key in ("route_auto", "ms_warp", "ms_block", "us_per_step")
-           if key in k},
+        # the two routes of K1, K2, K3 and K5, timed in this run; K2's, K3's
+        # and K5's warp-route kernels, by device time (one profiled call)
+        **{key: k[key] for key in ("route_auto", "ms_warp", "ms_block", "us_per_step",
+                                   "warp_device_ms") if key in k},
     } for k, wrapper, source, replaces in meta]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel never launched on its path: {[k['name'] for k in kernels]}")
@@ -1684,4 +1953,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

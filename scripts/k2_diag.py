@@ -37,6 +37,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as c  # noqa: E402
 from torch_asg_tpu_torch.ops.kernels import _build  # noqa: E402
 from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak  # noqa: E402
+from torch_asg_tpu_torch.ops.kernels import common as kc  # noqa: E402
 
 # E in registers for a lane that holds one label: each lane keeps its column
 # of the padded E^T (32 words) and reads only the row x from shared memory.
@@ -153,17 +154,17 @@ def split(bargs):
 
 
 def chunks(bargs):
-    out, orig = {}, ak.POST_BLOCKS
+    out, orig = {}, kc.POST_BLOCKS
     try:
         for blocks in (528, 1056, 2112, 4224):
-            ak.POST_BLOCKS = blocks
+            kc.POST_BLOCKS = blocks
             prof = c.device_profile(lambda: ak._bwd_kernel(*bargs, route="warp"),
                                     c.K2_WARP_PHASES)
-            out[blocks] = {"chunk": ak._bwd_chunk(c.T, c.B),
+            out[blocks] = {"chunk": kc.post_chunk(c.T, c.B),
                            "ms": c.time_ms(lambda: ak._bwd_kernel(*bargs, route="warp")),
                            "phase_ms": prof["phase_ms"]}
     finally:
-        ak.POST_BLOCKS = orig
+        kc.POST_BLOCKS = orig
     return out
 
 
@@ -172,7 +173,7 @@ def variants(bargs):
     li = li.to(torch.int32).contiguous()
     t_total, batch, n = inputs.shape
     s = aligned.shape[2]
-    chunk = ak._bwd_chunk(t_total, batch)
+    chunk = kc.post_chunk(t_total, batch)
     nparts = batch * -(-t_total // chunk)
     dev, dt = inputs.device, inputs.dtype
     outs = [torch.zeros((t_total, batch, n), dtype=dt, device=dev),

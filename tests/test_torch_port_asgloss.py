@@ -18,6 +18,7 @@ import torch_asg_tpu_torch as pt
 from test_torch_port_grads import _counting
 from torch_asg_tpu.torch_compat import ASGLoss as RefASGLoss
 from torch_asg_tpu_torch.ops.kernels import asg_kernels as pkern
+from torch_asg_tpu_torch.ops.kernels import common as kcommon
 
 REF_TOL = dict(rtol=1e-5)
 SAME_TOL = dict(rtol=1e-12)
@@ -125,7 +126,7 @@ def test_eval_mode_launches_the_storeless_kernel(monkeypatch):
     (129, 10, "block"), (10, 129, "block"), (512, 512, "block"),
 ])
 def test_fwd_route_rule(num_labels, s_total, route):
-    assert pkern._fwd_route(num_labels, s_total) == route
+    assert kcommon.width_route(max(num_labels, s_total)) == route
 
 
 def _kernel_args(num_labels, s_total, seed=11):
@@ -168,7 +169,7 @@ def test_bad_route_raises_before_any_launch(monkeypatch, wrapper):
 @pytest.mark.parametrize("wrapper, variant", [("_fwd_scores_kernel", "scores"),
                                               ("_fwd_store_kernel", "store")])
 def test_route_dispatch_and_counts(monkeypatch, wrapper, variant):
-    """``route=None`` launches the route ``_fwd_route`` names and counts it
+    """``route=None`` launches the route ``width_route`` names and counts it
     on the wrapper, beside the variant's count of every launch."""
     launched = _recording_launches(monkeypatch)
     fn = getattr(pkern, wrapper)

@@ -17,6 +17,7 @@ import torch
 
 from torch_asg_tpu.ops.pallas import asg_kernels as jkern
 from torch_asg_tpu_torch.ops.kernels import asg_kernels as pkern
+from torch_asg_tpu_torch.ops.kernels import common as kcommon
 
 RTOL, ATOL_REL = 1e-9, 1e-12
 OUTPUTS = ("gI", "gA", "dT", "gself", "gnext")
@@ -131,7 +132,7 @@ def test_alpha_rows_match_the_block_routes_chain():
     (129, 10, "block"), (10, 129, "block"), (512, 512, "block"),
 ])
 def test_bwd_route_rule(num_labels, s_total, route):
-    assert pkern._bwd_route(num_labels, s_total) == route
+    assert kcommon.width_route(max(num_labels, s_total)) == route
 
 
 def _k2_args(num_labels, s_total, seed=11):
@@ -168,7 +169,7 @@ def test_bad_bwd_route_raises_before_any_launch(monkeypatch):
 
 
 def test_bwd_route_dispatch_and_counts(monkeypatch):
-    """``route=None`` launches the route ``_bwd_route`` names and counts it
+    """``route=None`` launches the route ``width_route`` names and counts it
     on the wrapper, beside ``.launches``, which counts every launch; the
     wrapper hands back what the launch wrote."""
     launched = _recording_launches(monkeypatch)

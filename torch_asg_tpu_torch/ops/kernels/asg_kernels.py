@@ -18,9 +18,10 @@ On CUDA tensors the chains run in the hand-written kernels
 ``csrc/asg_fwd.cu`` (K1, both variants) and ``csrc/asg_bwd.cu`` (K2); on CPU
 tensors in ``_fwd_scores_plain``, ``_fwd_store_plain`` and ``_bwd_plain``,
 step-by-step loops of the same arithmetic.  K1 and K2 each have two routes
-with the same outputs, chosen by ``_fwd_route`` and ``_bwd_route``: up to
-``WARP_MAX_WIDTH`` labels and target slots one warp walks each chain of an
-element, past it one block of one thread per label and slot walks both.
+with the same outputs, chosen by ``common.width_route``: up to
+``common.WARP_MAX_WIDTH`` labels and target slots one warp walks each chain
+of an element, past it one block of one thread per label and slot walks
+both.
 K2's warp route keeps only the chains on those warps: a second kernel
 computes the posteriors and the transition product over chunks of frames
 in parallel, and a third sums the partials (``_bwd_split_plain`` is its
@@ -40,25 +41,15 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .common import (KERNEL_DTYPES, c_function, check_tensor, ptr,
-                     raise_on_error, stream_ptr, use_kernel, wants_grad)
+from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
+                     count_route, exp_rows, post_chunk, ptr, raise_on_error,
+                     softmax_rows, stream_ptr, use_kernel, wants_grad)
 from ..fac import (AlignedLattice, _shift_left_s, _shift_right_s, make_aligned,
                    scatter_to_full)
 from ..semiring import NEG_INF, logaddexp
 
 # Widest label / target width the kernel's one-thread-per-lane block takes.
 KERNEL_MAX_WIDTH = 1024
-# The routes of K1 (csrc/asg_fwd.cu) and K2 (csrc/asg_bwd.cu): the warp
-# route, one warp per chain of an element (lane l holds labels or slots l,
-# l+32, ..., at most 4), up to WARP_MAX_WIDTH; the block route, one thread
-# per label and slot, up to KERNEL_MAX_WIDTH.
-ROUTES = ("warp", "block")
-WARP_MAX_WIDTH = 128
-# K2's warp route runs its posterior phase as one block of four warps per
-# (element, chunk of frames), with enough chunks for 16 blocks on each of
-# the H100's 132 SMs: the phase waits on memory latency, so it wants every
-# warp slot filled (scripts/k2_diag.py sweeps the count; PERF.md §6).
-POST_BLOCKS = 16 * 132
 
 
 def _prepare(transition, inputs, targets, input_lengths, target_lengths):
@@ -77,13 +68,6 @@ def _fix_scores(sful, sfac, input_lengths, c):
     # L_in - 1 steps from its seed, one transition each.
     steps = input_lengths.to(sful.dtype) - 1.0
     return sful + steps * c, sfac
-
-
-def _exp_rows(x):
-    """(exp(x - rowmax), rowmax) with all--inf rows mapping to (0, 0)."""
-    m = torch.amax(x, dim=-1)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    return torch.exp(x - m[:, None]), m
 
 
 def _beta_walk(e, self_trans, next_trans, inputs, aligned, input_lengths,
@@ -136,7 +120,7 @@ def _beta_walk(e, self_trans, next_trans, inputs, aligned, input_lengths,
             pb_all[t] = torch.where(live, pb, 0.0)
             qb_all[t] = torch.where(live, qb, NEG_INF)
         row = inputs[t].masked_fill((t >= li)[:, None], NEG_INF)
-        ex_n, m_n = _exp_rows(row)
+        ex_n, m_n = exp_rows(row)
         ai_n = aligned[t]
     sful = torch.log(torch.sum(pb * ex_n, dim=1)) + m_n + off
     sfac = qb[:, 0] + ai_n[:, 0]
@@ -204,7 +188,7 @@ def _bwd_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
         m_a = torch.amax(lpa, dim=1, keepdim=True)
         m_a = torch.where(torch.isfinite(m_a), m_a, torch.zeros_like(m_a))
         pa_prev, pa = pa, torch.exp(lpa - m_a)
-        gi = _softmax_rows(lpa + torch.log(pb[t])) * g_full
+        gi = softmax_rows(lpa + torch.log(pb[t])) * g_full
         gi_all[t] = gi
         if t > 0:
             u = gi / torch.where(s > 0, s, torch.ones_like(s))
@@ -215,7 +199,7 @@ def _bwd_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
         else:
             y = _shift_right_s(qa + next_trans)
             qa_new = av + logaddexp(qa + self_trans, y)
-        gq = _softmax_rows(qa_new + qb[t]) * g_fac
+        gq = softmax_rows(qa_new + qb[t]) * g_fac
         ga_all[t] = gq
         if t > 0:
             sub = torch.where(torch.isfinite(qa_new), av - qa_new, NEG_INF)
@@ -226,13 +210,6 @@ def _bwd_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
         qa = qa_new
     d_trans = acc.sum(dim=0) * e
     return gi_all, ga_all, d_trans, acc_self, _shift_left_s(acc_diag, fill=0.0)
-
-
-def _bwd_chunk(t_total, num_batches):
-    """Frames per chunk of K2's posterior phase: ``POST_BLOCKS`` blocks over
-    the batch, each chunk at least one frame."""
-    chunks = -(-POST_BLOCKS // max(num_batches, 1))
-    return max(1, -(-t_total // chunks))
 
 
 def _alpha_rows(e, self_trans, next_trans, inputs, aligned):
@@ -256,7 +233,7 @@ def _alpha_rows(e, self_trans, next_trans, inputs, aligned):
     pa = qa = None
     for t in range(t_total):
         s = torch.ones((num_batches, num_labels), dtype=dt, device=dev) if t == 0 else pa @ e_t
-        x = s * _exp_rows(inputs[t])[0]
+        x = s * exp_rows(inputs[t])[0]
         m = torch.amax(x, dim=1, keepdim=True)
         pa = x * (1.0 / torch.where(m > 0, m, torch.ones_like(m)))
         s_rows[t] = s
@@ -276,7 +253,7 @@ def _bwd_split_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
 
     1. ``_alpha_rows``: the two chains, keeping only their rows S and QA.
     2. Posteriors, with no recurrence, per (element, chunk of ``chunk``
-       frames; default ``_bwd_chunk``): every quantity of frame t comes
+       frames; default ``post_chunk``): every quantity of frame t comes
        from rows t and t-1 of S, I, PB, QA, A, QB.  lpa_t = log s_t + I_t,
        gI_t = softmax(lpa_t + log PB_t) * g_full, gA_t = softmax(qa_t +
        QB_t) * g_fac; the chunk's (N, N) partial sum over t >= 1 of
@@ -291,7 +268,7 @@ def _bwd_split_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
     s_total = aligned.shape[2]
     dev, dt = inputs.device, inputs.dtype
     if chunk is None:
-        chunk = _bwd_chunk(t_total, num_batches)
+        chunk = post_chunk(t_total, num_batches)
     li = input_lengths.to(device=dev, dtype=torch.long)
     bad = (li < 1) | (li > t_total)
     live = (torch.arange(t_total, device=dev)[:, None] < li[None, :]) & ~bad[None, :]
@@ -300,11 +277,11 @@ def _bwd_split_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
 
     # ---- phase 2: posteriors and per-chunk partials
     lpa = torch.log(s_rows) + inputs
-    gi = torch.where(live, _softmax_rows(lpa + torch.log(pb)) * g_full.to(dt)[:, None], 0.0)
+    gi = torch.where(live, softmax_rows(lpa + torch.log(pb)) * g_full.to(dt)[:, None], 0.0)
     m_a = torch.amax(lpa, dim=2, keepdim=True)
     pa = torch.where(live, torch.exp(lpa - torch.where(torch.isfinite(m_a), m_a, 0.0)), 0.0)
     u = gi / torch.where(s_rows > 0, s_rows, torch.ones_like(s_rows))
-    ga = torch.where(live, _softmax_rows(qa_rows + qb) * g_fac.to(dt)[:, None], 0.0)
+    ga = torch.where(live, softmax_rows(qa_rows + qb) * g_fac.to(dt)[:, None], 0.0)
     qa, qa_prev = qa_rows[1:], qa_rows[:-1]
     sub = torch.where(torch.isfinite(qa), aligned[1:] - qa, NEG_INF)
     hori = torch.exp(qa_prev + self_trans + sub)
@@ -325,16 +302,6 @@ def _bwd_split_plain(e, self_trans, next_trans, inputs, aligned, input_lengths,
     # ---- phase 3: the sums
     d_trans = part.sum(dim=(0, 1)) * e
     return gi, ga, d_trans, pself.sum(dim=1), _shift_left_s(pdiag.sum(dim=1), fill=0.0)
-
-
-def _softmax_rows(x):
-    """Row softmax with all--inf rows giving zeros, as the kernel takes it:
-    exp(x - max) times the reciprocal of the row sum."""
-    m = torch.amax(x, dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    ex = torch.exp(x - m)
-    den = torch.sum(ex, dim=-1, keepdim=True)
-    return ex * (1.0 / torch.where(den > 0, den, torch.ones_like(den)))
 
 
 def _lattice_args(e, self_trans, next_trans, inputs, aligned, input_lengths,
@@ -366,33 +333,6 @@ def _lattice_args(e, self_trans, next_trans, inputs, aligned, input_lengths,
     return lengths
 
 
-def _fwd_route(num_labels, s_total):
-    """The route ``'auto'`` takes for K1: ``'warp'`` when
-    max(num_labels, s_total) <= WARP_MAX_WIDTH, else ``'block'``."""
-    return "warp" if max(num_labels, s_total) <= WARP_MAX_WIDTH else "block"
-
-
-def _bwd_route(num_labels, s_total):
-    """The route ``'auto'`` takes for K2: ``'warp'`` when
-    max(num_labels, s_total) <= WARP_MAX_WIDTH, else ``'block'``."""
-    return "warp" if max(num_labels, s_total) <= WARP_MAX_WIDTH else "block"
-
-
-def _check_route(kernel, route, num_labels, s_total):
-    """The route to launch for ``kernel`` ('K1' or 'K2'): ``route``, or the
-    kernel's rule (``_fwd_route``, ``_bwd_route``) for None; raises
-    ValueError on an unknown route or a width the route does not take."""
-    if route is None:
-        return (_fwd_route if kernel == "K1" else _bwd_route)(num_labels, s_total)
-    if route not in ROUTES:
-        raise ValueError(f"unknown {kernel} route {route!r}; expected one of {ROUTES}")
-    if route == "warp" and max(num_labels, s_total) > WARP_MAX_WIDTH:
-        raise ValueError(
-            f"{kernel}'s warp route takes max(num_labels, s_total) <= {WARP_MAX_WIDTH}; "
-            f"got num_labels={num_labels}, s_total={s_total}")
-    return route
-
-
 def _launch_fwd(variant, route, e, self_trans, next_trans, inputs, aligned,
                 li, lo, outs):
     """Launch K1's ``variant`` ('scores' or 'store') on ``route`` with the
@@ -409,18 +349,14 @@ def _launch_fwd(variant, route, e, self_trans, next_trans, inputs, aligned,
     raise_on_error(fn.__name__, err)
 
 
-def _count_route(wrapper, route):
-    setattr(wrapper, f"launches_{route}", getattr(wrapper, f"launches_{route}") + 1)
-
-
 def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
                        input_lengths, target_lengths, *, route=None):
     """Launch K1 without stores (csrc/asg_fwd.cu) on ``route`` ('warp',
-    'block', or None for ``_fwd_route``).  Counts every launch in
+    'block', or None for ``width_route``).  Counts every launch in
     ``asg_scores_fused.launches`` and each route's in
     ``_fwd_scores_kernel.launches_<route>``."""
     num_batches, num_labels = inputs.shape[1:]
-    route = _check_route("K1", route, num_labels, aligned.shape[2])
+    route = check_route("K1", route, max(num_labels, aligned.shape[2]))
     dev, dt = inputs.device, inputs.dtype
     li, lo = _lattice_args(e, self_trans, next_trans, inputs, aligned,
                            input_lengths, target_lengths)
@@ -431,7 +367,7 @@ def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
     _launch_fwd("scores", route, e, self_trans, next_trans, inputs, aligned, li, lo,
                 (sful, sfac))
     asg_scores_fused.launches += 1
-    _count_route(_fwd_scores_kernel, route)
+    count_route(_fwd_scores_kernel, route)
     return sful, sfac
 
 
@@ -444,7 +380,7 @@ def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
     route's in ``.launches_<route>``."""
     t_total, num_batches, num_labels = inputs.shape
     s_total = aligned.shape[2]
-    route = _check_route("K1", route, num_labels, s_total)
+    route = check_route("K1", route, max(num_labels, s_total))
     dev, dt = inputs.device, inputs.dtype
     li, lo = _lattice_args(e, self_trans, next_trans, inputs, aligned,
                            input_lengths, target_lengths)
@@ -457,7 +393,7 @@ def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
     _launch_fwd("store", route, e, self_trans, next_trans, inputs, aligned, li, lo,
                 (pb, qb, sful, sfac))
     _fwd_store_kernel.launches += 1
-    _count_route(_fwd_store_kernel, route)
+    count_route(_fwd_store_kernel, route)
     return pb, qb, sful, sfac
 
 
@@ -475,7 +411,7 @@ def _launch_bwd(route, e, self_trans, next_trans, inputs, aligned, li, pb, qb,
     ptrs = [inputs, aligned, e, e.T.contiguous(), self_trans, next_trans, li, pb, qb,
             g_full, g_fac, gi, ga]
     if route == "warp":
-        chunk = _bwd_chunk(t_total, num_batches)
+        chunk = post_chunk(t_total, num_batches)
         nparts = num_batches * -(-t_total // chunk)
         ptrs += [d_trans, gself, gnext,
                  torch.empty((t_total, num_batches, num_labels), dtype=dt, device=dev),
@@ -496,11 +432,11 @@ def _launch_bwd(route, e, self_trans, next_trans, inputs, aligned, li, pb, qb,
 def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
                 pb, qb, g_full, g_fac, *, route=None):
     """Launch K2 (csrc/asg_bwd.cu) on ``route`` ('warp', 'block', or None
-    for ``_bwd_route``).  Returns (gI, gA, dT, gself, gnext).  Counts every
+    for ``width_route``).  Returns (gI, gA, dT, gself, gnext).  Counts every
     launch in ``.launches`` and each route's in ``.launches_<route>``."""
     t_total, num_batches, num_labels = inputs.shape
     s_total = aligned.shape[2]
-    route = _check_route("K2", route, num_labels, s_total)
+    route = check_route("K2", route, max(num_labels, s_total))
     dev, dt = inputs.device, inputs.dtype
     (li,) = _lattice_args(e, self_trans, next_trans, inputs, aligned, input_lengths)
     g_full = g_full.to(device=dev, dtype=dt).contiguous()
@@ -520,7 +456,7 @@ def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
     _launch_bwd(route, e, self_trans, next_trans, inputs, aligned, li, pb, qb, g_full,
                 g_fac, (gi, ga, d_trans, gself, gnext))
     _bwd_kernel.launches += 1
-    _count_route(_bwd_kernel, route)
+    count_route(_bwd_kernel, route)
     return gi, ga, d_trans, gself, gnext
 
 

@@ -27,8 +27,7 @@ import ctypes
 
 import torch
 
-from .asg_kernels import _exp_rows
-from .common import (KERNEL_DTYPES, check_tensor, ptr, raise_on_error,
+from .common import (KERNEL_DTYPES, check_tensor, exp_rows, ptr, raise_on_error,
                      stream_ptr, use_kernel)
 from ..semiring import NEG_INF
 
@@ -74,7 +73,7 @@ def fcc_dual_streams_plain(transition, inputs_m, input_lengths):
         return inputs_m.clone(), b_last[None]
     e, c = _exp_mats(transition, dt)
     seed_row = torch.ones((num_batches, num_labels), dtype=dt, device=dev)
-    pa, offa = _exp_rows(inputs_m[0])
+    pa, offa = exp_rows(inputs_m[0])
     offa = offa[:, None]
     pb = torch.where(li == t_total, seed_row, 0.0)
     offb = torch.zeros((num_batches, 1), dtype=dt, device=dev)
@@ -83,10 +82,10 @@ def fcc_dual_streams_plain(transition, inputs_m, input_lengths):
     alpha[0] = inputs_m[0]
     beta[t_total - 1] = b_last
     for st in range(t_total - 1):
-        eib, cib = _exp_rows(inputs_m[t_total - 1 - st])
+        eib, cib = exp_rows(inputs_m[t_total - 1 - st])
         acc_a = pa @ e.T
         acc_b = (pb * eib) @ e
-        eia, cia = _exp_rows(inputs_m[st + 1])
+        eia, cia = exp_rows(inputs_m[st + 1])
         pa, logma = _rescale(acc_a * eia)
         offa = offa + cia[:, None] + logma + c
         alpha[st + 1] = torch.log(pa) + offa

@@ -18,6 +18,19 @@ DEFAULT_DEVICE = "cuda"
 
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
+# The routes of the kernels that have two (K1, K2, K3, K5): the warp route,
+# one warp per chain of an element (lane l holds labels or slots l, l+32,
+# ..., at most 4), up to WARP_MAX_WIDTH; the block route, one thread per
+# label or slot, up to the kernel's own cap.
+ROUTES = ("warp", "block")
+WARP_MAX_WIDTH = 128
+# K2's and K5's warp routes run their posterior kernel as one block of four
+# warps per (element, chunk of frames), with enough chunks for 16 blocks on
+# each of the H100's 132 SMs: the kernel waits on memory latency, so it
+# wants every warp slot filled (scripts/k2_diag.py sweeps the count;
+# PERF.md §6).
+POST_BLOCKS = 16 * 132
+
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie on
@@ -77,3 +90,55 @@ def raise_on_error(fn_name: str, err: int) -> None:
     """The C entry points return the launch's ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with cudaError_t {err}")
+
+
+def width_route(width: int) -> str:
+    """The route ``'auto'`` takes for a kernel with two routes whose widest
+    row is ``width`` words (K1 and K2: max(labels, target slots); K3 and
+    K5: labels): ``'warp'`` up to WARP_MAX_WIDTH, else ``'block'``."""
+    return "warp" if width <= WARP_MAX_WIDTH else "block"
+
+
+def check_route(kernel: str, route, width: int) -> str:
+    """The route to launch for ``kernel`` (its id, for messages) whose
+    widest row is ``width`` words: ``route``, or ``width_route``'s for
+    None; raises ValueError on an unknown route or a width the route does
+    not take."""
+    if route is None:
+        return width_route(width)
+    if route not in ROUTES:
+        raise ValueError(f"unknown {kernel} route {route!r}; expected one of {ROUTES}")
+    if route == "warp" and width > WARP_MAX_WIDTH:
+        raise ValueError(f"{kernel}'s warp route takes rows of at most {WARP_MAX_WIDTH} "
+                         f"labels or slots; got {width}")
+    return route
+
+
+def count_route(wrapper, route: str) -> None:
+    """Add one to ``wrapper.launches_<route>``."""
+    setattr(wrapper, f"launches_{route}", getattr(wrapper, f"launches_{route}") + 1)
+
+
+def post_chunk(t_total: int, num_batches: int) -> int:
+    """Frames per chunk of K2's and K5's posterior kernels: ``POST_BLOCKS``
+    blocks over the batch, each chunk at least one frame."""
+    chunks = -(-POST_BLOCKS // max(num_batches, 1))
+    return max(1, -(-t_total // chunks))
+
+
+def exp_rows(x: torch.Tensor):
+    """(exp(x - rowmax), rowmax) of a 2-D tensor, with all--inf rows
+    mapping to (0, 0)."""
+    m = torch.amax(x, dim=-1)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.exp(x - m[:, None]), m
+
+
+def softmax_rows(x: torch.Tensor) -> torch.Tensor:
+    """Row softmax with all--inf rows giving zeros, as the kernels take it:
+    exp(x - max) times the reciprocal of the row sum."""
+    m = torch.amax(x, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    ex = torch.exp(x - m)
+    den = torch.sum(ex, dim=-1, keepdim=True)
+    return ex * (1.0 / torch.where(den > 0, den, torch.ones_like(den)))

@@ -3,7 +3,7 @@
 // variant of K1 (asg_fwd.cu) wrote, and every gradient.  Two routes compute
 // the same outputs: the warp route (three kernels, for max(N, S) <= 128)
 // and the block route (one fused kernel and a sum, up to 1024).  The
-// wrapper (asg_kernels.py::_bwd_route) picks the route.
+// wrapper picks the route (common.py::width_route).
 //
 // Replaces: torch_asg_tpu/ops/pallas/asg_kernels.py::_bwd_kernel (launched
 // by _run_bwd).  Its outputs are the contract; its TPU devices (time blocks

@@ -24,7 +24,18 @@ u's exponent is bounded by the transition spread, which the 60-nat guard of
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/fcc.cu``; on CPU tensors they run the plain versions beside them,
-step-by-step loops of the same arithmetic.
+step-by-step loops of the same arithmetic.  K3 and K5 each have two routes
+with the same outputs, chosen by ``common.width_route`` of the label
+count: up to ``common.WARP_MAX_WIDTH`` labels the warp route, past it the
+block route (one thread per label, one block per element walking its
+frames).  K3's warp route walks each chain
+on a warp of its own in the exp domain with a per-step rescale, writing
+raw rows and per-frame offsets that a frame-parallel pass turns into the
+log-domain rows (``_fcc_fwd_warp_plain`` is its arithmetic in torch).
+K5's warp route has no walk: a kernel parallel over (element, chunk of
+frames) computes the posteriors and per-chunk transition partials, and a
+second sums them in a fixed order (``_fcc_bwd_split_plain``).  Both
+mirrors are used by the tests; CPU tensors run the plain versions.
 """
 
 from __future__ import annotations
@@ -33,8 +44,9 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .bigvocab_kernels import _exp_mats
-from .common import (KERNEL_DTYPES, c_function, check_tensor, ptr,
-                     raise_on_error, stream_ptr, use_kernel, wants_grad)
+from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
+                     count_route, exp_rows, post_chunk, ptr, raise_on_error,
+                     softmax_rows, stream_ptr, use_kernel, wants_grad)
 from ..semiring import NEG_INF, logsumexp
 
 # Widest label set the kernels' one-thread-per-label block takes (the
@@ -123,6 +135,106 @@ def fcc_bwd_plain(e, c, inputs, input_lengths, alpha, beta, g):
     return gi_all, acc * e
 
 
+def _fcc_fwd_warp_plain(e, c, inputs, input_lengths):
+    """Plain version of K3's warp route: ``fcc_fwd_plain``'s outputs from
+    exp-domain chains with a per-step rescale.  Used by the tests; the main
+    path runs ``fcc_fwd_plain`` on CPU tensors.
+
+    alpha, t ascending: s_t = pa_{t-1} @ E^T (s_0 = 1), pa_t = s_t *
+    exp(I_t - max I_t) rescaled to max 1, and A_t, the log-scale offset of
+    pa_t, beside the chain; alpha_t = I_t + log s_t + (A_{t-1} + c).  beta,
+    t descending from the seed pb_{L-1} = 1: y_t = (pb_{t+1} * exp(I_{t+1}
+    - max I_{t+1})) @ E, pb_t = y_t rescaled to max 1, beta_t = log y_t +
+    (offset of pb_{t+1} + max I_{t+1} + c).  The chains keep the raw rows
+    and the per-frame offsets; a last pass takes the logs and writes -inf
+    on the rows that are not live (t >= min(L, T) for alpha, t >= L for
+    beta, all of beta when L is outside [1, T]).
+    """
+    t_total, num_batches, num_labels = inputs.shape
+    dev, dt = inputs.device, inputs.dtype
+    li = input_lengths.to(device=dev, dtype=torch.long)
+    raw_a, raw_b = torch.empty_like(inputs), torch.empty_like(inputs)
+    off_a = torch.empty((t_total, num_batches), dtype=dt, device=dev)
+    off_b = torch.empty_like(off_a)
+
+    def rescale(x):
+        m = torch.amax(x, dim=1)
+        m_s = torch.where(m > 0, m, torch.ones_like(m))
+        return x / m_s[:, None], torch.log(m_s)
+
+    # alpha: every element walks all T frames; rows past its length are masked
+    ones = torch.ones((num_batches, num_labels), dtype=dt, device=dev)
+    pa, a_off = None, None
+    for t in range(t_total):
+        ex, m = exp_rows(inputs[t])
+        s = ones if t == 0 else pa @ e.T
+        o = torch.zeros_like(m) if t == 0 else a_off + c
+        raw_a[t], off_a[t] = s, o
+        pa, log_m = rescale(s * ex)
+        a_off = o + m + log_m
+    # beta: seeded at t = L - 1, where the walk restarts
+    pb = ones
+    b_off = torch.zeros((num_batches,), dtype=dt, device=dev)
+    for t in range(t_total - 1, -1, -1):
+        seed = (li - 1 == t)[:, None]
+        if t == t_total - 1:
+            y, o = ones, torch.zeros_like(b_off)
+        else:
+            ex, m = exp_rows(inputs[t + 1])
+            y, o = (pb * ex) @ e, b_off + m + c
+        y, o = torch.where(seed, ones, y), torch.where(seed[:, 0], 0.0, o)
+        raw_b[t], off_b[t] = y, o
+        pb, log_m = rescale(y)
+        b_off = o + log_m
+    rows = torch.arange(t_total, device=dev)[:, None, None]
+    live_a = rows < li[None, :, None]
+    live_b = live_a & (li <= t_total)[None, :, None]
+    alpha = torch.where(live_a, inputs + torch.log(raw_a) + off_a[..., None], NEG_INF)
+    beta = torch.where(live_b, torch.log(raw_b) + off_b[..., None], NEG_INF)
+    return alpha, beta
+
+
+def _fcc_bwd_split_plain(e, c, inputs, input_lengths, alpha, beta, g, chunk=None):
+    """Plain version of K5's warp route: ``fcc_bwd_plain``'s outputs with no
+    walk over the frames.  Used by the tests; the main path runs
+    ``fcc_bwd_plain`` on CPU tensors.
+
+    1. Posteriors per (element, chunk of ``chunk`` frames; default
+       ``post_chunk``): frame t needs rows t of alpha, beta, I and row t-1
+       of alpha.  dI_t = softmax(alpha_t + beta_t) * g; the chunk's (N, N)
+       partial is the sum over its frames t >= 1 of u_t outer v_t, with
+       v_t = exp(alpha_{t-1} - m_{t-1}) and u_t = dI_t * exp(where(alpha_t
+       finite, I_t - alpha_t, -inf) + m_{t-1} + c).
+    2. dT = (sum of the partials) * E.
+    Frames t >= L_in, and every frame of an element with L_in outside
+    [1, T], contribute nothing.
+    """
+    t_total, num_batches, num_labels = inputs.shape
+    dev, dt = inputs.device, inputs.dtype
+    if chunk is None:
+        chunk = post_chunk(t_total, num_batches)
+    li = input_lengths.to(device=dev, dtype=torch.long)
+    bad = (li < 1) | (li > t_total)
+    live = (torch.arange(t_total, device=dev)[:, None] < li[None, :]) & ~bad[None, :]
+    live = live[..., None]  # (T, B, 1)
+
+    # ---- 1: posteriors and per-chunk partials
+    gi = torch.where(live, softmax_rows(alpha + beta) * g.to(dt)[:, None], 0.0)
+    m = torch.amax(alpha, dim=2, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    v = torch.exp(alpha - m)
+    u_expo = torch.where(torch.isfinite(alpha[1:]), inputs[1:] - alpha[1:], NEG_INF)
+    u = torch.where(live[1:], gi[1:] * torch.exp(u_expo + m[:-1] + c), 0.0)  # frames 1..
+    nchunks = -(-t_total // chunk)
+    part = torch.zeros((num_batches, nchunks, num_labels, num_labels), dtype=dt, device=dev)
+    for k in range(nchunks):
+        lo, hi = max(k * chunk, 1), min((k + 1) * chunk, t_total)
+        part[:, k] = torch.einsum("tbi,tbj->bij", u[lo - 1:hi - 1], v[lo - 1:hi - 1])
+
+    # ---- 2: the sums
+    return gi, part.sum(dim=(0, 1)) * e
+
+
 def _check(e, c, inputs, li):
     t_total, num_batches, num_labels = inputs.shape
     dev, dt = inputs.device, inputs.dtype
@@ -137,26 +249,43 @@ def _check(e, c, inputs, li):
     check_tensor("input_lengths", li, torch.int32, (num_batches,), dev)
 
 
-def fcc_fwd_pallas(e, c, inputs, input_lengths):
-    """(alpha, beta), each (T, B, N): K3 on CUDA tensors, its plain version
-    on CPU ones.  ``fcc_fwd_pallas.launches`` counts the kernel's launches."""
+def _launch_fwd(route, e, c, inputs, li, outs):
+    """Launch K3 on ``route`` with the outputs ``outs`` (alpha, beta):
+    ``fcc_fwd_{f32,f64}`` (the block route, E^T beside E) or
+    ``fcc_fwd_warp_{f32,f64}`` (the chains, then the log pass, with a
+    (2, T, B) scratch of per-frame offsets between them)."""
+    t_total, num_batches, num_labels = inputs.shape
+    dev, dt = inputs.device, inputs.dtype
+    if route == "warp":
+        ptrs = [inputs, e, c, li, *outs,
+                torch.empty((2, t_total, num_batches), dtype=dt, device=dev)]
+    else:
+        ptrs = [inputs, e, e.T.contiguous(), c, li, *outs]
+    sizes = [t_total, num_batches, num_labels]
+    stem = "fcc_fwd_warp" if route == "warp" else "fcc_fwd"
+    fn = c_function("fcc", stem, dt, len(ptrs), len(sizes))
+    with torch.cuda.device(dev):
+        err = fn(*map(ptr, ptrs), *sizes, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+
+
+def fcc_fwd_pallas(e, c, inputs, input_lengths, *, route=None):
+    """(alpha, beta), each (T, B, N): K3 on CUDA tensors, on ``route``
+    ('warp', 'block', or None for ``width_route`` of the label count), and
+    its plain version on CPU ones.  ``fcc_fwd_pallas.launches`` counts the
+    kernel's launches, ``.launches_<route>`` each route's."""
+    route = check_route("K3", route, inputs.shape[2])
     if not use_kernel(inputs, e, c, input_lengths):
         return fcc_fwd_plain(e, c, inputs, input_lengths)
     li = input_lengths.to(torch.int32).contiguous()
     e = e.contiguous()
     _check(e, c, inputs, li)
-    t_total, num_batches, num_labels = inputs.shape
     alpha, beta = torch.empty_like(inputs), torch.empty_like(inputs)
     if alpha.numel() == 0:
         return alpha, beta
-    e_t = e.T.contiguous()
-    fn = c_function("fcc", "fcc_fwd", inputs.dtype, 7, 3)
-    dev = inputs.device
-    with torch.cuda.device(dev):
-        err = fn(ptr(inputs), ptr(e), ptr(e_t), ptr(c), ptr(li), ptr(alpha), ptr(beta),
-                 t_total, num_batches, num_labels, stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+    _launch_fwd(route, e, c, inputs, li, (alpha, beta))
     fcc_fwd_pallas.launches += 1
+    count_route(fcc_fwd_pallas, route)
     return alpha, beta
 
 
@@ -182,17 +311,46 @@ def fcc_beta_pallas(e, c, inputs, input_lengths):
     return beta
 
 
-def fcc_bwd_pallas(e, c, inputs, input_lengths, alpha, beta, g):
-    """(dI (T, B, N), dT (N, N)): K5 on CUDA tensors, its plain version on
-    CPU ones.  The per-element (N, N) transition partials go to a (B, N, N)
-    scratch that a second kernel sums in a fixed order, so two runs give the
-    same bits.  ``fcc_bwd_pallas.launches`` counts the kernel's launches."""
+def _launch_bwd(route, e, c, inputs, li, alpha, beta, g, outs):
+    """Launch K5 on ``route`` with the outputs ``outs`` (dI, dT) and the
+    route's scratch for the transition partials: ``fcc_bwd_{f32,f64}``
+    (the block route, (B, N, N)) or ``fcc_bwd_warp_{f32,f64}`` ((chunks *
+    B, N, N), chunks of ``post_chunk`` frames: the posterior kernel, then
+    the sums)."""
+    t_total, num_batches, num_labels = inputs.shape
+    dev, dt = inputs.device, inputs.dtype
+    gi, d_trans = outs
+    sizes = [t_total, num_batches, num_labels]
+    if route == "warp":
+        chunk = post_chunk(t_total, num_batches)
+        nparts = num_batches * -(-t_total // chunk)
+        part = torch.empty((nparts, num_labels, num_labels), dtype=dt, device=dev)
+        ptrs = [inputs, e, c, li, alpha, beta, g, gi, d_trans, part]
+        sizes.append(chunk)
+    else:
+        part = torch.empty((num_batches, num_labels, num_labels), dtype=dt, device=dev)
+        ptrs = [inputs, e, c, li, alpha, beta, g, gi, part, d_trans]
+    stem = "fcc_bwd_warp" if route == "warp" else "fcc_bwd"
+    fn = c_function("fcc", stem, dt, len(ptrs), len(sizes))
+    with torch.cuda.device(dev):
+        err = fn(*map(ptr, ptrs), *sizes, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+
+
+def fcc_bwd_pallas(e, c, inputs, input_lengths, alpha, beta, g, *, route=None):
+    """(dI (T, B, N), dT (N, N)): K5 on CUDA tensors, on ``route`` ('warp',
+    'block', or None for ``width_route`` of the label count), and its plain
+    version on CPU ones.  Both routes sum the transition partials (per
+    element, or per (element, chunk of frames)) in a fixed order, so two
+    runs give the same bits.  ``fcc_bwd_pallas.launches`` counts the kernel's launches,
+    ``.launches_<route>`` each route's."""
+    route = check_route("K5", route, inputs.shape[2])
     if not use_kernel(inputs, e, c, input_lengths, alpha, beta, g):
         return fcc_bwd_plain(e, c, inputs, input_lengths, alpha, beta, g)
     li = input_lengths.to(torch.int32).contiguous()
     e = e.contiguous()
     _check(e, c, inputs, li)
-    t_total, num_batches, num_labels = inputs.shape
+    num_batches = inputs.shape[1]
     dev, dt = inputs.device, inputs.dtype
     g = g.to(dt).contiguous()
     check_tensor("alpha", alpha, dt, inputs.shape, dev)
@@ -202,14 +360,9 @@ def fcc_bwd_pallas(e, c, inputs, input_lengths, alpha, beta, g):
     d_trans = torch.empty_like(e)
     if gi.numel() == 0:
         return gi, d_trans.zero_()
-    part = torch.empty((num_batches, num_labels, num_labels), dtype=dt, device=dev)
-    fn = c_function("fcc", "fcc_bwd", dt, 10, 3)
-    with torch.cuda.device(dev):
-        err = fn(ptr(inputs), ptr(e), ptr(c), ptr(li), ptr(alpha), ptr(beta), ptr(g),
-                 ptr(gi), ptr(part), ptr(d_trans), t_total, num_batches, num_labels,
-                 stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+    _launch_bwd(route, e, c, inputs, li, alpha, beta, g, (gi, d_trans))
     fcc_bwd_pallas.launches += 1
+    count_route(fcc_bwd_pallas, route)
     return gi, d_trans
 
 
@@ -252,3 +405,6 @@ def fcc_score_pallas(transition: torch.Tensor, inputs: torch.Tensor,
 fcc_fwd_pallas.launches = 0
 fcc_beta_pallas.launches = 0
 fcc_bwd_pallas.launches = 0
+for _wrapper in (fcc_fwd_pallas, fcc_bwd_pallas):
+    for _route in ROUTES:
+        setattr(_wrapper, f"launches_{_route}", 0)
