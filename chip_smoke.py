@@ -17,8 +17,8 @@ shape, and taken again if it lacks one of the port's kernels the call
 launches:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``,
-     one process per source, all at once; the fp32 instances of K1's and
-     K2's warp routes must not spill (``-Xptxas -v``);
+     one process per source, all at once; the fp32 instances of the warp
+     routes of K1, K2, K3, K5, K8 and K10 must not spill (``-Xptxas -v``);
   3. kernels: each kernel against its plain version on the card, at the
      serving and training shape B=64, T=1000, N=30, S=50 with ragged
      lengths, plus small fp64, degenerate-length and wide-label cases; times
@@ -32,14 +32,18 @@ launches:
      K9 (the matmul tier's dual-stream kernel) at the wordpiece shape T=100,
      B=8, N=10,000 (fp32, ragged lengths) and at small fp64 shapes; twice
      with the same bits; and against the two matmul-tier scans, the
-     formulation it replaces, which are timed beside it.  K12 and K13 (forced
-     alignment) bit-identical to their plain versions at the serving shape,
-     at S=512, on ties and at fp64.  K3-K8 (the per-lattice tier) at the
-     training shape, at small fp64 shapes, on degenerate lengths, with -inf
-     transitions, with E in and out of shared memory and at the width cap
-     N = S = 512; K3 and K5 on each route that takes the width, also at the
-     warp route's width edges; K5 and K8 twice with the same bits; one K3
-     and one K5 warp-route call profiled by kernel (``k3_k5_warp``);
+     formulation it replaces, which are timed beside it.  K10 and K11
+     bit-identical to their plain versions, K10 on each route that takes
+     the width (also at the warp route's width edges), both routes timed,
+     one warp-route call profiled by kernel (``k10_warp``).  K12 and K13
+     (forced alignment) bit-identical to their plain versions at the
+     serving shape, at S=512, on ties and at fp64.  K3-K8 (the per-lattice
+     tier) at the training shape, at small fp64 shapes, on degenerate
+     lengths, with -inf transitions, with E in and out of shared memory and
+     at the width cap N = S = 512; K3, K5 and K8 on each route that takes
+     the width, also at the warp routes' width edges; K5 and K8 twice with
+     the same bits on each route; one K3, K5 and K8 warp-route call each
+     profiled by kernel (``lattice_warp``);
   4. grads: the fused tier's gradients (K1 with stores -> K2 ->
      scatter_to_full) and the per-lattice tier's (K3, K6, K7 -> K5, K8 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
@@ -48,10 +52,11 @@ launches:
      requests of 64 utterances after one warm-up request: encoder ->
      viterbi_decode -> collapse_path -> asg_scores and asg_loss.  Every
      serving kernel's launch count must rise in those 3 requests, and every
-     K1 launch must take the route 'auto' takes; the outputs are checked
-     against the log-domain oracle tiers, one more request, synchronised
-     after each stage, shows where its time goes, and one asg_scores call
-     is timed and profiled alone (device busy time, idle share);
+     K1 and K10 launch must take the route 'auto' takes; the outputs are
+     checked against the log-domain oracle tiers, one more request,
+     synchronised after each stage, shows where its time goes, and one
+     asg_scores call is timed and profiled alone, and one viterbi_decode
+     call profiled alone (device busy time, idle share);
   6. train: the full-width Wav2Letter takes one warm-up step and 5 timed
      AdamW steps on one fixed batch of 64 utterances, prepared as
      ``examples/train_asg.py`` prepares them (cmvn -> pack_frames ->
@@ -75,7 +80,7 @@ launches:
   9. train_pallas: the full-width letter model takes one warm-up step and 5
      timed steps of make_train_step(..., impl='pallas') on ``train``'s
      batch.  Each step must launch K3, K5, K6, K7 and K8 once and K4, K1,
-     K1s, K2 and K9 never, K3 and K5 on the route 'auto' takes; the first
+     K1s, K2 and K9 never, K3, K5 and K8 on the route 'auto' takes; the first
      step's gradients must agree with the scan tier's and the loss must
      fall; a score-only asg_scores call must launch K4 and K7 alone; the
      criterion alone is timed and profiled (``pallas_criterion``);
@@ -176,7 +181,8 @@ def k1_args(case):
 
 
 def width_routes(*widths):
-    """The routes of K1, K2, K3 and K5 that take rows of these widths."""
+    """The routes of K1, K2, K3, K5, K8 and K10 that take rows of these
+    widths."""
     from torch_asg_tpu_torch.ops.kernels.common import WARP_MAX_WIDTH
 
     return ("warp", "block") if max(widths) <= WARP_MAX_WIDTH else ("block",)
@@ -195,9 +201,9 @@ K1_WIDTH_CASES = tuple(
 
 
 def time_routes(wrapper, args, serial_steps, auto):
-    """A K1 or K2 wrapper's times at the serving and training shape, both
-    routes in one run (``ms_warp``, ``ms_block``; ``ms`` is the route
-    'auto' takes, ``auto``), and µs per serial step."""
+    """A two-route kernel's wrapper's times at the serving and training
+    shape, both routes in one run (``ms_warp``, ``ms_block``; ``ms`` is the
+    route 'auto' takes, ``auto``), and µs per serial step."""
     out = {"route_auto": auto}
     for route in ("warp", "block"):
         out[f"ms_{route}"] = time_ms(lambda: wrapper(*args, route=route))
@@ -273,14 +279,16 @@ def check_k1(rng, dev):
 
 
 def route_launches(reset=False):
-    """K1's (both variants) and K2's launches by route,
+    """K1's (both variants), K2's and K10's launches by route,
     {"<wrapper>.<route>": n}; with ``reset`` the counts are set to 0
     first."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
     from torch_asg_tpu_torch.ops.kernels.common import ROUTES
+    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import viterbi_forward_pallas
 
     out = {}
-    for wrapper in (ak._fwd_scores_kernel, ak._fwd_store_kernel, ak._bwd_kernel):
+    for wrapper in (ak._fwd_scores_kernel, ak._fwd_store_kernel, ak._bwd_kernel,
+                    viterbi_forward_pallas):
         for route in ROUTES:
             if reset:
                 setattr(wrapper, f"launches_{route}", 0)
@@ -288,27 +296,44 @@ def route_launches(reset=False):
     return out
 
 
-def check_auto_route(scores, store, bwd):
+def check_auto_route(scores, store, bwd, vit=0):
     """Since the last reset, the score-only K1 launched ``scores`` times, K1
-    with stores ``store`` times and K2 ``bwd`` times, each through the
-    route 'auto' takes at N, S."""
+    with stores ``store`` times, K2 ``bwd`` times and K10 ``vit`` times,
+    each through the route 'auto' takes at N, S (K10: at N)."""
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     got = route_launches()
-    route = width_route(max(N, S))
+    route, vit_route = width_route(max(N, S)), width_route(N)
     want = dict.fromkeys(got, 0)
     want.update({f"_fwd_scores_kernel.{route}": scores, f"_fwd_store_kernel.{route}": store,
-                 f"_bwd_kernel.{route}": bwd})
-    check(got == want, f"every K1 and K2 launch must take the {route} route: {got}")
+                 f"_bwd_kernel.{route}": bwd, f"viterbi_forward_pallas.{vit_route}": vit})
+    check(got == want, f"every K1, K2 and K10 launch must take the route 'auto' takes: {got}")
     return got
+
+
+# K10's warp-route width edges, fp32 and fp64, on integer emissions that
+# force ties (from their own seeded stream): N = 32, 33, 64, 65 and 128, the
+# last label in lane 31 of a lane's last register, so that every label
+# register count (1, 2 or 4) runs, with the transition in registers (N <=
+# 32) and in the warp route's shared memory (fp64 N = 128: 130 KB).
+VITERBI_WIDTH_CASES = tuple(
+    (f"{'fp32' if dt == torch.float32 else 'fp64'}_n{n}_integer_ties", dt, (3, 200, n),
+     (100, 200), True)
+    for dt in (torch.float32, torch.float64) for n in (32, 33, 64, 65, 128))
+# K10's warp route in a device profile: its two kernels, by name.
+K10_WARP_PHASES = ("viterbi_fwd_warp_kernel", "viterbi_bp_kernel")
 
 
 def check_viterbi(rng, dev):
     """K10 and K11 against their plain versions: bit-identical backpointers,
     end rows and paths, on random and on integer (tie-forcing) emissions, on
-    degenerate lengths, with the transition in global memory (N=300), and
-    at the kernel's label cap."""
+    degenerate lengths, with the transition in global memory (N=300), at
+    the kernel's label cap, and at the warp route's width edges
+    (VITERBI_WIDTH_CASES); K10 on each route that takes the case's width.
+    Both of K10's routes timed at the serving shape, and its warp route's
+    kernels by device time (the profile ``k10_warp``)."""
     from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
+    from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     cases = (
         ("fp32_serving", torch.float32, (B, T, N), (500, T), False),
@@ -318,23 +343,31 @@ def check_viterbi(rng, dev):
         ("fp32_n300_global", torch.float32, (4, 60, 300), (30, 60), False),
         ("fp32_label_cap", torch.float32, (2, 20, vk.VITERBI_KERNEL_MAX_LABELS), (10, 20), False),
     )
-    serving, errs = None, {}
-    for name, dtype, (b, t, n), li_r, integer in cases:
-        trans, inputs, _, li, _ = lattice_case(rng, dev, dtype, b, t, n, 1, li_r, [1] * b,
+    width_rng = np.random.default_rng([SEED, 10])  # keeps ``rng``'s stream as it was
+    widths = {c[0] for c in VITERBI_WIDTH_CASES}
+    serving, errs, routes_run = None, {}, {}
+    for name, dtype, (b, t, n), li_r, integer in cases + VITERBI_WIDTH_CASES:
+        case_rng = width_rng if name in widths else rng
+        trans, inputs, _, li, _ = lattice_case(case_rng, dev, dtype, b, t, n, 1, li_r, [1] * b,
                                                integer)
-        d_end, bp = vk.viterbi_forward_pallas(trans, inputs, li)
         d_ref, bp_ref = vk.viterbi_forward_plain(trans, inputs, li)
+        routes_run[name] = width_routes(n)
+        for route in width_routes(n):
+            d_end, bp = vk.viterbi_forward_pallas(trans, inputs, li, route=route)
+            torch.cuda.synchronize()
+            check(torch.equal(bp, bp_ref), f"K10 {route} {name}: backpointers differ")
+            check(torch.equal(d_end, d_ref), f"K10 {route} {name}: end rows differ")
+            if route == width_route(n):
+                d_auto = d_end
         _, final = vk.argmax_first(d_ref, dim=1)
         path = vk.viterbi_backtrace_pallas(final, bp_ref, li)
         path_ref = vk.viterbi_backtrace_plain(final, bp_ref, li)
         torch.cuda.synchronize()
-        check(torch.equal(bp, bp_ref), f"K10 {name}: backpointers differ")
-        check(torch.equal(d_end, d_ref), f"K10 {name}: end rows differ")
         check(torch.equal(path, path_ref), f"K11 {name}: paths differ")
         if name == "fp32_serving":
             serving = (trans, inputs, li, final, bp_ref)
-            same = d_end == d_ref  # also where both are -inf
-            errs["k10"] = float(torch.where(same, 0.0, (d_end - d_ref).abs()).max())
+            same = d_auto == d_ref  # also where both are -inf
+            errs["k10"] = float(torch.where(same, 0.0, (d_auto - d_ref).abs()).max())
             errs["k11"] = float((path - path_ref).abs().max())
     trans, inputs, li, final, bp = serving
     lsum = int(li.sum())
@@ -344,11 +377,17 @@ def check_viterbi(rng, dev):
     k10_bound, k10_by = bound(fwd_bytes, fwd_ops)
     k11_bound, k11_by = bound(bt_bytes, 0)
     exact = "bit-identical (max-plus is exact)"
+    split = profile_call("k10_warp")
+    check(split["complete"], f"K10's warp route must run its two kernels: {split}")
+    serial_steps = int(li.max()) - 1
     k10 = {
         "name": "viterbi_forward (K10)", "max_abs_err": errs["k10"], "tolerance": exact,
-        "ms": time_ms(lambda: vk.viterbi_forward_pallas(trans, inputs, li)),
+        "routes_by_case": routes_run,
+        **time_routes(vk.viterbi_forward_pallas, (trans, inputs, li), serial_steps,
+                      width_route(N)),
+        "warp_device_ms": {p: split["phase_ms"][p] for p in K10_WARP_PHASES},
         "plain_ms": time_ms(lambda: vk.viterbi_forward_plain(trans, inputs, li)),
-        "bound_ms": k10_bound, "bound_by": k10_by, "serial_steps": T - 1,
+        "bound_ms": k10_bound, "bound_by": k10_by, "serial_steps": serial_steps,
     }
     k11 = {
         "name": "viterbi_backtrace (K11)", "max_abs_err": errs["k11"], "tolerance": exact,
@@ -704,6 +743,14 @@ FCC_WIDTH_CASES = tuple(
     (f"{'fp32' if dt == torch.float32 else 'fp64'}_n{n}", dt, (3, 200, n, 10), (100, 200),
      (1, 10), False)
     for dt in (torch.float32, torch.float64) for n in (32, 33, 64, 65, 128))
+# K8's warp-route width edges, fp32 and fp64 (from their own seeded
+# stream): S = 32, 33, 64, 65 and 128 slots, the last slot in lane 31 of a
+# lane's last register, so that every slot register count (1, 2 or 4)
+# runs, with target lengths from S/2 to S so that the last slots are live.
+FAC_WIDTH_CASES = tuple(
+    (f"{'fp32' if dt == torch.float32 else 'fp64'}_s{s}", dt, (3, 200, 12, s), (150, 200),
+     (s // 2, s), False)
+    for dt in (torch.float32, torch.float64) for s in (32, 33, 64, 65, 128))
 # Every output of K3-K8 against its plain version: fp32 covers 1000 serial
 # steps summed in another order (K1's bound); fp64 is the same arithmetic
 # to rounding.
@@ -711,29 +758,39 @@ LATTICE_TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-4, 1e-3)}
 # The kernels of K3's and K5's warp routes, by name, in launch order.
 K3_WARP_PHASES = ("fcc_fwd_warp_kernel", "fcc_fwd_log_kernel")
 K5_WARP_PHASES = ("fcc_bwd_post_kernel", "fcc_bwd_sums_kernel")
+K8_WARP_PHASES = ("fac_bwd_post_kernel", "fac_bwd_sums_kernel")
 
 
 def check_lattice_kernels(rng, dev, only=None):
     """K3-K8 against their plain versions on the card in every case of
-    LATTICE_CASES, and K3 and K5 also in FCC_WIDTH_CASES; K3 and K5 on each
-    route that takes the case's width; K5 and K8 run on the plain versions'
-    chains, so both versions see the same inputs, and twice (K5 on each
-    route), which must give the same bits.  Times and bounds at the
-    training shape, both routes of K3 and K5, and the device time of each
-    kernel of their warp routes (the profile ``k3_k5_warp``).  ``only``
-    (kernel ids) restricts the checks and times to those kernels."""
+    LATTICE_CASES, K3 and K5 also in FCC_WIDTH_CASES and K8 in
+    FAC_WIDTH_CASES; K3, K5 and K8 on each route that takes the case's
+    width (labels for K3 and K5, slots for K8); K5 and K8 run on the plain
+    versions' chains, so both versions see the same inputs, and twice on
+    each route, which must give the same bits.  Times and bounds at the
+    training shape, both routes of K3, K5 and K8, and the device time of
+    each kernel of their warp routes (the profile ``lattice_warp``).
+    ``only`` (kernel ids) restricts the checks and times to those
+    kernels."""
     from torch_asg_tpu_torch.ops.fac import make_aligned
     from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
     from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     names = ("K3", "K4", "K5", "K6", "K7", "K8")
+    routed_ids = ("K3", "K5", "K8")
     errs = {k: {} for k in names}
-    width_rng = np.random.default_rng([SEED, 8])  # keeps ``rng``'s stream as it was
-    widths = {c[0] for c in FCC_WIDTH_CASES}
+    # the width edges draw from streams of their own, keeping ``rng``'s as it was
+    fcc_rng, fac_rng = np.random.default_rng([SEED, 8]), np.random.default_rng([SEED, 9])
+    width_rngs = {**{c[0]: fcc_rng for c in FCC_WIDTH_CASES},
+                  **{c[0]: fac_rng for c in FAC_WIDTH_CASES}}
+    case_kernels = {**{c[0]: ("K3", "K5") for c in FCC_WIDTH_CASES},
+                    **{c[0]: ("K8",) for c in FAC_WIDTH_CASES}}
     # the width edges first, so that the loop ends on the training shape
-    for name, dtype, (b, t, n, s), li_r, lo_r, neg_inf in FCC_WIDTH_CASES + LATTICE_CASES:
-        case_rng = width_rng if name in widths else rng
+    for name, dtype, (b, t, n, s), li_r, lo_r, neg_inf in (FCC_WIDTH_CASES + FAC_WIDTH_CASES
+                                                          + LATTICE_CASES):
+        case_rng = width_rngs.get(name, rng)
+        kernels = case_kernels.get(name, names)
         trans, inputs, targets, li, lo = lattice_case(case_rng, dev, dtype, b, t, n, s, li_r,
                                                       lo_r)
         if neg_inf:
@@ -742,32 +799,39 @@ def check_lattice_kernels(rng, dev, only=None):
         g = torch.as_tensor(case_rng.uniform(0.5, 1.5, size=b), dtype=dtype, device=dev)
         e, c, x, li32 = fk._prepare(trans, inputs, li)
         lat = make_aligned(trans, inputs, targets, li, lo)
-        fwd_want = fk.fcc_fwd_plain(e, c, x, li32)
-        fac_want = (ak.fac_alpha_plain(lat), ak.fac_beta_plain(lat, li, lo))
+        if "K5" in kernels:
+            fwd_want = fk.fcc_fwd_plain(e, c, x, li32)
+        if "K8" in kernels:
+            fac_want = (ak.fac_alpha_plain(lat), ak.fac_beta_plain(lat, li, lo))
 
         # (kernel id, route or "block"/"cuda" for one-route kernels) ->
         # (kernel, plain)
         runs = {}
-        for route in width_routes(n):
-            runs[("K3", route)] = (
-                lambda route=route: fk.fcc_fwd_pallas(e, c, x, li32, route=route),
-                lambda: fk.fcc_fwd_plain(e, c, x, li32))
-        if name not in widths:
+        if "K3" in kernels:
+            for route in width_routes(n):
+                runs[("K3", route)] = (
+                    lambda route=route: fk.fcc_fwd_pallas(e, c, x, li32, route=route),
+                    lambda: fk.fcc_fwd_plain(e, c, x, li32))
+        if "K4" in kernels:
             runs[("K4", "block")] = (lambda: (fk.fcc_beta_pallas(e, c, x, li32),),
                                      lambda: (fk.fcc_beta_plain(e, c, x, li32),))
-        for route in width_routes(n):
-            runs[("K5", route)] = (
-                lambda route=route: fk.fcc_bwd_pallas(e, c, x, li32, *fwd_want, g, route=route),
-                lambda: fk.fcc_bwd_plain(e, c, x, li32, *fwd_want, g))
-        if name not in widths:
-            runs.update({
-                ("K6", "cuda"): (lambda: (ak.fac_alpha_pallas(lat),),
-                                 lambda: (ak.fac_alpha_plain(lat),)),
-                ("K7", "cuda"): (lambda: (ak.fac_beta_pallas(lat, li, lo),),
-                                 lambda: (ak.fac_beta_plain(lat, li, lo),)),
-                ("K8", "cuda"): (lambda: ak.fac_bwd_pallas(lat, *fac_want, g),
-                                 lambda: ak.fac_bwd_plain(lat, *fac_want, g)),
-            })
+        if "K5" in kernels:
+            for route in width_routes(n):
+                runs[("K5", route)] = (
+                    lambda route=route: fk.fcc_bwd_pallas(e, c, x, li32, *fwd_want, g,
+                                                          route=route),
+                    lambda: fk.fcc_bwd_plain(e, c, x, li32, *fwd_want, g))
+        if "K6" in kernels:
+            runs[("K6", "cuda")] = (lambda: (ak.fac_alpha_pallas(lat),),
+                                    lambda: (ak.fac_alpha_plain(lat),))
+        if "K7" in kernels:
+            runs[("K7", "cuda")] = (lambda: (ak.fac_beta_pallas(lat, li, lo),),
+                                    lambda: (ak.fac_beta_plain(lat, li, lo),))
+        if "K8" in kernels:
+            for route in width_routes(s):
+                runs[("K8", route)] = (
+                    lambda route=route: ak.fac_bwd_pallas(lat, *fac_want, g, route=route),
+                    lambda: ak.fac_bwd_plain(lat, *fac_want, g))
         if only is not None:
             runs = {key: run for key, run in runs.items() if key[0] in only}
 
@@ -786,7 +850,7 @@ def check_lattice_kernels(rng, dev, only=None):
                 torch.testing.assert_close(gv, wv, rtol=rtol, atol=atol,
                                            msg=lambda m: f"{label} output {i}: {m}")
             err = max(max_err(gv, wv) for gv, wv in zip(got, want))
-            if kname in ("K3", "K5"):
+            if kname in routed_ids:
                 errs[kname].setdefault(name, {})[variant] = err
             else:
                 errs[kname][name] = err
@@ -806,6 +870,11 @@ def check_lattice_kernels(rng, dev, only=None):
                       and bool((gi_r[:, [5, 6]] == 0).all()),
                       f"K3/K5 {route}: elements without a path must have no beta and "
                       "zero posteriors")
+            for route in width_routes(s):
+                da_r = ak.fac_bwd_pallas(lat, *fac_want, g, route=route)[0]
+                check(bool((da_r[:, [2, 3, 5, 6]] == 0).all()),
+                      f"K8 {route}: elements without an aligned path must have zero "
+                      "posteriors")
     # timing and bounds at the training shape (the last case)
     check(name == "fp32_training", "the loop must end on the training shape")
     lsum, w = int(li.sum()), 4
@@ -826,18 +895,20 @@ def check_lattice_kernels(rng, dev, only=None):
             "K7": ("fac_beta", "fac_kernels.py:163"), "K8": ("fac_bwd", "fac_kernels.py:185")}
     rtol, atol = LATTICE_TOL[torch.float32]
     serial = int(li.max()) - 1
+    # id -> (wrapper, arguments, serial steps, warp-route kernels, width)
     routed = {
-        "K3": (fk.fcc_fwd_pallas, (e, c, x, li32), serial, K3_WARP_PHASES),
+        "K3": (fk.fcc_fwd_pallas, (e, c, x, li32), serial, K3_WARP_PHASES, N),
         "K5": (fk.fcc_bwd_pallas, (e, c, x, li32, *fwd_want, g), int(li.max()),
-               K5_WARP_PHASES),
+               K5_WARP_PHASES, N),
+        "K8": (ak.fac_bwd_pallas, (lat, *fac_want, g), T, K8_WARP_PHASES, S),
     }
-    # the warp routes' kernels by device time, K3's and K5's in one profile
-    split = profile_call("k3_k5_warp") if any(k in routed for k, _ in runs) else None
+    # the warp routes' kernels by device time, K3's, K5's and K8's in one profile
+    split = profile_call("lattice_warp") if any(k in routed for k, _ in runs) else None
     check(split is None or split["complete"],
-          f"K3's and K5's warp routes must run their four kernels: {split}")
+          f"K3's, K5's and K8's warp routes must run their six kernels: {split}")
     out = []
     for (kname, variant), (kernel, plain) in runs.items():
-        if kname in ("K3", "K5") and variant != width_route(N):
+        if kname in routed and variant != width_route(routed[kname][4]):
             continue
         bound_ms, bound_by = bound(*cost[kname])
         stem, replaces = meta[kname]
@@ -854,8 +925,8 @@ def check_lattice_kernels(rng, dev, only=None):
             "serial_steps": T - 1 if kname in ("K6", "K8") else serial,
         }
         if kname in routed:
-            wrapper, args, steps, phases = routed[kname]
-            entry.update(time_routes(wrapper, args, steps, width_route(N)))
+            wrapper, args, steps, phases, width = routed[kname]
+            entry.update(time_routes(wrapper, args, steps, width_route(width)))
             entry["max_abs_err"] = errs[kname]["fp32_training"][entry["route_auto"]]
             entry["warp_device_ms"] = {p: split["phase_ms"][p] for p in phases}
         else:
@@ -866,13 +937,14 @@ def check_lattice_kernels(rng, dev, only=None):
 
 
 def lattice_route_launches(reset=False):
-    """K3's and K5's launches by route, {"<wrapper>.<route>": n}; with
+    """K3's, K5's and K8's launches by route, {"<wrapper>.<route>": n}; with
     ``reset`` the counts are set to 0 first."""
+    from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
     from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
     from torch_asg_tpu_torch.ops.kernels.common import ROUTES
 
     out = {}
-    for wrapper in (fk.fcc_fwd_pallas, fk.fcc_bwd_pallas):
+    for wrapper in (fk.fcc_fwd_pallas, fk.fcc_bwd_pallas, ak.fac_bwd_pallas):
         for route in ROUTES:
             if reset:
                 setattr(wrapper, f"launches_{route}", 0)
@@ -880,16 +952,18 @@ def lattice_route_launches(reset=False):
     return out
 
 
-def check_lattice_auto_route(count):
-    """Since the last reset, K3 and K5 launched ``count`` times each, every
-    time through the route 'auto' takes at N."""
+def check_lattice_auto_route(fcc, fac=0):
+    """Since the last reset, K3 and K5 launched ``fcc`` times each and K8
+    ``fac`` times, every time through the route 'auto' takes (at N labels
+    for K3 and K5, at S slots for K8)."""
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     got = lattice_route_launches()
     want = dict.fromkeys(got, 0)
-    route = width_route(N)
-    want.update({f"fcc_fwd_pallas.{route}": count, f"fcc_bwd_pallas.{route}": count})
-    check(got == want, f"every K3 and K5 launch must take the {route} route: {got}")
+    route, fac_route = width_route(N), width_route(S)
+    want.update({f"fcc_fwd_pallas.{route}": fcc, f"fcc_bwd_pallas.{route}": fcc,
+                 f"fac_bwd_pallas.{fac_route}": fac})
+    check(got == want, f"every K3, K5 and K8 launch must take the route 'auto' takes: {got}")
     return got
 
 
@@ -1013,7 +1087,8 @@ def serve(rng, dev, counters):
     launches = {c.__name__: c.launches for c in counters}
     for name, n in launches.items():
         check(n > 0, f"serving path never launched {name}")
-    routes_seen = check_auto_route(launches["asg_scores_fused"], 0, 0)
+    routes_seen = check_auto_route(launches["asg_scores_fused"], 0, 0,
+                                   launches["viterbi_forward_pallas"])
     # where a request's time goes: the first request again, synchronised
     # after each stage (outside the counted run)
     _, stage_ms = answer(*requests[0], sync=torch.cuda.synchronize)
@@ -1028,6 +1103,8 @@ def serve(rng, dev, counters):
 
     scores_ms = time_ms(scores)
     scores_profile = profile_call("serve_scores")
+    # one viterbi_decode call alone, profiled: the decode stage's device time
+    decode_profile = profile_call("serve_decode")
 
     for em, li, targets, lo, dec, hyps, full, aligned, loss in outs:
         check(tuple(em.shape) == (T, B, N), f"emissions shape {tuple(em.shape)}")
@@ -1050,7 +1127,7 @@ def serve(rng, dev, counters):
           "latency_ms": latencies, "median_latency_ms": statistics.median(latencies),
           "launches": launches, "route_launches": routes_seen,
           "stage_ms_first_request": stages, "asg_scores_ms": scores_ms,
-          "asg_scores_profile": scores_profile,
+          "asg_scores_profile": scores_profile, "viterbi_decode_profile": decode_profile,
           "max_abs_err_scores_vs_scan": max(float((full - ref_full).abs().max()),
                                             float((aligned - ref_aligned).abs().max())),
           "mean_loss": float(loss.mean()),
@@ -1232,12 +1309,14 @@ def device_profile(fn, names=()):
 # --profiler).
 PROFILES = {
     "k2_warp": K2_WARP_PHASES,
-    "k3_k5_warp": K3_WARP_PHASES + K5_WARP_PHASES,
+    "lattice_warp": K3_WARP_PHASES + K5_WARP_PHASES + K8_WARP_PHASES,
+    "k10_warp": K10_WARP_PHASES,
     "serve_scores": ("asg_fwd_warp_kernel",),
+    "serve_decode": K10_WARP_PHASES + ("viterbi_backtrace_kernel",),
     "train_criterion": ("asg_fwd_warp_kernel",) + K2_WARP_PHASES,
     "wordpiece_criterion": ("row_max_kernel", "dual_init_kernel"),
     "pallas_criterion": (K3_WARP_PHASES + K5_WARP_PHASES
-                         + ("fac_alpha_kernel", "fac_beta_kernel", "fac_bwd_kernel")),
+                         + ("fac_alpha_kernel", "fac_beta_kernel") + K8_WARP_PHASES),
     "posterior_request": K3_WARP_PHASES + K5_WARP_PHASES,
 }
 PROFILE_TRIES = 3
@@ -1272,12 +1351,19 @@ def profile_target(name, dev):
     """The call that profile ``name`` takes, at the shape its phase gives
     it, on inputs drawn from a seed of its own: (the call, the runs its
     CUDA-event median takes)."""
-    from torch_asg_tpu_torch import asg_loss, asg_scores, posterior_decode
+    from torch_asg_tpu_torch import asg_loss, asg_scores, posterior_decode, viterbi_decode
     from torch_asg_tpu_torch.convert import transition_from_numpy
     from torch_asg_tpu_torch.runtime import collapse_path
 
     rng = np.random.default_rng([SEED, 90])
-    if name in ("k2_warp", "k3_k5_warp"):
+    if name == "k10_warp":
+        # the kernel's serving-shape case
+        from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
+
+        trans, inputs, _, li, _ = lattice_case(rng, dev, torch.float32, B, T, N, 1, (500, T),
+                                               [1] * B)
+        return (lambda: vk.viterbi_forward_pallas(trans, inputs, li, route="warp")), RUNS
+    if name in ("k2_warp", "lattice_warp"):
         # the kernels' training-shape case
         case = lattice_case(rng, dev, torch.float32, B, T, N, S, (500, 1000), (10, S))
         g = torch.as_tensor(rng.uniform(0.5, 1.5, size=B), dtype=torch.float32, device=dev)
@@ -1288,16 +1374,21 @@ def profile_target(name, dev):
             pb, qb = ak._fwd_store_kernel(*args, route="warp")[:2]
             bargs = args[:6] + (pb, qb, g, -g)
             return (lambda: ak._bwd_kernel(*bargs, route="warp")), RUNS
+        from torch_asg_tpu_torch.ops.fac import make_aligned
+        from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
         from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
 
-        trans, inputs, _, li, _ = case
+        trans, inputs, targets, li, lo = case
         args = fk._prepare(trans, inputs, li)
+        lat = make_aligned(trans, inputs, targets, li, lo)
+        fac_chains = (ak.fac_alpha_pallas(lat), ak.fac_beta_pallas(lat, li, lo))
 
-        def k3_k5():
+        def warp_routes():
             alpha, beta = fk.fcc_fwd_pallas(*args, route="warp")
             fk.fcc_bwd_pallas(*args, alpha, beta, g, route="warp")
+            ak.fac_bwd_pallas(lat, *fac_chains, g, route="warp")
 
-        return k3_k5, RUNS
+        return warp_routes, RUNS
     if name.endswith("criterion"):
         # asg_loss forward + backward on fixed emissions, as the training
         # phases time it
@@ -1326,6 +1417,16 @@ def profile_target(name, dev):
     feat_lengths = torch.as_tensor(rng.integers(1000, 2001, size=B), device=dev)
     feats = torch.as_tensor(rng.normal(size=(B, 2000, FEATURES)).astype(np.float32),
                             device=dev)
+    if name == "serve_decode":
+        with torch.no_grad():
+            em = model(feats)
+            li = model.output_length(feat_lengths).to(torch.int32)
+
+        def decode():
+            with torch.no_grad():
+                viterbi_decode(trans, em, li)
+
+        return decode, RUNS
     if name == "serve_scores":
         lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
         targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
@@ -1651,7 +1752,7 @@ def train_pallas(rng, dev, utts, labels):
     check(launches == want,
           f"each step must launch K3, K5, K6, K7, K8 once and K4, K1, K1s, K2, K9 never: "
           f"{launches}")
-    routes_seen = check_lattice_auto_route(5)
+    routes_seen = check_lattice_auto_route(5, 5)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch, impl="pallas"))
@@ -1876,9 +1977,17 @@ def main(argv):
     k3_k5_spills = {k: v for marker in ("fcc_fwd_warp_kernelIf", "fcc_fwd_log_kernelIf",
                                         "fcc_bwd_post_kernelIf", "fcc_bwd_sums_kernelIf")
                     for k, v in spill_bytes(fcc_log, marker).items()}
+    fac_log = libs["fac"].with_suffix(".log").read_text()
+    vit_log = libs["viterbi"].with_suffix(".log").read_text()
+    k8_k10_spills = {k: v for log, marker in ((fac_log, "fac_bwd_post_kernelIf"),
+                                              (fac_log, "fac_bwd_sums_kernelIf"),
+                                              (vit_log, "viterbi_fwd_warp_kernelIf"),
+                                              (vit_log, "viterbi_bp_kernelIf"))
+                     for k, v in spill_bytes(log, marker).items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
           "k1_warp_fp32_spill_bytes": warp_spills, "k2_warp_fp32_spill_bytes": k2_spills,
-          "k3_k5_warp_fp32_spill_bytes": k3_k5_spills})
+          "k3_k5_warp_fp32_spill_bytes": k3_k5_spills,
+          "k8_k10_warp_fp32_spill_bytes": k8_k10_spills})
     # K1: two variants x 3 label x 3 slot register counts; K2: the chain and
     # posterior kernels x 3 x 3, and the sums
     check(len(warp_spills) == 18 and not any(warp_spills.values()),
@@ -1889,6 +1998,10 @@ def main(argv):
     # the posterior kernel x 3, and the sums
     check(len(k3_k5_spills) == 8 and not any(k3_k5_spills.values()),
           f"K3's and K5's fp32 warp-route instances must not spill: {k3_k5_spills}")
+    # K8: the posterior kernel x 3 slot register counts, and the sums; K10:
+    # the chain and the backpointer pass x 3 label register counts
+    check(len(k8_k10_spills) == 10 and not any(k8_k10_spills.values()),
+          f"K8's and K10's fp32 warp-route instances must not spill: {k8_k10_spills}")
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(rng, dev)

@@ -14,9 +14,10 @@ AdamW steps after a warm-up, then the criterion's forward+backward alone),
 ``serve_posterior`` (3 posterior-decoding requests after a warm-up), each
 on data from ``chip_smoke.SEED`` as ``chip_smoke.main`` draws it, so both
 checkouts see the same inputs.  The turn takes no profile.  After it, this
-checkout's ``chip_smoke.profile_call`` profiles three calls of that
+checkout's ``chip_smoke.profile_call`` profiles four calls of that
 checkout's port, each in a new process (the letter criterion through each
-tier, one posterior request: device busy time, idle share, kernel count),
+tier, one posterior request, one serving viterbi_decode call: device busy
+time, idle share, kernel count),
 so that both checkouts are measured alike.  Prints one JSON line per turn
 and, last, one line with each checkout's turns side by side.  Exits
 nonzero if a turn fails.
@@ -61,7 +62,7 @@ KEEP = {
     "serve_posterior": ("median_latency_ms", "latency_ms", "stage_ms_second_request"),
 }
 # the calls profiled after each turn (chip_smoke.PROFILES)
-PROFILED = ("train_criterion", "pallas_criterion", "posterior_request")
+PROFILED = ("train_criterion", "pallas_criterion", "posterior_request", "serve_decode")
 PROFILE_KEYS = ("device_busy_ms", "kernels", "call_ms", "idle_share", "top_kernels_ms")
 
 
@@ -101,6 +102,8 @@ def main(argv):
            for name in PROFILED for key in ("device_busy_ms", "idle_share", "kernels")},
         "asg_scores_stage_ms": [t["serve"]["stage_ms_first_request"]["asg_scores"] for t in ts],
         "asg_loss_stage_ms": [t["serve"]["stage_ms_first_request"]["asg_loss"] for t in ts],
+        "viterbi_decode_stage_ms": [t["serve"]["stage_ms_first_request"]["viterbi_decode"]
+                                    for t in ts],
         "pallas_median_step_ms": [t["train_pallas"]["median_step_ms"] for t in ts],
         "pallas_criterion_fwd_bwd_ms": [t["train_pallas"]["criterion_fwd_bwd_ms"]
                                         for t in ts],

@@ -18,17 +18,17 @@ DEFAULT_DEVICE = "cuda"
 
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
-# The routes of the kernels that have two (K1, K2, K3, K5): the warp route,
-# one warp per chain of an element (lane l holds labels or slots l, l+32,
-# ..., at most 4), up to WARP_MAX_WIDTH; the block route, one thread per
-# label or slot, up to the kernel's own cap.
+# The routes of the kernels that have two (K1, K2, K3, K5, K8, K10): the
+# warp route, one warp per chain of an element (lane l holds labels or slots
+# l, l+32, ..., at most 4), up to WARP_MAX_WIDTH; the block route, one
+# thread per label or slot, up to the kernel's own cap.
 ROUTES = ("warp", "block")
 WARP_MAX_WIDTH = 128
-# K2's and K5's warp routes run their posterior kernel as one block of four
-# warps per (element, chunk of frames), with enough chunks for 16 blocks on
-# each of the H100's 132 SMs: the kernel waits on memory latency, so it
-# wants every warp slot filled (scripts/k2_diag.py sweeps the count;
-# PERF.md §6).
+# K2's, K5's and K8's warp routes run their posterior kernel, and K10's its
+# backpointer pass, as one block of four warps per (element, chunk of
+# frames), with enough chunks for 16 blocks on each of the H100's 132 SMs:
+# the kernel waits on memory latency, so it wants every warp slot filled
+# (scripts/k2_diag.py sweeps the count; PERF.md §6).
 POST_BLOCKS = 16 * 132
 
 
@@ -94,8 +94,9 @@ def raise_on_error(fn_name: str, err: int) -> None:
 
 def width_route(width: int) -> str:
     """The route ``'auto'`` takes for a kernel with two routes whose widest
-    row is ``width`` words (K1 and K2: max(labels, target slots); K3 and
-    K5: labels): ``'warp'`` up to WARP_MAX_WIDTH, else ``'block'``."""
+    row is ``width`` words (K1 and K2: max(labels, target slots); K3, K5
+    and K10: labels; K8: target slots): ``'warp'`` up to WARP_MAX_WIDTH,
+    else ``'block'``."""
     return "warp" if width <= WARP_MAX_WIDTH else "block"
 
 
@@ -120,8 +121,9 @@ def count_route(wrapper, route: str) -> None:
 
 
 def post_chunk(t_total: int, num_batches: int) -> int:
-    """Frames per chunk of K2's and K5's posterior kernels: ``POST_BLOCKS``
-    blocks over the batch, each chunk at least one frame."""
+    """Frames per chunk of the frame-parallel kernels of K2's, K5's, K8's
+    and K10's warp routes: ``POST_BLOCKS`` blocks over the batch, each
+    chunk at least one frame."""
     chunks = -(-POST_BLOCKS // max(num_batches, 1))
     return max(1, -(-t_total // chunks))
 

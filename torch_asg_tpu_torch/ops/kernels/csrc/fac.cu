@@ -1,5 +1,4 @@
-// The force-aligned (FAC) lattice's per-lattice kernels, log domain, one
-// batch element per thread block, one thread per target slot:
+// The force-aligned (FAC) lattice's per-lattice kernels, log domain:
 //   K6  fac_alpha  the alpha chain, t ascending over every frame;
 //   K7  fac_beta   the beta chain, t descending from the element's seed;
 //   K8  fac_bwd    the aligned posteriors and the summed edge fractions.
@@ -28,51 +27,48 @@
 //       gdiag[s] += dA_t[s] * exp(alpha_{t-1}[s-1] + next[s-1] + sub)
 //     (exponents <= 0), and gnext[s] = gdiag[s+1], 0 at s = S-1.
 //
-// What bounds them on an H100: the serial chain.  Each element takes T (K6,
-// K8) or L (K7) dependent steps of a few operations a slot; the bytes (each
-// row read and written once) are far below what the card moves in that
-// time, so the time is (steps) x (latency of one step).  The design keeps a
-// step short:
-//   - one block per element, so elements run side by side on separate SMs;
-//   - K6 and K7 exchange the neighbouring slot's value through a shared
-//     row with one barrier a step; the row is double-buffered, so a step's
-//     writes never wait on the previous step's reads;
-//   - K8 reads alpha_{t-1}[s-1] straight from memory (no exchange) and needs
-//     two barriers a step, the row max and the row sum; each thread keeps
-//     its slot's two edge sums in registers over t, so they are summed in a
-//     fixed order with no second kernel and no atomics;
+// What bounds them on an H100.  K6 and K7 are serial chains: each element
+// takes T (K6) or L (K7) dependent steps of a few operations a slot; the
+// bytes (each row read and written once) are far below what the card moves
+// in that time, so the time is (steps) x (latency of one step).  K8 has no
+// recurrence: frame t reads rows t of alpha, beta and A and row t-1 of
+// alpha, and nothing carries from frame to frame but the two edge sums.
+// Its bound is its bytes; a design that walks the frames in order pays a
+// chain's latency for work with none.
+//
+// K6 and K7, one block per element, one thread per slot:
+//   - elements run side by side on separate SMs;
+//   - a step exchanges the neighbouring slot's value through a shared row
+//     with one barrier; the row is double-buffered, so a step's writes
+//     never wait on the previous step's reads;
 //   - the next step's rows are loaded into registers one step ahead.
+//
+// K8 has two routes with the same outputs, picked by the wrapper
+// (common.py::width_route of the slot count):
+//   - the warp route (S <= 128; lane l holds slots l, l+32, ..., RS = 1, 2
+//     or 4 words of a row, a template parameter), K5's design:
+//     fac_bwd_post_kernel runs one block of four warps per (element, chunk
+//     of frames), sized by the wrapper (common.py::post_chunk) so that the
+//     blocks fill the SMs.  A warp takes one frame at a time: the row max
+//     and sum by warp shuffles, the dA row, and the frame's two edge terms
+//     added into the lane's registers; alpha_{t-1} is read straight from
+//     memory, at a chunk's first frame too, so no frame waits on another.
+//     The four warps' sums are combined in warp order into the chunk's
+//     (chunks, B, S) partials, and fac_bwd_sums_kernel sums those over
+//     the chunks in order and applies gnext's shift.  No atomics: two runs
+//     give the same bits.
+//   - the block route (S <= 512): one block per element walks the frames in
+//     order, one thread per slot, reading alpha_{t-1}[s-1] straight from
+//     memory, with two barriers a step (the row max and the row sum); each
+//     thread keeps its slot's two edge sums in registers over t, so they
+//     are summed in a fixed order with no second kernel and no atomics.
+// Both routes' times on an H100 are in PERF.md section 6 (chip_smoke.py).
 
-#include <cmath>
-#include <cuda_runtime.h>
+#include "chain_common.cuh"
 
 namespace {
 
 constexpr int kMaxWarps = 16;  // 512 threads: the tier's width cap
-
-__device__ __forceinline__ float d_exp(float x) { return expf(x); }
-__device__ __forceinline__ double d_exp(double x) { return exp(x); }
-__device__ __forceinline__ float d_log(float x) { return logf(x); }
-__device__ __forceinline__ double d_log(double x) { return log(x); }
-
-template <typename T>
-__device__ __forceinline__ T neg_inf() { return static_cast<T>(-INFINITY); }
-
-template <typename T>
-__device__ __forceinline__ bool is_finite(T x) {
-  return x > neg_inf<T>() && x < static_cast<T>(INFINITY);
-}
-
-template <typename T>
-__device__ __forceinline__ T vmax(T a, T b) { return a > b ? a : b; }
-
-// -inf-safe 2-way log-semiring sum: m + log(exp(a-m) + exp(b-m)).
-template <typename T>
-__device__ __forceinline__ T log_add(T a, T b) {
-  T m = vmax(a, b);
-  if (!is_finite(m)) return m;
-  return m + d_log(d_exp(a - m) + d_exp(b - m));
-}
 
 // A max (kMax) or a sum over the block, one barrier; every thread gets the
 // result.  ``red`` holds kMaxWarps slots, reused only after a later barrier.
@@ -242,6 +238,124 @@ __global__ void fac_bwd_kernel(const T* __restrict__ al,      // (T, B, S)
   }
 }
 
+constexpr int kPostWarps = 4;
+
+// K8's warp route, the posterior kernel: one block per (element b =
+// blockIdx.y, chunk blockIdx.x of ``chunk`` frames), warp w taking the
+// chunk's frames t_begin + w, t_begin + w + kPostWarps, ...  Writes the
+// chunk's dA rows and its edge sums over its frames t >= 1 into
+// part_self and part_diag, (chunks, B, S) each.
+template <typename T, int RS>
+__global__ void __launch_bounds__(kPostWarps * 32) fac_bwd_post_kernel(
+    const T* __restrict__ al,      // (T, B, S)
+    const T* __restrict__ self_t,  // (B, S)
+    const T* __restrict__ next_t,  // (B, S)
+    const T* __restrict__ alpha,   // (T, B, S)
+    const T* __restrict__ beta,    // (T, B, S)
+    const T* __restrict__ g,       // (B,)
+    T* __restrict__ gi_out,        // (T, B, S)
+    T* __restrict__ part_self, T* __restrict__ part_diag,  // (chunks, B, S)
+    int t_total, int batch, int s, int chunk) {
+  constexpr int WS = 32 * RS;
+  __shared__ T red[2][kPostWarps][WS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int t_begin = blockIdx.x * chunk;
+  const int t_stop = t_begin + chunk < t_total ? t_begin + chunk : t_total;
+  const T ninf = neg_inf<T>();
+  T self_k[RS], next_l[RS], acc_self[RS], acc_diag[RS];
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    const int k = lane + 32 * r;
+    self_k[r] = k < s ? self_t[(size_t)b * s + k] : T(0);
+    next_l[r] = (k >= 1 && k < s) ? next_t[(size_t)b * s + k - 1] : T(0);
+    acc_self[r] = T(0);
+    acc_diag[r] = T(0);
+  }
+  const T gs = g[b];
+
+  for (int t = t_begin + warp; t < t_stop; t += kPostWarps) {
+    const size_t row = ((size_t)t * batch + b) * s;
+    T a[RS], gam[RS];
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      const int k = lane + 32 * r;
+      a[r] = k < s ? alpha[row + k] : ninf;
+      gam[r] = k < s ? a[r] + beta[row + k] : ninf;
+    }
+    T m = warp_max(lane_max(gam));
+    m = is_finite(m) ? m : T(0);
+    T e[RS], tot = T(0);
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      e[r] = d_exp(gam[r] - m);
+      tot += e[r];
+    }
+    tot = warp_sum(tot);
+    const T inv = rcp(tot > T(0) ? tot : T(1));
+    T gi[RS];
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      gi[r] = e[r] * inv * gs;
+      if (lane + 32 * r < s) gi_out[row + lane + 32 * r] = gi[r];
+    }
+    if (t == 0) continue;
+    // the edge fractions into frame t: alpha_{t-1} read from memory
+    const size_t prev = row - (size_t)batch * s;
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      const int k = lane + 32 * r;
+      if (k < s) {
+        const T sub = is_finite(a[r]) ? al[row + k] - a[r] : ninf;
+        // slot 0 has only the self-loop in-edge, fraction 1
+        const T hori = k == 0 ? T(1) : d_exp(alpha[prev + k] + self_k[r] + sub);
+        const T diag = d_exp((k >= 1 ? alpha[prev + k - 1] + next_l[r] : ninf) + sub);
+        acc_self[r] += gi[r] * hori;
+        acc_diag[r] += gi[r] * diag;
+      }
+    }
+  }
+  // the chunk's sums: the warps' in warp order
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    red[0][warp][lane + 32 * r] = acc_self[r];
+    red[1][warp][lane + 32 * r] = acc_diag[r];
+  }
+  __syncthreads();
+  const size_t p = ((size_t)blockIdx.x * batch + b) * s;
+  for (int k = threadIdx.x; k < s; k += kPostWarps * 32) {
+    T sum_self = red[0][0][k], sum_diag = red[1][0][k];
+#pragma unroll
+    for (int w = 1; w < kPostWarps; ++w) {
+      sum_self += red[0][w][k];
+      sum_diag += red[1][w][k];
+    }
+    part_self[p + k] = sum_self;
+    part_diag[p + k] = sum_diag;
+  }
+}
+
+// K8's warp route, the sums: one thread per (element, slot) cell sums the
+// chunks' partials in chunk order; gnext[s] = gdiag[s+1], 0 at s = S-1.
+template <typename T>
+__global__ void fac_bwd_sums_kernel(const T* __restrict__ part_self,
+                                    const T* __restrict__ part_diag,
+                                    T* __restrict__ gself, T* __restrict__ gnext,
+                                    int nchunks, int batch, int s) {
+  const int cells = batch * s;
+  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= cells) return;
+  const bool shifted = cell % s + 1 < s;
+  T sum_self = T(0), sum_diag = T(0);
+  for (int c = 0; c < nchunks; ++c) {
+    const size_t at = (size_t)c * cells + cell;
+    sum_self += part_self[at];
+    if (shifted) sum_diag += part_diag[at + 1];
+  }
+  gself[cell] = sum_self;
+  gnext[cell] = sum_diag;
+}
+
 int block_threads(int s) { return ((s + 31) / 32) * 32; }
 
 template <typename T>
@@ -276,6 +390,41 @@ int launch_bwd(const T* al, const T* self_t, const T* next_t, const T* alpha,
   fac_bwd_kernel<T><<<batch, threads, smem, (cudaStream_t)stream>>>(
       al, self_t, next_t, alpha, beta, g, gi, gself, gnext, t_total, batch, s);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int RS>
+int launch_bwd_warp_r(const T* al, const T* self_t, const T* next_t, const T* alpha,
+                      const T* beta, const T* g, T* gi, T* gself, T* gnext, T* part,
+                      int t_total, int batch, int s, int chunk, cudaStream_t st) {
+  const int nchunks = (t_total + chunk - 1) / chunk;
+  T* part_diag = part + (size_t)nchunks * batch * s;
+  fac_bwd_post_kernel<T, RS><<<dim3(nchunks, batch), kPostWarps * 32, 0, st>>>(
+      al, self_t, next_t, alpha, beta, g, gi, part, part_diag, t_total, batch, s, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int cells = batch * s;
+  fac_bwd_sums_kernel<T><<<(cells + 127) / 128, 128, 0, st>>>(part, part_diag, gself, gnext,
+                                                               nchunks, batch, s);
+  return (int)cudaGetLastError();
+}
+
+// RS = 1, 2 or 4 words a lane of each slot row: S <= 128.
+template <typename T>
+int launch_bwd_warp(const T* al, const T* self_t, const T* next_t, const T* alpha,
+                    const T* beta, const T* g, T* gi, T* gself, T* gnext, T* part,
+                    int t_total, int batch, int s, int chunk, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  if (s <= 32)
+    return launch_bwd_warp_r<T, 1>(al, self_t, next_t, alpha, beta, g, gi, gself, gnext,
+                                   part, t_total, batch, s, chunk, st);
+  if (s <= 64)
+    return launch_bwd_warp_r<T, 2>(al, self_t, next_t, alpha, beta, g, gi, gself, gnext,
+                                   part, t_total, batch, s, chunk, st);
+  if (s <= 128)
+    return launch_bwd_warp_r<T, 4>(al, self_t, next_t, alpha, beta, g, gi, gself, gnext,
+                                   part, t_total, batch, s, chunk, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -319,6 +468,25 @@ int fac_bwd_f64(const double* al, const double* self_t, const double* next_t,
                 void* stream) {
   return launch_bwd<double>(al, self_t, next_t, alpha, beta, g, gi, gself, gnext,
                             t_total, batch, s, stream);
+}
+
+// K8's warp route: the block route's arguments, then a (2, chunks, B, S)
+// scratch for the partials, the sizes and the frames per chunk.
+
+int fac_bwd_warp_f32(const float* al, const float* self_t, const float* next_t,
+                     const float* alpha, const float* beta, const float* g, float* gi,
+                     float* gself, float* gnext, float* part, int t_total, int batch, int s,
+                     int chunk, void* stream) {
+  return launch_bwd_warp<float>(al, self_t, next_t, alpha, beta, g, gi, gself, gnext, part,
+                                t_total, batch, s, chunk, stream);
+}
+
+int fac_bwd_warp_f64(const double* al, const double* self_t, const double* next_t,
+                     const double* alpha, const double* beta, const double* g, double* gi,
+                     double* gself, double* gnext, double* part, int t_total, int batch,
+                     int s, int chunk, void* stream) {
+  return launch_bwd_warp<double>(al, self_t, next_t, alpha, beta, g, gi, gself, gnext, part,
+                                 t_total, batch, s, chunk, stream);
 }
 
 }  // extern "C"

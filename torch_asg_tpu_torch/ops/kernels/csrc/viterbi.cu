@@ -19,16 +19,39 @@
 // What bounds them on an H100: the serial chains.  K10 takes T dependent
 // steps of an N x N max-plus product (no tensor-core form); K11 takes T
 // dependent lookups.  Bytes and operations are far below what the card does
-// in that time.  The design:
-//   - K10: one block per element, one thread per destination label; the
-//     transposed transition sits in shared memory when it fits (thread i
-//     reads column i, conflict-free), the carry d in shared memory, and the
-//     next emission row is loaded before the step's max-plus loop so its
-//     latency overlaps it.  Two barriers a step.
-//   - K11: one block per element; the block copies a chunk of backpointer
-//     rows into shared memory with coalesced loads, then one thread walks
-//     the chunk, so each dependent lookup costs a shared-memory read and not
-//     a global-memory round trip.
+// in that time.  Only d_t waits on d_{t-1}: the backpointers are work that
+// no later step needs.
+//
+// K10 has two routes with the same outputs, picked by the wrapper
+// (common.py::width_route of the label count):
+//   - the warp route (N <= 128; lane l holds labels l, l+32, ..., RN = 1,
+//     2 or 4 words of a row, a template parameter).  viterbi_fwd_warp_kernel:
+//     one warp per element walks its live frames computing d_t = I_t +
+//     max_j (T[i,j] + d_{t-1}[j]) and nothing else, and writes each d_t
+//     into a (T, B, N) scratch.  A step is K3's warp step: the row through
+//     a double-buffered shared row with one __syncwarp, read back as
+//     broadcasts four words a load, into four partial maxes (each a chain
+//     a quarter as long) combined at the end; the transition's columns sit
+//     in registers at N <= 32 and in shared memory past it; the emission
+//     rows wait in a register ring kDepth = 4 frames deep, with the time
+//     loop unrolled by 4.  viterbi_bp_kernel, parallel over (element,
+//     chunk of frames), one warp a frame with the chain's lane layout,
+//     then recomputes each candidate T[i,j] + d_{t-1}[j] from the scratch,
+//     in the same dtype by the same single add, and takes the lowest j
+//     reaching the max.  Max-plus is exact, so the pass meets
+//     the chain's maximum bit for bit: the backpointers equal the plain
+//     version's.  Frames t with t-1 >= L hold d_{t-1} = -inf, every
+//     candidate ties at -inf, and the pass writes 0 there without reading.
+//   - the block route (N <= 1024): one block per element, one thread per
+//     destination label; the transposed transition sits in shared memory
+//     when it fits (thread i reads column i, conflict-free), the carry d in
+//     shared memory, and the next emission row is loaded before the step's
+//     max-plus loop so its latency overlaps it.  Two barriers a step.
+// K11: one block per element; the block copies a chunk of backpointer rows
+// into shared memory with coalesced loads, then one thread walks the
+// chunk, so each dependent lookup costs a shared-memory read and not a
+// global-memory round trip.
+// Both routes' times on an H100 are in PERF.md section 6 (chip_smoke.py).
 //
 // Forced alignment in the same semiring: the forward with one advance bit
 // per slot (kernel K12) and its backtrace (kernel K13).
@@ -54,15 +77,11 @@
 // carry in shared memory, and loads the next frame's emission before the
 // step's barrier; K13 is K11's chunked walk over the advance bits.
 
-#include <cmath>
-#include <cuda_runtime.h>
+#include "chain_common.cuh"
 
 namespace {
 
 constexpr size_t kSmemLimit = 227 * 1024;
-
-template <typename T>
-__device__ __forceinline__ T neg_inf() { return static_cast<T>(-INFINITY); }
 
 template <typename T>
 __global__ void viterbi_forward_kernel(
@@ -270,6 +289,216 @@ __global__ void align_backtrace_kernel(
   }
 }
 
+// The max of the tropical semiring, one FMNMX (fp32).  The max of a set is
+// the same value in whatever order the pairs are taken, so the chain's four
+// partial maxes give the value the backpointer pass's ascending scan meets.
+__device__ __forceinline__ float tmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double tmax(double a, double b) { return fmax(a, b); }
+
+// K10's warp route, the chain: one warp per element b = blockIdx.x walks
+// t = 1 .. min(L, T) - 1 and writes d_t into d_out (rows t >= min(L, T)
+// are left unwritten: they are -inf, and the pass never reads them).
+// Shared memory: the double-buffered row x[2][WN], then, for RN > 1, the
+// transition ts[WN * WN], ts[j*WN + i] = T[i, j], -inf padded.  Frame f
+// waits in ring slot f % kDepth, loaded kDepth steps before its step (rows
+// past frame min(L, T) - 1 are clamped to it and never consumed).
+template <typename T, int RN>
+__global__ void __launch_bounds__(32, 1) viterbi_fwd_warp_kernel(
+    const T* __restrict__ tt_glob,  // (N, N) transposed transition, tt[j*N + i] = T[i, j]
+    const T* __restrict__ em,       // (T, B, N) emissions
+    const int* __restrict__ li,     // (B,)
+    T* __restrict__ d_out,          // (T, B, N) the rows d_t
+    T* __restrict__ dend,           // (B, N) end rows
+    int t_total, int batch, int n) {
+  constexpr int WN = 32 * RN;
+  constexpr bool kRegs = RN == 1;  // the transition's column in registers
+  constexpr int kGroups = kRegs ? WN / 4 : 4;  // groups of four j unrolled
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xrows = reinterpret_cast<T*>(smem_raw);
+  T* ts = xrows + 2 * WN;
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const int L = li[b];
+  const int live = L < 0 ? 0 : (L > t_total ? t_total : L);
+  const T ninf = neg_inf<T>();
+
+  T tc[kRegs ? WN : 1];  // tc[j] = T[lane, j]
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+      tc[j] = (j < n && lane < n) ? tt_glob[(size_t)j * n + lane] : ninf;
+  } else {
+    tc[0] = ninf;
+    for (int idx = lane; idx < WN * WN; idx += 32) {
+      const int j = idx / WN, i = idx - j * WN;
+      ts[idx] = (j < n && i < n) ? tt_glob[(size_t)j * n + i] : ninf;
+    }
+    __syncwarp();
+  }
+  T d[RN], d_end[RN];
+#pragma unroll
+  for (int r = 0; r < RN; ++r) d_end[r] = ninf;
+  if (live > 0) {
+    T evb[kDepth][RN];
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+      const int f = u < live ? u : live - 1;
+      load_row(em + ((size_t)f * batch + b) * n, n, lane, evb[u]);
+    }
+    // d_0 = I_0 (-inf past N)
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      d[r] = evb[0][r];
+      if (L == 1) d_end[r] = d[r];
+    }
+    store_row(d_out + (size_t)b * n, n, lane, d);
+    {
+      const int f = kDepth < live ? kDepth : live - 1;
+      load_row(em + ((size_t)f * batch + b) * n, n, lane, evb[0]);
+    }
+
+    for (int t0 = 1; t0 < live; t0 += kDepth) {
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        // step t: frame t sits in slot cur; d_{t-1} goes through buffer u & 1
+        const int t = t0 + u;
+        if (t >= live) break;
+        const int cur = (1 + u) % kDepth;
+        T* xr = xrows + (u & 1) * WN;
+#pragma unroll
+        for (int r = 0; r < RN; ++r) xr[lane + 32 * r] = d[r];
+        __syncwarp();
+
+        // best_i = max_j (T[i, j] + d_{t-1}[j]): the row read as broadcasts,
+        // four words a load, into four partial maxes (j mod 4)
+        T acc[4][RN];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int r = 0; r < RN; ++r) acc[q][r] = ninf;
+        }
+#pragma unroll kGroups
+        for (int j = 0; j < WN; j += 4) {
+          T xv[4];
+          load4(xr + j, xv);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if constexpr (kRegs) {
+              acc[q][0] = tmax(acc[q][0], tc[j + q] + xv[q]);
+            } else {
+              const T* tj = ts + (j + q) * WN + lane;
+#pragma unroll
+              for (int r = 0; r < RN; ++r) acc[q][r] = tmax(acc[q][r], tj[32 * r] + xv[q]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RN; ++r)
+          d[r] = evb[cur][r] + tmax(tmax(acc[0][r], acc[1][r]), tmax(acc[2][r], acc[3][r]));
+
+        // refill slot cur with frame t + kDepth; the row and the end row, off
+        // the chain
+        const int f = t + kDepth < live ? t + kDepth : live - 1;
+        load_row(em + ((size_t)f * batch + b) * n, n, lane, evb[cur]);
+        store_row(d_out + ((size_t)t * batch + b) * n, n, lane, d);
+        if (t == L - 1) {
+#pragma unroll
+          for (int r = 0; r < RN; ++r) d_end[r] = d[r];
+        }
+      }
+    }
+  }
+  store_row(dend + (size_t)b * n, n, lane, d_end);
+}
+
+constexpr int kBpWarps = 4;
+
+// K10's warp route, the backpointers: one block of kBpWarps warps per
+// (element b = blockIdx.y, chunk blockIdx.x of ``chunk`` frames), warp w
+// taking the chunk's frames t_begin + w, t_begin + w + kBpWarps, ..., lane
+// l labels l, l+32, ...  backptr[t][i] = the lowest j reaching max_j
+// (T[i, j] + d_{t-1}[j]) (strict > over ascending j), with d_{t-1} the
+// chain's row through a shared row read as broadcasts and the candidates
+// formed as the chain forms them; the identity at t = 0; 0 where t - 1 >=
+// min(L, T), where every candidate is -inf.  Shared memory: one row[WN] a
+// warp, then, for RN > 1, the transition ts[WN * WN] as the chain holds it.
+template <typename T, int RN>
+__global__ void __launch_bounds__(kBpWarps * 32) viterbi_bp_kernel(
+    const T* __restrict__ tt_glob,  // (N, N) tt[j*N + i] = T[i, j]
+    const T* __restrict__ d,        // (T, B, N) the chain's rows
+    const int* __restrict__ li, int* __restrict__ bp, int t_total, int batch, int n,
+    int chunk) {
+  constexpr int WN = 32 * RN;
+  constexpr bool kRegs = RN == 1;
+  constexpr int kGroups = kRegs ? WN / 4 : 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* xr = reinterpret_cast<T*>(smem_raw) + warp * WN;
+  T* ts = reinterpret_cast<T*>(smem_raw) + kBpWarps * WN;
+  const int b = blockIdx.y;
+  const int L = li[b];
+  const int live = L < 0 ? 0 : (L > t_total ? t_total : L);
+  const int t_begin = blockIdx.x * chunk;
+  const int t_stop = t_begin + chunk < t_total ? t_begin + chunk : t_total;
+  const T ninf = neg_inf<T>();
+
+  T tc[kRegs ? WN : 1];  // tc[j] = T[lane, j]
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+      tc[j] = (j < n && lane < n) ? tt_glob[(size_t)j * n + lane] : ninf;
+  } else {
+    tc[0] = ninf;
+    for (int idx = threadIdx.x; idx < WN * WN; idx += kBpWarps * 32) {
+      const int j = idx / WN, i = idx - j * WN;
+      ts[idx] = (j < n && i < n) ? tt_glob[(size_t)j * n + i] : ninf;
+    }
+    __syncthreads();
+  }
+
+  for (int t = t_begin + warp; t < t_stop; t += kBpWarps) {
+    int arg[RN];
+#pragma unroll
+    for (int r = 0; r < RN; ++r) arg[r] = t == 0 ? lane + 32 * r : 0;
+    if (t >= 1 && t - 1 < live) {  // the same for the whole warp
+      T x[RN];
+      load_row(d + ((size_t)(t - 1) * batch + b) * n, n, lane, x);
+      __syncwarp();  // the previous frame's reads of the row are done
+#pragma unroll
+      for (int r = 0; r < RN; ++r) xr[lane + 32 * r] = x[r];
+      __syncwarp();
+      T best[RN];
+#pragma unroll
+      for (int r = 0; r < RN; ++r) best[r] = ninf;
+#pragma unroll kGroups
+      for (int j = 0; j < WN; j += 4) {
+        T xv[4];
+        load4(xr + j, xv);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int r = 0; r < RN; ++r) {
+            T c;
+            if constexpr (kRegs) {
+              c = tc[j + q] + xv[q];
+            } else {
+              c = ts[(j + q) * WN + lane + 32 * r] + xv[q];
+            }
+            if (c > best[r]) {
+              best[r] = c;
+              arg[r] = j + q;
+            }
+          }
+        }
+      }
+    }
+    const size_t row = ((size_t)t * batch + b) * n;
+#pragma unroll
+    for (int r = 0; r < RN; ++r) {
+      if (lane + 32 * r < n) bp[row + lane + 32 * r] = arg[r];
+    }
+  }
+}
+
 template <typename T>
 int launch_align_forward(const T* ap, const T* self_tr, const T* next_tr, const int* li,
                          int* adv, T* dend, int t_total, int batch, int s_total,
@@ -300,6 +529,52 @@ int launch_forward(const T* tt, const T* em, const int* li, int* bp, T* dend,
   viterbi_forward_kernel<T><<<batch, threads, smem, (cudaStream_t)stream>>>(
       tt, em, li, bp, dend, t_total, batch, n, tt_in_smem);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int RN>
+int launch_forward_warp_r(const T* tt, const T* em, const int* li, int* bp, T* dend,
+                          T* d_rows, int t_total, int batch, int n, int chunk,
+                          cudaStream_t st) {
+  constexpr int WN = 32 * RN;
+  const size_t smem = sizeof(T) * (2 * (size_t)WN + (RN == 1 ? 0 : (size_t)WN * WN));
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(viterbi_fwd_warp_kernel<T, RN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  viterbi_fwd_warp_kernel<T, RN><<<batch, 32, smem, st>>>(tt, em, li, d_rows, dend,
+                                                          t_total, batch, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t bp_smem = sizeof(T) * (kBpWarps * (size_t)WN + (RN == 1 ? 0 : (size_t)WN * WN));
+  if (bp_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(viterbi_bp_kernel<T, RN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bp_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nchunks = (t_total + chunk - 1) / chunk;
+  viterbi_bp_kernel<T, RN><<<dim3(nchunks, batch), kBpWarps * 32, bp_smem, st>>>(
+      tt, d_rows, li, bp, t_total, batch, n, chunk);
+  return (int)cudaGetLastError();
+}
+
+// RN = 1, 2 or 4 words a lane of each label row: N <= 128.
+template <typename T>
+int launch_forward_warp(const T* tt, const T* em, const int* li, int* bp, T* dend,
+                        T* d_rows, int t_total, int batch, int n, int chunk, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  if (n <= 32)
+    return launch_forward_warp_r<T, 1>(tt, em, li, bp, dend, d_rows, t_total, batch, n,
+                                       chunk, st);
+  if (n <= 64)
+    return launch_forward_warp_r<T, 2>(tt, em, li, bp, dend, d_rows, t_total, batch, n,
+                                       chunk, st);
+  if (n <= 128)
+    return launch_forward_warp_r<T, 4>(tt, em, li, bp, dend, d_rows, t_total, batch, n,
+                                       chunk, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -352,6 +627,24 @@ int align_backtrace(const int* adv, const int* end_s, const int* li, int* pos,
   align_backtrace_kernel<<<batch, 128, smem, (cudaStream_t)stream>>>(
       adv, end_s, li, pos, t_total, batch, s_total, tc);
   return (int)cudaGetLastError();
+}
+
+// K10's warp route: the block route's arguments, then a (T, B, N) scratch
+// of the chain's rows, the sizes and the frames per chunk of the
+// backpointer pass.
+
+int viterbi_forward_warp_f32(const float* tt, const float* em, const int* li, int* bp,
+                             float* dend, float* d_rows, int t_total, int batch, int n,
+                             int chunk, void* stream) {
+  return launch_forward_warp<float>(tt, em, li, bp, dend, d_rows, t_total, batch, n, chunk,
+                                    stream);
+}
+
+int viterbi_forward_warp_f64(const double* tt, const double* em, const int* li, int* bp,
+                             double* dend, double* d_rows, int t_total, int batch, int n,
+                             int chunk, void* stream) {
+  return launch_forward_warp<double>(tt, em, li, bp, dend, d_rows, t_total, batch, n, chunk,
+                                     stream);
 }
 
 }  // extern "C"

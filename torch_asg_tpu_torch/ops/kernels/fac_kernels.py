@@ -19,7 +19,11 @@ A call that autograd will not differentiate runs K7 alone.  Otherwise
 posteriors softmax(alpha + beta) * g and the self and diagonal edge
 fractions (exponents <= 0) summed over t >= 1 into gself and gnext (shifted
 left by one slot, 0 fill), which ``scatter_to_full`` maps back to (N, N)
-and (T, B, N) without atomics.
+and (T, B, N) without atomics.  K8 has two routes, picked by
+``common.width_route`` of the slot count: the warp route (up to 128 slots;
+a posterior kernel over (element, chunk of frames), then a fixed-order sums
+kernel) and the block route (one block walking each element's frames, up
+to 512 slots).
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/fac.cu``; on CPU tensors they run the plain versions beside them.
@@ -30,8 +34,9 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .common import (KERNEL_DTYPES, c_function, check_tensor, ptr,
-                     raise_on_error, stream_ptr, use_kernel, wants_grad)
+from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
+                     count_route, post_chunk, ptr, raise_on_error, softmax_rows,
+                     stream_ptr, use_kernel, wants_grad)
 from .fcc_kernels import PER_LATTICE_MAX_WIDTH
 from ..fac import (AlignedLattice, _alpha_scan, _shift_left_s, _shift_right_s,
                    make_aligned, scatter_to_full)
@@ -95,6 +100,44 @@ def fac_bwd_plain(lat: AlignedLattice, alpha, beta, g):
             acc_self += gi * torch.where(first, 1.0, hori)
             acc_diag += gi * diag
     return gi_all, acc_self, _shift_left_s(acc_diag, fill=0.0)
+
+
+def _fac_bwd_split_plain(lat: AlignedLattice, alpha, beta, g, chunk=None):
+    """Plain version of K8's warp route: ``fac_bwd_plain``'s outputs with no
+    walk over the frames.  Used by the tests; the main path runs
+    ``fac_bwd_plain`` on CPU tensors.
+
+    1. Per (element, chunk of ``chunk`` frames; default ``post_chunk``):
+       frame t needs rows t of alpha, beta and A and row t-1 of alpha.  dA_t
+       = softmax(alpha_t + beta_t) * g; the chunk's partials are the sums
+       over its frames t >= 1 of dA_t times the self fraction (1 at slot 0)
+       and of dA_t times the diagonal fraction.
+    2. gself and gdiag are the partials summed over the chunks; gnext is
+       gdiag shifted left by one slot, 0 fill.
+    """
+    t_total, num_batches, s_total = lat.inputs.shape
+    if chunk is None:
+        chunk = post_chunk(t_total, num_batches)
+    dt = lat.inputs.dtype
+
+    # ---- 1: posteriors and per-chunk partials
+    gi = softmax_rows(alpha + beta) * g.to(dt)[:, None]
+    a_prev, a_cur = alpha[:-1], alpha[1:]
+    sub = torch.where(torch.isfinite(a_cur), lat.inputs[1:] - a_cur, NEG_INF)
+    hori = torch.exp(a_prev + lat.self_trans + sub)
+    hori[..., 0] = 1.0  # slot 0 has only the self-loop in-edge
+    diag = torch.exp(_shift_right_s(a_prev + lat.next_trans) + sub)
+    terms = (gi[1:] * hori, gi[1:] * diag)  # frames 1 .. T-1
+    nchunks = -(-t_total // chunk)
+    parts = torch.zeros((2, nchunks, num_batches, s_total), dtype=dt, device=alpha.device)
+    for k in range(nchunks):
+        lo, hi = max(k * chunk, 1), min((k + 1) * chunk, t_total)
+        for q, term in enumerate(terms):
+            parts[q, k] = term[lo - 1:hi - 1].sum(dim=0)
+
+    # ---- 2: the sums
+    gself, gdiag = parts.sum(dim=1)
+    return gi, gself, _shift_left_s(gdiag, fill=0.0)
 
 
 def _check_lattice(lat, li=None, lo=None):
@@ -163,33 +206,53 @@ def fac_beta_pallas(lat: AlignedLattice, input_lengths, target_lengths):
     return beta
 
 
-def fac_bwd_pallas(lat: AlignedLattice, alpha, beta, g):
-    """(dA (T, B, S), gself (B, S), gnext (B, S)): K8 on CUDA tensors, its
-    plain version on CPU ones.  Each thread sums its slot's edge terms over
-    t in order, so two runs give the same bits.
-    ``fac_bwd_pallas.launches`` counts the kernel's launches."""
+def _launch_bwd(route, lat, alpha, beta, g, outs):
+    """Launch K8 on ``route`` with the outputs ``outs`` (dA, gself, gnext):
+    ``fac_bwd_{f32,f64}`` (the block route) or ``fac_bwd_warp_{f32,f64}``
+    (the posterior kernel over chunks of ``post_chunk`` frames, then the
+    sums, with a (2, chunks, B, S) scratch of partials between them)."""
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev, dt = lat.inputs.device, lat.inputs.dtype
+    ptrs = [lat.inputs, lat.self_trans, lat.next_trans, alpha, beta, g, *outs]
+    sizes = [t_total, num_batches, s_total]
+    if route == "warp":
+        chunk = post_chunk(t_total, num_batches)
+        nchunks = -(-t_total // chunk)
+        ptrs.append(torch.empty((2, nchunks, num_batches, s_total), dtype=dt, device=dev))
+        sizes.append(chunk)
+    stem = "fac_bwd_warp" if route == "warp" else "fac_bwd"
+    fn = c_function("fac", stem, dt, len(ptrs), len(sizes))
+    with torch.cuda.device(dev):
+        err = fn(*map(ptr, ptrs), *sizes, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+
+
+def fac_bwd_pallas(lat: AlignedLattice, alpha, beta, g, *, route=None):
+    """(dA (T, B, S), gself (B, S), gnext (B, S)): K8 on CUDA tensors, on
+    ``route`` ('warp', 'block', or None for ``width_route`` of the slot
+    count), and its plain version on CPU ones.  Both routes sum the edge
+    terms in a fixed order, so two runs give the same bits.
+    ``fac_bwd_pallas.launches`` counts the kernel's launches,
+    ``.launches_<route>`` each route's."""
+    route = check_route("K8", route, lat.inputs.shape[2])
     if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, alpha, beta, g):
         return fac_bwd_plain(lat, alpha, beta, g)
     lat = _contiguous(lat)
     _check_lattice(lat)
-    t_total, num_batches, s_total = lat.inputs.shape
+    num_batches = lat.inputs.shape[1]
     dev, dt = lat.inputs.device, lat.inputs.dtype
     g = g.to(dt).contiguous()
     check_tensor("alpha", alpha, dt, lat.inputs.shape, dev)
     check_tensor("beta", beta, dt, lat.inputs.shape, dev)
     check_tensor("g", g, dt, (num_batches,), dev)
     gi = torch.empty_like(lat.inputs)
-    gself = torch.zeros_like(lat.self_trans)
-    gnext = torch.zeros_like(lat.self_trans)
+    gself = torch.empty_like(lat.self_trans)
+    gnext = torch.empty_like(lat.self_trans)
     if gi.numel() == 0:
-        return gi, gself, gnext
-    fn = c_function("fac", "fac_bwd", dt, 9, 3)
-    with torch.cuda.device(dev):
-        err = fn(ptr(lat.inputs), ptr(lat.self_trans), ptr(lat.next_trans), ptr(alpha),
-                 ptr(beta), ptr(g), ptr(gi), ptr(gself), ptr(gnext),
-                 t_total, num_batches, s_total, stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+        return gi, gself.zero_(), gnext.zero_()
+    _launch_bwd(route, lat, alpha, beta, g, (gi, gself, gnext))
     fac_bwd_pallas.launches += 1
+    count_route(fac_bwd_pallas, route)
     return gi, gself, gnext
 
 
@@ -238,3 +301,5 @@ def fac_score_pallas(transition: torch.Tensor, inputs: torch.Tensor,
 fac_alpha_pallas.launches = 0
 fac_beta_pallas.launches = 0
 fac_bwd_pallas.launches = 0
+for _route in ROUTES:
+    setattr(fac_bwd_pallas, f"launches_{_route}", 0)

@@ -8,6 +8,13 @@ a step-by-step loop of the same arithmetic.  Decoding ties resolve to the
 lowest source label and alignment ties to staying on the slot, so results
 are bit-identical across each kernel, its plain version and the ``'xla'``
 tiers of ``ops/viterbi.py``.
+
+K10 has two routes, picked by ``common.width_route`` of the label count:
+the warp route (up to 128 labels: one warp per element walks the max-plus
+chain alone, then a pass parallel over (element, chunk of frames)
+recomputes each step's candidates from the chain's rows and takes the
+backpointers) and the block route (one thread per label, up to
+``VITERBI_KERNEL_MAX_LABELS``).
 """
 
 from __future__ import annotations
@@ -16,13 +23,15 @@ import ctypes
 
 import torch
 
-from .common import (KERNEL_DTYPES, check_tensor, ptr, raise_on_error,
-                     stream_ptr, use_kernel)
+from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
+                     count_route, post_chunk, ptr, raise_on_error, stream_ptr,
+                     use_kernel)
 from ..fac import _shift_right_s
 from ..semiring import NEG_INF
 from ...utils.lengths import mask_emissions
 
-# The forward kernel runs one thread per destination label in one block.
+# The forward kernel's block route runs one thread per destination label in
+# one block.
 VITERBI_KERNEL_MAX_LABELS = 1024
 # The alignment forward runs one thread per target slot in one block; capped
 # at the fused criterion's width, as the JAX package caps it.
@@ -58,6 +67,50 @@ def viterbi_forward_plain(transition, inputs, input_lengths):
     return d_end, bp
 
 
+def _viterbi_forward_split_plain(transition, inputs, input_lengths, chunk=None):
+    """Plain version of K10's warp route: ``viterbi_forward_plain``'s
+    outputs, the chain and the backpointers taken apart.  Used by the tests;
+    the main path runs ``viterbi_forward_plain`` on CPU tensors.
+
+    1. The chain: d_0 = I_0, d_t = I_t + max_j (T[i, j] + d_{t-1}[j]) with
+       emissions masked past L_in, so d_t = -inf for t >= L_in; d_end =
+       d_{L_in - 1} (-inf when L_in is outside [1, T]).
+    2. Per (element, chunk of ``chunk`` frames; default ``post_chunk``):
+       backptr[t][i] = the lowest j with T[i, j] + d_{t-1}[j] equal to the
+       max over j; the identity at t = 0; 0 where t - 1 >= min(L_in, T),
+       which the pass writes without reading d.
+    """
+    t_total, num_batches, num_labels = inputs.shape
+    dev = inputs.device
+    if chunk is None:
+        chunk = post_chunk(t_total, num_batches)
+    li = input_lengths.to(device=dev, dtype=torch.long)
+    inputs_m = mask_emissions(inputs, li)
+
+    # ---- 1: the chain
+    d = torch.empty_like(inputs_m)
+    d[0] = inputs_m[0]
+    for t in range(1, t_total):
+        d[t] = inputs_m[t] + torch.amax(transition[None, :, :] + d[t - 1][:, None, :], dim=2)
+    ends = (li - 1).clamp(0, max(t_total - 1, 0))
+    d_end = torch.where(((li >= 1) & (li <= t_total))[:, None],
+                        d[ends, torch.arange(num_batches, device=dev)], NEG_INF)
+
+    # ---- 2: the backpointers, a chunk of frames at a time
+    bp = torch.empty((t_total, num_batches, num_labels), dtype=torch.int32, device=dev)
+    bp[0] = torch.arange(num_labels, dtype=torch.int32, device=dev)
+    frames = torch.arange(t_total, device=dev)
+    live = li.clamp(0, t_total)
+    for t0 in range(0, t_total, chunk):
+        lo, hi = max(t0, 1), min(t0 + chunk, t_total)
+        if lo >= hi:
+            continue
+        _, arg = argmax_first(transition[None, None] + d[lo - 1:hi - 1, :, None, :], dim=3)
+        dead = frames[lo:hi, None, None] - 1 >= live[None, :, None]
+        bp[lo:hi] = torch.where(dead, 0, arg).to(torch.int32)
+    return d_end, bp
+
+
 def viterbi_backtrace_plain(final_labels, backptr, input_lengths):
     """Plain version of K11: the (T, B) int32 path, -1 past L_in.
 
@@ -88,13 +141,37 @@ def _lib_fn(name, n_ptrs):
     return fn
 
 
-def viterbi_forward_pallas(transition, inputs, input_lengths):
-    """(d_end (B, N), backptr (T, B, N) int32): K10 on CUDA tensors, its plain
-    version on CPU ones.  backptr[t] maps the label AT frame t to the label
-    at frame t-1 (frame 0 carries the identity row).
+def _launch_fwd(route, trans_t, inputs, li, outs):
+    """Launch K10 on ``route`` with the outputs ``outs`` (backptr, d_end):
+    ``viterbi_forward_{f32,f64}`` (the block route) or
+    ``viterbi_forward_warp_{f32,f64}`` (the chain, then the backpointer
+    pass over chunks of ``post_chunk`` frames, with a (T, B, N) scratch of
+    the chain's rows between them)."""
+    t_total, num_batches, num_labels = inputs.shape
+    dev, dt = inputs.device, inputs.dtype
+    ptrs = [trans_t, inputs, li, *outs]
+    sizes = [t_total, num_batches, num_labels]
+    if route == "warp":
+        ptrs.append(torch.empty_like(inputs))
+        sizes.append(post_chunk(t_total, num_batches))
+    stem = "viterbi_forward_warp" if route == "warp" else "viterbi_forward"
+    fn = c_function("viterbi", stem, dt, len(ptrs), len(sizes))
+    with torch.cuda.device(dev):
+        err = fn(*map(ptr, ptrs), *sizes, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
 
-    ``viterbi_forward_pallas.launches`` counts the kernel's launches.
+
+def viterbi_forward_pallas(transition, inputs, input_lengths, *, route=None):
+    """(d_end (B, N), backptr (T, B, N) int32): K10 on CUDA tensors, on
+    ``route`` ('warp', 'block', or None for ``width_route`` of the label
+    count), and its plain version on CPU ones.  backptr[t] maps the label
+    AT frame t to the label at frame t-1 (frame 0 carries the identity
+    row).  Both routes give the plain version's bits.
+
+    ``viterbi_forward_pallas.launches`` counts the kernel's launches,
+    ``.launches_<route>`` each route's.
     """
+    route = check_route("K10", route, inputs.shape[2])
     if not use_kernel(inputs, transition, input_lengths):
         return viterbi_forward_plain(transition, inputs, input_lengths)
     t_total, num_batches, num_labels = inputs.shape
@@ -113,13 +190,9 @@ def viterbi_forward_pallas(transition, inputs, input_lengths):
     d_end = torch.empty((num_batches, num_labels), dtype=dt, device=dev)
     if bp.numel() == 0:
         return d_end.fill_(NEG_INF), bp
-    fn = _lib_fn("viterbi_forward_f32" if dt == torch.float32
-                 else "viterbi_forward_f64", 5)
-    with torch.cuda.device(dev):
-        err = fn(ptr(trans_t), ptr(inputs), ptr(li), ptr(bp), ptr(d_end),
-                 t_total, num_batches, num_labels, stream_ptr(dev))
-    raise_on_error("viterbi_forward", err)
+    _launch_fwd(route, trans_t, inputs, li, (bp, d_end))
     viterbi_forward_pallas.launches += 1
+    count_route(viterbi_forward_pallas, route)
     return d_end, bp
 
 
@@ -271,3 +344,5 @@ viterbi_forward_pallas.launches = 0
 viterbi_backtrace_pallas.launches = 0
 align_forward_pallas.launches = 0
 align_backtrace_pallas.launches = 0
+for _route in ROUTES:
+    setattr(viterbi_forward_pallas, f"launches_{_route}", 0)
