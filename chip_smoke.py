@@ -18,7 +18,8 @@ launches:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``,
      one process per source, all at once; the fp32 instances of the warp
-     routes of K1, K2, K3, K5, K8 and K10 must not spill (``-Xptxas -v``);
+     routes of K1, K2, K3, K4, K5, K7, K8 and K10 must not spill
+     (``-Xptxas -v``);
   3. kernels: each kernel against its plain version on the card, at the
      serving and training shape B=64, T=1000, N=30, S=50 with ragged
      lengths, plus small fp64, degenerate-length and wide-label cases; times
@@ -40,10 +41,10 @@ launches:
      serving shape, at S=512, on ties and at fp64.  K3-K8 (the per-lattice
      tier) at the training shape, at small fp64 shapes, on degenerate
      lengths, with -inf transitions, with E in and out of shared memory and
-     at the width cap N = S = 512; K3, K5 and K8 on each route that takes
-     the width, also at the warp routes' width edges; K5 and K8 twice with
-     the same bits on each route; one K3, K5 and K8 warp-route call each
-     profiled by kernel (``lattice_warp``);
+     at the width cap N = S = 512; K3, K4, K5, K7 and K8 on each route that
+     takes the width, also at the warp routes' width edges; K5 and K8 twice
+     with the same bits on each route; one K3, K4, K5, K7 and K8 warp-route
+     call each profiled by kernel (``lattice_warp``);
   4. grads: the fused tier's gradients (K1 with stores -> K2 ->
      scatter_to_full) and the per-lattice tier's (K3, K6, K7 -> K5, K8 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
@@ -80,10 +81,12 @@ launches:
   9. train_pallas: the full-width letter model takes one warm-up step and 5
      timed steps of make_train_step(..., impl='pallas') on ``train``'s
      batch.  Each step must launch K3, K5, K6, K7 and K8 once and K4, K1,
-     K1s, K2 and K9 never, K3, K5 and K8 on the route 'auto' takes; the first
-     step's gradients must agree with the scan tier's and the loss must
-     fall; a score-only asg_scores call must launch K4 and K7 alone; the
-     criterion alone is timed and profiled (``pallas_criterion``);
+     K1s, K2 and K9 never, K3, K5, K7 and K8 on the route 'auto' takes; the
+     first step's gradients must agree with the scan tier's and the loss
+     must fall; a score-only asg_scores call must launch K4 and K7 alone,
+     each on the route 'auto' takes, and is timed (beside the fused tier's
+     score-only call) and profiled (``pallas_scores``); the criterion alone
+     is timed and profiled (``pallas_criterion``);
  10. serve_posterior: the full-width letter model answers 3 requests of 64
      utterances after a warm-up: encoder -> posterior_decode ('auto', so the
      per-lattice tier: K3 and K5 once a request, K4 never) ->
@@ -735,7 +738,7 @@ LATTICE_CASES = (
     ("fp32_width_cap", torch.float32, (2, 600, 512, 512), (512, 600), (1, 512), False),
     ("fp32_training", torch.float32, (B, T, N, S), (500, 1000), (10, 50), False),
 )
-# K3's and K5's warp-route width edges, fp32 and fp64 (from their own
+# K3's, K4's and K5's warp-route width edges, fp32 and fp64 (from their own
 # seeded stream): N = 32, 33, 64, 65 and 128, the last label in lane 31 of
 # a lane's last register, so that every label register count (1, 2 or 4)
 # runs, with E (fp64 N = 128: 132 KB) in the warp route's shared memory.
@@ -743,7 +746,7 @@ FCC_WIDTH_CASES = tuple(
     (f"{'fp32' if dt == torch.float32 else 'fp64'}_n{n}", dt, (3, 200, n, 10), (100, 200),
      (1, 10), False)
     for dt in (torch.float32, torch.float64) for n in (32, 33, 64, 65, 128))
-# K8's warp-route width edges, fp32 and fp64 (from their own seeded
+# K7's and K8's warp-route width edges, fp32 and fp64 (from their own seeded
 # stream): S = 32, 33, 64, 65 and 128 slots, the last slot in lane 31 of a
 # lane's last register, so that every slot register count (1, 2 or 4)
 # runs, with target lengths from S/2 to S so that the last slots are live.
@@ -755,37 +758,41 @@ FAC_WIDTH_CASES = tuple(
 # steps summed in another order (K1's bound); fp64 is the same arithmetic
 # to rounding.
 LATTICE_TOL = {torch.float64: (1e-10, 1e-10), torch.float32: (1e-4, 1e-3)}
-# The kernels of K3's and K5's warp routes, by name, in launch order.
+# The kernels of K3's, K4's, K5's, K7's and K8's warp routes, by name, in
+# launch order.
 K3_WARP_PHASES = ("fcc_fwd_warp_kernel", "fcc_fwd_log_kernel")
+K4_WARP_PHASES = ("fcc_beta_warp_kernel", "fcc_beta_log_kernel")
 K5_WARP_PHASES = ("fcc_bwd_post_kernel", "fcc_bwd_sums_kernel")
+K7_WARP_PHASES = ("fac_beta_warp_kernel",)
 K8_WARP_PHASES = ("fac_bwd_post_kernel", "fac_bwd_sums_kernel")
 
 
 def check_lattice_kernels(rng, dev, only=None):
     """K3-K8 against their plain versions on the card in every case of
-    LATTICE_CASES, K3 and K5 also in FCC_WIDTH_CASES and K8 in
-    FAC_WIDTH_CASES; K3, K5 and K8 on each route that takes the case's
-    width (labels for K3 and K5, slots for K8); K5 and K8 run on the plain
-    versions' chains, so both versions see the same inputs, and twice on
-    each route, which must give the same bits.  Times and bounds at the
-    training shape, both routes of K3, K5 and K8, and the device time of
-    each kernel of their warp routes (the profile ``lattice_warp``).
-    ``only`` (kernel ids) restricts the checks and times to those
-    kernels."""
+    LATTICE_CASES, K3, K4 and K5 also in FCC_WIDTH_CASES and K7 and K8 in
+    FAC_WIDTH_CASES; K3, K4, K5, K7 and K8 on each route that takes the
+    case's width (labels for K3-K5, slots for K7 and K8), the elements
+    without a path of ``fp64_degenerate`` on each route too; K5 and K8 run
+    on the plain versions' chains, so both versions see the same inputs,
+    and twice on each route, which must give the same bits.  Times and
+    bounds at the training shape, both routes of K3, K4, K5, K7 and K8, and
+    the device time of each kernel of their warp routes (the profile
+    ``lattice_warp``).  ``only`` (kernel ids) restricts the checks and
+    times to those kernels."""
     from torch_asg_tpu_torch.ops.fac import make_aligned
     from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
     from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     names = ("K3", "K4", "K5", "K6", "K7", "K8")
-    routed_ids = ("K3", "K5", "K8")
+    routed_ids = ("K3", "K4", "K5", "K7", "K8")
     errs = {k: {} for k in names}
     # the width edges draw from streams of their own, keeping ``rng``'s as it was
     fcc_rng, fac_rng = np.random.default_rng([SEED, 8]), np.random.default_rng([SEED, 9])
     width_rngs = {**{c[0]: fcc_rng for c in FCC_WIDTH_CASES},
                   **{c[0]: fac_rng for c in FAC_WIDTH_CASES}}
-    case_kernels = {**{c[0]: ("K3", "K5") for c in FCC_WIDTH_CASES},
-                    **{c[0]: ("K8",) for c in FAC_WIDTH_CASES}}
+    case_kernels = {**{c[0]: ("K3", "K4", "K5") for c in FCC_WIDTH_CASES},
+                    **{c[0]: ("K7", "K8") for c in FAC_WIDTH_CASES}}
     # the width edges first, so that the loop ends on the training shape
     for name, dtype, (b, t, n, s), li_r, lo_r, neg_inf in (FCC_WIDTH_CASES + FAC_WIDTH_CASES
                                                           + LATTICE_CASES):
@@ -813,8 +820,10 @@ def check_lattice_kernels(rng, dev, only=None):
                     lambda route=route: fk.fcc_fwd_pallas(e, c, x, li32, route=route),
                     lambda: fk.fcc_fwd_plain(e, c, x, li32))
         if "K4" in kernels:
-            runs[("K4", "block")] = (lambda: (fk.fcc_beta_pallas(e, c, x, li32),),
-                                     lambda: (fk.fcc_beta_plain(e, c, x, li32),))
+            for route in width_routes(n):
+                runs[("K4", route)] = (
+                    lambda route=route: (fk.fcc_beta_pallas(e, c, x, li32, route=route),),
+                    lambda: (fk.fcc_beta_plain(e, c, x, li32),))
         if "K5" in kernels:
             for route in width_routes(n):
                 runs[("K5", route)] = (
@@ -825,8 +834,10 @@ def check_lattice_kernels(rng, dev, only=None):
             runs[("K6", "cuda")] = (lambda: (ak.fac_alpha_pallas(lat),),
                                     lambda: (ak.fac_alpha_plain(lat),))
         if "K7" in kernels:
-            runs[("K7", "cuda")] = (lambda: (ak.fac_beta_pallas(lat, li, lo),),
-                                    lambda: (ak.fac_beta_plain(lat, li, lo),))
+            for route in width_routes(s):
+                runs[("K7", route)] = (
+                    lambda route=route: (ak.fac_beta_pallas(lat, li, lo, route=route),),
+                    lambda: (ak.fac_beta_plain(lat, li, lo),))
         if "K8" in kernels:
             for route in width_routes(s):
                 runs[("K8", route)] = (
@@ -854,15 +865,22 @@ def check_lattice_kernels(rng, dev, only=None):
                 errs[kname].setdefault(name, {})[variant] = err
             else:
                 errs[kname][name] = err
-        if name == "fp64_degenerate" and only is None:
+        if name == "fp64_degenerate":
             # L_in outside [1, T] (elements 5, 6) has no beta; L_out > L_in
             # (elements 2, 3) no aligned path
-            beta = fk.fcc_beta_pallas(e, c, x, li32)
-            fac_beta = ak.fac_beta_pallas(lat, li, lo)
-            check(bool((beta[:, [5, 6]] == -np.inf).all())
-                  and bool((fac_beta[0, [2, 3, 5, 6], 0] == -np.inf).all()),
-                  "K4/K7: elements without a path must have no beta")
-            for route in width_routes(n):
+            def picked(*ids):
+                return only is None or any(k in only for k in ids)
+
+            for route in width_routes(n) if picked("K4") else ():
+                beta = fk.fcc_beta_pallas(e, c, x, li32, route=route)
+                check(bool((beta[:, [5, 6]] == -np.inf).all()),
+                      f"K4 {route}: elements without a path must have no beta")
+            for route in width_routes(s) if picked("K7") else ():
+                fac_beta = ak.fac_beta_pallas(lat, li, lo, route=route)
+                check(bool((fac_beta[:, [5, 6]] == -np.inf).all())
+                      and bool((fac_beta[0, [2, 3, 5, 6], 0] == -np.inf).all()),
+                      f"K7 {route}: elements without a path must have no beta")
+            for route in width_routes(n) if picked("K3", "K5") else ():
                 alpha_r, beta_r = fk.fcc_fwd_pallas(e, c, x, li32, route=route)
                 gi_r, _ = fk.fcc_bwd_pallas(e, c, x, li32, *fwd_want, g, route=route)
                 check(bool((beta_r[:, [5, 6]] == -np.inf).all())
@@ -870,7 +888,7 @@ def check_lattice_kernels(rng, dev, only=None):
                       and bool((gi_r[:, [5, 6]] == 0).all()),
                       f"K3/K5 {route}: elements without a path must have no beta and "
                       "zero posteriors")
-            for route in width_routes(s):
+            for route in width_routes(s) if picked("K8") else ():
                 da_r = ak.fac_bwd_pallas(lat, *fac_want, g, route=route)[0]
                 check(bool((da_r[:, [2, 3, 5, 6]] == 0).all()),
                       f"K8 {route}: elements without an aligned path must have zero "
@@ -898,14 +916,17 @@ def check_lattice_kernels(rng, dev, only=None):
     # id -> (wrapper, arguments, serial steps, warp-route kernels, width)
     routed = {
         "K3": (fk.fcc_fwd_pallas, (e, c, x, li32), serial, K3_WARP_PHASES, N),
+        "K4": (fk.fcc_beta_pallas, (e, c, x, li32), serial, K4_WARP_PHASES, N),
         "K5": (fk.fcc_bwd_pallas, (e, c, x, li32, *fwd_want, g), int(li.max()),
                K5_WARP_PHASES, N),
+        "K7": (ak.fac_beta_pallas, (lat, li, lo), serial, K7_WARP_PHASES, S),
         "K8": (ak.fac_bwd_pallas, (lat, *fac_want, g), T, K8_WARP_PHASES, S),
     }
-    # the warp routes' kernels by device time, K3's, K5's and K8's in one profile
+    # the warp routes' kernels by device time, K3's, K4's, K5's, K7's and
+    # K8's in one profile
     split = profile_call("lattice_warp") if any(k in routed for k, _ in runs) else None
     check(split is None or split["complete"],
-          f"K3's, K5's and K8's warp routes must run their six kernels: {split}")
+          f"K3's, K4's, K5's, K7's and K8's warp routes must run their nine kernels: {split}")
     out = []
     for (kname, variant), (kernel, plain) in runs.items():
         if kname in routed and variant != width_route(routed[kname][4]):
@@ -937,14 +958,15 @@ def check_lattice_kernels(rng, dev, only=None):
 
 
 def lattice_route_launches(reset=False):
-    """K3's, K5's and K8's launches by route, {"<wrapper>.<route>": n}; with
-    ``reset`` the counts are set to 0 first."""
+    """K3's, K4's, K5's, K7's and K8's launches by route, {"<wrapper>.<route>":
+    n}; with ``reset`` the counts are set to 0 first."""
     from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
     from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
     from torch_asg_tpu_torch.ops.kernels.common import ROUTES
 
     out = {}
-    for wrapper in (fk.fcc_fwd_pallas, fk.fcc_bwd_pallas, ak.fac_bwd_pallas):
+    for wrapper in (fk.fcc_fwd_pallas, fk.fcc_beta_pallas, fk.fcc_bwd_pallas,
+                    ak.fac_beta_pallas, ak.fac_bwd_pallas):
         for route in ROUTES:
             if reset:
                 setattr(wrapper, f"launches_{route}", 0)
@@ -952,18 +974,19 @@ def lattice_route_launches(reset=False):
     return out
 
 
-def check_lattice_auto_route(fcc, fac=0):
-    """Since the last reset, K3 and K5 launched ``fcc`` times each and K8
-    ``fac`` times, every time through the route 'auto' takes (at N labels
-    for K3 and K5, at S slots for K8)."""
+def check_lattice_auto_route(**launches):
+    """Since the last reset, each wrapper named in ``launches`` (e.g.
+    ``fcc_fwd_pallas=5``) launched that many times and the other routed
+    wrappers of K3-K8 never, every time through the route 'auto' takes (at
+    N labels for K3, K4 and K5, at S slots for K7 and K8)."""
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     got = lattice_route_launches()
     want = dict.fromkeys(got, 0)
-    route, fac_route = width_route(N), width_route(S)
-    want.update({f"fcc_fwd_pallas.{route}": fcc, f"fcc_bwd_pallas.{route}": fcc,
-                 f"fac_bwd_pallas.{fac_route}": fac})
-    check(got == want, f"every K3, K5 and K8 launch must take the route 'auto' takes: {got}")
+    for wrapper, count in launches.items():
+        want[f"{wrapper}.{width_route(N if wrapper.startswith('fcc') else S)}"] = count
+    check(got == want,
+          f"every K3, K4, K5, K7 and K8 launch must take the route 'auto' takes: {got}")
     return got
 
 
@@ -1309,14 +1332,16 @@ def device_profile(fn, names=()):
 # --profiler).
 PROFILES = {
     "k2_warp": K2_WARP_PHASES,
-    "lattice_warp": K3_WARP_PHASES + K5_WARP_PHASES + K8_WARP_PHASES,
+    "lattice_warp": (K3_WARP_PHASES + K4_WARP_PHASES + K5_WARP_PHASES + K7_WARP_PHASES
+                     + K8_WARP_PHASES),
     "k10_warp": K10_WARP_PHASES,
     "serve_scores": ("asg_fwd_warp_kernel",),
     "serve_decode": K10_WARP_PHASES + ("viterbi_backtrace_kernel",),
     "train_criterion": ("asg_fwd_warp_kernel",) + K2_WARP_PHASES,
     "wordpiece_criterion": ("row_max_kernel", "dual_init_kernel"),
-    "pallas_criterion": (K3_WARP_PHASES + K5_WARP_PHASES
-                         + ("fac_alpha_kernel", "fac_beta_kernel") + K8_WARP_PHASES),
+    "pallas_criterion": (K3_WARP_PHASES + K5_WARP_PHASES + ("fac_alpha_kernel",)
+                         + K7_WARP_PHASES + K8_WARP_PHASES),
+    "pallas_scores": K4_WARP_PHASES + K7_WARP_PHASES,
     "posterior_request": K3_WARP_PHASES + K5_WARP_PHASES,
 }
 PROFILE_TRIES = 3
@@ -1385,13 +1410,16 @@ def profile_target(name, dev):
 
         def warp_routes():
             alpha, beta = fk.fcc_fwd_pallas(*args, route="warp")
+            fk.fcc_beta_pallas(*args, route="warp")
             fk.fcc_bwd_pallas(*args, alpha, beta, g, route="warp")
+            ak.fac_beta_pallas(lat, li, lo, route="warp")
             ak.fac_bwd_pallas(lat, *fac_chains, g, route="warp")
 
         return warp_routes, RUNS
-    if name.endswith("criterion"):
+    if name.endswith("criterion") or name == "pallas_scores":
         # asg_loss forward + backward on fixed emissions, as the training
-        # phases time it
+        # phases time it; or one score-only call through the per-lattice
+        # tier on them
         if name == "wordpiece_criterion":
             n, impl, runs = WP_N, "auto", 10
             model, batch = letter_model(rng, dev, WP_N), wordpiece_batch(rng, dev)
@@ -1404,6 +1432,13 @@ def profile_target(name, dev):
             em = model(batch["features"]).requires_grad_(True)
         # the transition a training run starts from (create_train_state)
         tr = torch.zeros((n, n), device=dev, requires_grad=True)
+        if name == "pallas_scores":
+            def scores():
+                with torch.no_grad():
+                    asg_scores(tr, em, batch["targets"], li, batch["target_lengths"],
+                               impl="pallas")
+
+            return scores, runs
 
         def criterion():
             out = asg_loss(tr, em, batch["targets"], li, batch["target_lengths"], impl=impl)
@@ -1694,9 +1729,12 @@ def train_pallas(rng, dev, utts, labels):
     per-lattice tier, ``make_train_step(model, opt, impl='pallas')``: one
     warm-up step, then 5 timed steps, each ending in a device synchronise.
     Each step must launch K3, K5, K6, K7 and K8 once and K4, K1, K1s, K2 and
-    K9 never; a score-only ``asg_scores(impl='pallas')`` call must launch K4
-    and K7 once and nothing else.  Returns the launch counts of the timed
-    steps (K4: of the score-only call)."""
+    K9 never, K3, K5, K7 and K8 on the route 'auto' takes; a score-only
+    ``asg_scores(impl='pallas')`` call must launch K4 and K7 once, on the
+    route 'auto' takes, and nothing else.  The score-only call is timed
+    (``scores_only_ms``, beside the fused tier's ``scores_only_fused_ms``
+    on the same inputs) and profiled (``pallas_scores``).  Returns the
+    launch counts of the timed steps (K4: of the score-only call)."""
     from torch_asg_tpu_torch import asg_loss, asg_scores
     from torch_asg_tpu_torch.models import create_train_state, loss_fn, make_train_step
     from torch_asg_tpu_torch.ops.kernels.asg_kernels import (_bwd_kernel,
@@ -1752,26 +1790,38 @@ def train_pallas(rng, dev, utts, labels):
     check(launches == want,
           f"each step must launch K3, K5, K6, K7, K8 once and K4, K1, K1s, K2, K9 never: "
           f"{launches}")
-    routes_seen = check_lattice_auto_route(5, 5)
+    routes_seen = check_lattice_auto_route(fcc_fwd_pallas=5, fcc_bwd_pallas=5,
+                                           fac_beta_pallas=5, fac_bwd_pallas=5)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch, impl="pallas"))
     check(loss_after < losses[0], f"loss did not fall: {losses[0]} -> {loss_after}")
     median_ms = statistics.median(latencies)
 
-    # a score-only call: K4 and K7, nothing else
+    # a score-only call: K4 and K7, nothing else, each on the route 'auto' takes
     for c in counters:
         c.launches = 0
-    with torch.no_grad():
-        full, aligned = asg_scores(state.transition, em0, targets, li, lo, impl="pallas")
-        ref_full, ref_aligned = asg_scores(state.transition, em0, targets, li, lo, impl="scan")
+    lattice_route_launches(reset=True)
+
+    def scores_only(impl):
+        with torch.no_grad():
+            return asg_scores(state.transition, em0, targets, li, lo, impl=impl)
+
+    full, aligned = scores_only("pallas")
+    ref_full, ref_aligned = scores_only("scan")
     torch.cuda.synchronize()
     score_only = {c.__name__: c.launches for c in counters}
     want = dict.fromkeys(score_only, 0)
     want.update(fcc_beta_pallas=1, fac_beta_pallas=1)
     check(score_only == want, f"a score-only call must launch K4 and K7 only: {score_only}")
+    score_only_routes = check_lattice_auto_route(fcc_beta_pallas=1, fac_beta_pallas=1)
     torch.testing.assert_close(full, ref_full, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(aligned, ref_aligned, rtol=1e-4, atol=1e-3)
+    # the score-only call timed (and, for orientation, the fused tier's on
+    # the same inputs), and profiled in a process of its own
+    scores_only_ms = time_ms(lambda: scores_only("pallas"))
+    scores_only_fused_ms = time_ms(lambda: scores_only("auto"))
+    scores_profile = profile_call("pallas_scores")
 
     # one more step, synchronised after each stage
     marks = [time.perf_counter()]
@@ -1808,6 +1858,9 @@ def train_pallas(rng, dev, utts, labels):
           "frames_per_s": frames / (median_ms * 1e-3), "losses": losses,
           "loss_after": loss_after, "launches": launches,
           "route_launches": routes_seen, "score_only_launches": score_only,
+          "score_only_route_launches": score_only_routes,
+          "scores_only_ms": scores_only_ms, "scores_only_fused_ms": scores_only_fused_ms,
+          "scores_only_profile": scores_profile,
           "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
           "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
           "criterion_fwd_bwd_ms": criterion_ms,
@@ -1879,7 +1932,7 @@ def serve_posterior(rng, dev):
     want = dict.fromkeys(launches, 0)
     want.update(fcc_fwd_pallas=3, fcc_bwd_pallas=3)
     check(launches == want, f"each request must launch K3 and K5 once, K4 never: {launches}")
-    routes_seen = check_lattice_auto_route(3)
+    routes_seen = check_lattice_auto_route(fcc_fwd_pallas=3, fcc_bwd_pallas=3)
     _, stage_ms = answer(*requests[1], sync=torch.cuda.synchronize)
     stages = dict(zip(("encoder", "posterior_decode", "paths_to_host_and_collapse"),
                       stage_ms))
@@ -1979,6 +2032,10 @@ def main(argv):
                     for k, v in spill_bytes(fcc_log, marker).items()}
     fac_log = libs["fac"].with_suffix(".log").read_text()
     vit_log = libs["viterbi"].with_suffix(".log").read_text()
+    k4_k7_spills = {k: v for log, marker in ((fcc_log, "fcc_beta_warp_kernelIf"),
+                                             (fcc_log, "fcc_beta_log_kernelIf"),
+                                             (fac_log, "fac_beta_warp_kernelIf"))
+                    for k, v in spill_bytes(log, marker).items()}
     k8_k10_spills = {k: v for log, marker in ((fac_log, "fac_bwd_post_kernelIf"),
                                               (fac_log, "fac_bwd_sums_kernelIf"),
                                               (vit_log, "viterbi_fwd_warp_kernelIf"),
@@ -1987,6 +2044,7 @@ def main(argv):
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
           "k1_warp_fp32_spill_bytes": warp_spills, "k2_warp_fp32_spill_bytes": k2_spills,
           "k3_k5_warp_fp32_spill_bytes": k3_k5_spills,
+          "k4_k7_warp_fp32_spill_bytes": k4_k7_spills,
           "k8_k10_warp_fp32_spill_bytes": k8_k10_spills})
     # K1: two variants x 3 label x 3 slot register counts; K2: the chain and
     # posterior kernels x 3 x 3, and the sums
@@ -1998,6 +2056,10 @@ def main(argv):
     # the posterior kernel x 3, and the sums
     check(len(k3_k5_spills) == 8 and not any(k3_k5_spills.values()),
           f"K3's and K5's fp32 warp-route instances must not spill: {k3_k5_spills}")
+    # K4: the chain kernel x 3 label register counts, and the log pass; K7:
+    # the chain kernel x 3 slot register counts
+    check(len(k4_k7_spills) == 7 and not any(k4_k7_spills.values()),
+          f"K4's and K7's fp32 warp-route instances must not spill: {k4_k7_spills}")
     # K8: the posterior kernel x 3 slot register counts, and the sums; K10:
     # the chain and the backpointer pass x 3 label register counts
     check(len(k8_k10_spills) == 10 and not any(k8_k10_spills.values()),
@@ -2051,8 +2113,9 @@ def main(argv):
         "launches": launches[wrapper], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
-        # the two routes of K1, K2, K3 and K5, timed in this run; K2's, K3's
-        # and K5's warp-route kernels, by device time (one profiled call)
+        # the two routes of K1, K2, K3, K4, K5, K7, K8 and K10, timed in this
+        # run; the warp-route kernels of K2, K3-K5, K7, K8 and K10, by device
+        # time (one profiled call)
         **{key: k[key] for key in ("route_auto", "ms_warp", "ms_block", "us_per_step",
                                    "warp_device_ms") if key in k},
     } for k, wrapper, source, replaces in meta]

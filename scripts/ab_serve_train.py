@@ -14,10 +14,10 @@ AdamW steps after a warm-up, then the criterion's forward+backward alone),
 ``serve_posterior`` (3 posterior-decoding requests after a warm-up), each
 on data from ``chip_smoke.SEED`` as ``chip_smoke.main`` draws it, so both
 checkouts see the same inputs.  The turn takes no profile.  After it, this
-checkout's ``chip_smoke.profile_call`` profiles four calls of that
+checkout's ``chip_smoke.profile_call`` profiles five calls of that
 checkout's port, each in a new process (the letter criterion through each
-tier, one posterior request, one serving viterbi_decode call: device busy
-time, idle share, kernel count),
+tier, one per-lattice score-only call, one posterior request, one serving
+viterbi_decode call: device busy time, idle share, kernel count),
 so that both checkouts are measured alike.  Prints one JSON line per turn
 and, last, one line with each checkout's turns side by side.  Exits
 nonzero if a turn fails.
@@ -58,11 +58,13 @@ c.serve_posterior(rng_pallas, dev)
 KEEP = {
     "serve": ("median_latency_ms", "latency_ms", "stage_ms_first_request"),
     "train": ("median_step_ms", "step_ms", "stage_ms", "criterion_fwd_bwd_ms"),
-    "train_pallas": ("median_step_ms", "step_ms", "stage_ms", "criterion_fwd_bwd_ms"),
+    "train_pallas": ("median_step_ms", "step_ms", "stage_ms", "criterion_fwd_bwd_ms",
+                     "scores_only_ms"),
     "serve_posterior": ("median_latency_ms", "latency_ms", "stage_ms_second_request"),
 }
 # the calls profiled after each turn (chip_smoke.PROFILES)
-PROFILED = ("train_criterion", "pallas_criterion", "posterior_request", "serve_decode")
+PROFILED = ("train_criterion", "pallas_criterion", "pallas_scores", "posterior_request",
+            "serve_decode")
 PROFILE_KEYS = ("device_busy_ms", "kernels", "call_ms", "idle_share", "top_kernels_ms")
 
 
@@ -107,6 +109,7 @@ def main(argv):
         "pallas_median_step_ms": [t["train_pallas"]["median_step_ms"] for t in ts],
         "pallas_criterion_fwd_bwd_ms": [t["train_pallas"]["criterion_fwd_bwd_ms"]
                                         for t in ts],
+        "pallas_scores_only_ms": [t["train_pallas"]["scores_only_ms"] for t in ts],
         "posterior_median_latency_ms": [t["serve_posterior"]["median_latency_ms"]
                                         for t in ts],
         "posterior_decode_stage_ms": [

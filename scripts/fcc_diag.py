@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""K3's and K5's warp routes on one CUDA card, for bring-up and for reading
-what the compiler made of them.
+"""The per-lattice tier's warp routes (K3, K4, K5 and K7) on one CUDA card,
+for bring-up and for reading what the compiler made of them.
 
     python3 scripts/fcc_diag.py [--sass] [--check K3,K5] [--profiler]
 
 Builds the kernels first (``_build.build_all``), then:
-  --sass:  disassembles the fp32 instances of ``csrc/fcc.cu``'s warp-route
-           kernels (``cuobjdump -sass`` of the built library) into the
+  --sass:  disassembles the fp32 instances of the warp-route kernels of
+           K3, K4 and K5 (``csrc/fcc.cu``) and K7 (``csrc/fac.cu``)
+           (``cuobjdump -sass`` of the built libraries) into the
            ignored ``build/sass/<kernel>.sass`` beside the libraries and
            prints, for each, its
            registers and spills (``-Xptxas -v``) and its count of each kind
@@ -40,15 +41,18 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as c  # noqa: E402
 from torch_asg_tpu_torch.ops.kernels import _build  # noqa: E402
 
-KERNELS = ("fcc_fwd_warp_kernel", "fcc_fwd_log_kernel", "fcc_bwd_post_kernel",
-           "fcc_bwd_sums_kernel")
+# the warp-route kernels, by library
+KERNELS = {"fcc": ("fcc_fwd_warp_kernel", "fcc_fwd_log_kernel", "fcc_beta_warp_kernel",
+                   "fcc_beta_log_kernel", "fcc_bwd_post_kernel", "fcc_bwd_sums_kernel"),
+           "fac": ("fac_beta_warp_kernel",)}
 KINDS = {"fp_arith": r"^(FFMA|FMUL|FADD|DFMA|DMUL|DADD)", "lds": r"^LDS", "sts": r"^STS",
          "mufu": r"^MUFU", "shfl": r"^SHFL", "redux": r"^REDUX", "warpsync": r"^WARPSYNC",
          "bar": r"^BAR", "ldg": r"^LDG", "stg": r"^STG", "branch": r"^(BRA|BSSY|BSYNC)"}
 
 
-def sass(lib):
-    """{mangled kernel name: its SASS lines} for the fp32 warp-route kernels."""
+def sass(lib, kernels):
+    """{mangled kernel name: its SASS lines} for the fp32 instances of
+    ``kernels`` in the library ``lib``."""
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -56,7 +60,7 @@ def sass(lib):
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1) if any(k + "If" in m.group(1) for k in KERNELS) else None
+            name = m.group(1) if any(k + "If" in m.group(1) for k in kernels) else None
             if name:
                 out[name] = []
         elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
@@ -107,13 +111,15 @@ def main(argv):
     libs = _build.build_all()
     c.emit({"card": torch.cuda.get_device_name(0)})
     if "--sass" in argv:
-        log = libs["fcc"].with_suffix(".log").read_text()
-        usage = {}
-        for marker in KERNELS:
-            usage.update(c.spill_bytes(log, marker + "If"))
         out_dir = _build.BUILD / "sass"
         out_dir.mkdir(parents=True, exist_ok=True)
-        for name, lines in sass(libs["fcc"]).items():
+        listings, usage = {}, {}
+        for lib, kernels in KERNELS.items():
+            log = libs[lib].with_suffix(".log").read_text()
+            for marker in kernels:
+                usage.update(c.spill_bytes(log, marker + "If"))
+            listings.update(sass(libs[lib], kernels))
+        for name, lines in listings.items():
             (out_dir / f"{name[:120]}.sass").write_text("\n".join(lines) + "\n")
             ops = [ln.split()[0] if not ln.startswith("@") else ln.split()[1] for ln in lines
                    if ln]

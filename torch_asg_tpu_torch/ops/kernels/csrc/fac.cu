@@ -36,12 +36,30 @@
 // Its bound is its bytes; a design that walks the frames in order pays a
 // chain's latency for work with none.
 //
-// K6 and K7, one block per element, one thread per slot:
+// K6, and K7's block route (S <= 512), one block per element, one thread
+// per slot:
 //   - elements run side by side on separate SMs;
 //   - a step exchanges the neighbouring slot's value through a shared row
 //     with one barrier; the row is double-buffered, so a step's writes
 //     never wait on the previous step's reads;
 //   - the next step's rows are loaded into registers one step ahead.
+// A step's pace is then the barrier and the shared-memory round trip
+// around one log-add.
+//
+// K7 has two routes with the same outputs, picked by the wrapper
+// (common.py::width_route of the slot count): the block route above, and
+// the warp route (S <= 128), fac_beta_warp_kernel: one block of one warp
+// per element walks the chain with no barrier at all, through K1's FAC
+// warp (fac_warp in chain_common.cuh, with its row stores and without the
+// score).  Lane l holds slots l, l+32, ... (RS = 1, 2 or 4 words); the
+// neighbour comes from a warp shuffle, the log-add is written with selects,
+// the aligned rows wait in a 4-deep register ring with the time loop
+// unrolled by 4, and each row goes out as fire-and-forget stores of 32
+// coalesced words.  The chain stays in the log domain: a FAC step is
+// elementwise, and an exp-domain rescale would cost a warp max a step.  A
+// step is then a shuffle and a log-add's dependent latency.  Measured, that
+// step is close to the block route's (PERF.md section 6): the barrier was
+// not what set the block route's pace, the log-add's dependent chain is.
 //
 // K8 has two routes with the same outputs, picked by the wrapper
 // (common.py::width_route of the slot count):
@@ -62,7 +80,8 @@
 //     memory, with two barriers a step (the row max and the row sum); each
 //     thread keeps its slot's two edge sums in registers over t, so they
 //     are summed in a fixed order with no second kernel and no atomics.
-// Both routes' times on an H100 are in PERF.md section 6 (chip_smoke.py).
+// Both routes' times on an H100, K7's and K8's, are in PERF.md section 6
+// (chip_smoke.py).
 
 #include "chain_common.cuh"
 
@@ -165,6 +184,32 @@ __global__ void fac_beta_kernel(const T* __restrict__ al,      // (T, B, S)
     }
     av = av_n;
   }
+}
+
+// K7's warp route: one block of one warp per element, walking the beta
+// chain alone with fac_warp (chain_common.cuh, K1's FAC warp) storing every
+// row qb_t, t = L-1 .. 0, and no score.  The rows t >= L, and every row of
+// an element with L outside [1, T], are -inf, written first by the same
+// warp (fire-and-forget rows); such an element returns before the walk.
+template <typename T, int RS>
+__global__ void __launch_bounds__(32, 1) fac_beta_warp_kernel(
+    const T* __restrict__ al,      // (T, B, S)
+    const T* __restrict__ self_t,  // (B, S)
+    const T* __restrict__ next_t,  // (B, S)
+    const int* __restrict__ li, const int* __restrict__ lo,
+    T* __restrict__ beta_out,      // (T, B, S)
+    int t_total, int batch, int s) {
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int L = li[b];
+  const int lb = (L >= 1 && L <= t_total) ? L : 0;
+  for (int t = lb; t < t_total; ++t) {
+    T* row = beta_out + ((size_t)t * batch + b) * s;
+    for (int k = lane; k < s; k += 32) row[k] = neg_inf<T>();
+  }
+  if (lb == 0) return;
+  fac_warp<T, true, RS, false>(al, self_t, next_t, beta_out, nullptr, lb, lo[b], b, batch,
+                               s, lane);
 }
 
 // Shared memory: red_max[kMaxWarps], red_sum[kMaxWarps], z[S+1] (the final
@@ -380,6 +425,26 @@ int launch_beta(const T* al, const T* self_t, const T* next_t, const int* li,
   return (int)cudaGetLastError();
 }
 
+// RS = 1, 2 or 4 words a lane of each slot row: S <= 128.
+template <typename T>
+int launch_beta_warp(const T* al, const T* self_t, const T* next_t, const int* li,
+                     const int* lo, T* beta, int t_total, int batch, int s, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s <= 32) {
+    fac_beta_warp_kernel<T, 1><<<batch, 32, 0, st>>>(al, self_t, next_t, li, lo, beta,
+                                                      t_total, batch, s);
+  } else if (s <= 64) {
+    fac_beta_warp_kernel<T, 2><<<batch, 32, 0, st>>>(al, self_t, next_t, li, lo, beta,
+                                                      t_total, batch, s);
+  } else if (s <= 128) {
+    fac_beta_warp_kernel<T, 4><<<batch, 32, 0, st>>>(al, self_t, next_t, li, lo, beta,
+                                                      t_total, batch, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const T* al, const T* self_t, const T* next_t, const T* alpha,
                const T* beta, const T* g, T* gi, T* gself, T* gnext, int t_total,
@@ -452,6 +517,22 @@ int fac_beta_f64(const double* al, const double* self_t, const double* next_t,
                  int s, void* stream) {
   return launch_beta<double>(al, self_t, next_t, li, lo, beta, t_total, batch, s,
                              stream);
+}
+
+// K7's warp route: the block route's arguments.
+
+int fac_beta_warp_f32(const float* al, const float* self_t, const float* next_t,
+                      const int* li, const int* lo, float* beta, int t_total, int batch,
+                      int s, void* stream) {
+  return launch_beta_warp<float>(al, self_t, next_t, li, lo, beta, t_total, batch, s,
+                                 stream);
+}
+
+int fac_beta_warp_f64(const double* al, const double* self_t, const double* next_t,
+                      const int* li, const int* lo, double* beta, int t_total, int batch,
+                      int s, void* stream) {
+  return launch_beta_warp<double>(al, self_t, next_t, li, lo, beta, t_total, batch, s,
+                                  stream);
 }
 
 int fac_bwd_f32(const float* al, const float* self_t, const float* next_t,

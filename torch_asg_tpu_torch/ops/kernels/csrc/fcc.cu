@@ -1,13 +1,12 @@
 // The fully-connected (FCC) lattice's per-lattice kernels, log domain:
 //   K3  fcc_fwd   the alpha chain (t ascending) and the beta chain
 //                 (t descending);
-//   K4  fcc_beta  the beta chain alone (the score-only primal), the block
-//                 route's template with the alpha chain compiled out;
+//   K4  fcc_beta  the beta chain alone (the score-only primal);
 //   K5  fcc_bwd   the emission posteriors and the transition partials,
 //                 then a second kernel sums the partials in a fixed order.
-// K3 and K5 each have two routes with the same outputs: the warp route
-// (N <= 128) and the block route (N <= 512).  The wrapper
-// picks the route (common.py::width_route); K4 has the block route only.
+// K3, K4 and K5 each have two routes with the same outputs: the warp route
+// (N <= 128) and the block route (N <= 512).  The wrapper picks the route
+// (common.py::width_route).
 //
 // Replaces: torch_asg_tpu/ops/pallas/fcc_kernels.py::_fwd_kernel (launched
 // by _run_fwd), ::_beta_kernel (_run_beta) and ::_bwd_kernel (_run_bwd).
@@ -58,6 +57,11 @@
 //     fcc_fwd_log_kernel, a frame-parallel pass launched next.  Logs taken
 //     on the chains' warps lengthened the chains by more than the pass
 //     costs (PERF.md section 6).
+//   - K4, fcc_beta_warp_kernel: K3's beta warp alone, one block of one warp
+//     per element (E in shared memory as above, one __syncwarp before the
+//     walk), writing the raw rows y_t and the per-frame offsets; then
+//     fcc_beta_log_kernel, the same frame-parallel pass for beta alone,
+//     which also writes the -inf rows.  Its pace is K3's beta chain's.
 //   - K5, fcc_bwd_post_kernel: one block of four warps per (element, chunk
 //     of frames), sized by the wrapper so that the blocks fill the SMs.  A
 //     warp takes one frame at a time: the posterior softmax (warp
@@ -75,7 +79,9 @@
 // its own steps, one thread per label:
 //   - K3 runs both chains on the same threads, log domain, so one step
 //     costs two block barriers for both chains: the two row maxima in one
-//     reduction, then the exchange of the two exp rows;
+//     reduction, then the exchange of the two exp rows; K4 is the same
+//     template with the alpha chain compiled out, and pays the same two
+//     barriers a step for beta alone;
 //   - E sits in shared memory when it fits (fp32 N <= 238, fp64 N <= 168),
 //     one copy with an odd row stride, read as the warp route reads it;
 //     past that both chains read global memory, where E stays in L2, beta
@@ -595,6 +601,51 @@ __global__ void fcc_fwd_log_kernel(const T* __restrict__ em, const int* __restri
   }
 }
 
+// K4's warp route: one block of one warp per element walks K3's beta warp
+// alone (k3_beta_warp), writing the raw rows y_t into ``beta_out`` and the
+// per-frame offsets into off_b.  E sits in shared memory as in K3's route;
+// one __syncwarp before the walk.  An element with L outside [1, T] has no
+// beta and returns at once: every one of its rows, and the rows t >= L of
+// the others, are fcc_beta_log_kernel's -inf.  Shared memory: one
+// double-buffered row of WN words, then E (load_e_padded).
+template <typename T, int RN>
+__global__ void __launch_bounds__(32, 1) fcc_beta_warp_kernel(
+    const T* __restrict__ em,       // (T, B, N) emissions
+    const T* __restrict__ e_glob,   // (N, N) e[j*N + i] = exp(T[j][i] - c)
+    const T* __restrict__ c_ptr,    // () the max finite transition
+    const int* __restrict__ li,
+    T* __restrict__ beta_out,       // (T, B, N)
+    T* __restrict__ off_b,          // (T, B) per-frame offsets
+    int t_total, int batch, int n) {
+  constexpr int WN = 32 * RN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xrows = reinterpret_cast<T*>(smem_raw);
+  T* e = xrows + 2 * WN;
+  const int b = blockIdx.x;
+  const int L = li[b];
+  if (L < 1 || L > t_total) return;
+  load_e_padded<T, WN>(e_glob, e, n);
+  __syncwarp();  // E is in place
+  k3_beta_warp<T, RN>(em, e, xrows, beta_out, off_b, *c_ptr, L, b, batch, n, threadIdx.x);
+}
+
+// The log of K4's raw rows, frame-parallel: beta = log y + o_b on the live
+// rows (t < L, L in [1, T]), -inf on the others.
+template <typename T>
+__global__ void fcc_beta_log_kernel(const int* __restrict__ li, T* __restrict__ beta,
+                                    const T* __restrict__ off_b, int t_total, int batch,
+                                    int n) {
+  const size_t total = (size_t)t_total * batch * n;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += stride) {
+    const size_t row = idx / n;  // t * batch + b
+    const int t = (int)(row / batch);
+    const int L = li[row - (size_t)t * batch];
+    beta[idx] = t < L && L <= t_total ? d_log(beta[idx]) + off_b[row] : neg_inf<T>();
+  }
+}
+
 constexpr int kPostWarps = 4;
 constexpr int kPostFrames = 4;  // frames a warp takes per tile
 constexpr int kTile = kPostWarps * kPostFrames;
@@ -832,6 +883,38 @@ int launch_fwd_warp(const T* em, const T* e, const T* c, const int* li, T* alpha
 }
 
 template <typename T, int RN>
+int launch_beta_warp_r(const T* em, const T* e, const T* c, const int* li, T* beta, T* off,
+                       int t_total, int batch, int n, cudaStream_t st) {
+  constexpr int WN = 32 * RN;
+  const size_t smem = sizeof(T) * (size_t)(2 * WN + WN * (WN + 1));
+  cudaError_t err = set_smem((const void*)fcc_beta_warp_kernel<T, RN>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fcc_beta_warp_kernel<T, RN><<<batch, 32, smem, st>>>(em, e, c, li, beta, off, t_total,
+                                                       batch, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t total = (size_t)t_total * batch * n;
+  const size_t blocks = (total + 255) / 256;
+  fcc_beta_log_kernel<T><<<(int)(blocks < 16 * 132 ? blocks : 16 * 132), 256, 0, st>>>(
+      li, beta, off, t_total, batch, n);
+  return (int)cudaGetLastError();
+}
+
+// RN = 1, 2 or 4 words a lane of each label row: N <= 128.
+template <typename T>
+int launch_beta_warp(const T* em, const T* e, const T* c, const int* li, T* beta, T* off,
+                     int t_total, int batch, int n, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 32)
+    return launch_beta_warp_r<T, 1>(em, e, c, li, beta, off, t_total, batch, n, st);
+  if (n <= 64)
+    return launch_beta_warp_r<T, 2>(em, e, c, li, beta, off, t_total, batch, n, st);
+  if (n <= 128)
+    return launch_beta_warp_r<T, 4>(em, e, c, li, beta, off, t_total, batch, n, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int RN>
 int launch_bwd_warp_r(const T* em, const T* e, const T* c, const int* li, const T* alpha,
                       const T* beta, const T* g, T* gi, T* d_trans, T* part, int t_total,
                       int batch, int n, int chunk, cudaStream_t st) {
@@ -928,6 +1011,21 @@ int fcc_fwd_warp_f64(const double* em, const double* e, const double* c, const i
                      double* alpha, double* beta, double* off, int t_total, int batch,
                      int n, void* stream) {
   return launch_fwd_warp<double>(em, e, c, li, alpha, beta, off, t_total, batch, n, stream);
+}
+
+// K4's warp route: the block route's arguments, then a (T, B) scratch for
+// the per-frame offsets, the sizes.
+
+int fcc_beta_warp_f32(const float* em, const float* e, const float* c, const int* li,
+                      float* beta, float* off, int t_total, int batch, int n,
+                      void* stream) {
+  return launch_beta_warp<float>(em, e, c, li, beta, off, t_total, batch, n, stream);
+}
+
+int fcc_beta_warp_f64(const double* em, const double* e, const double* c, const int* li,
+                      double* beta, double* off, int t_total, int batch, int n,
+                      void* stream) {
+  return launch_beta_warp<double>(em, e, c, li, beta, off, t_total, batch, n, stream);
 }
 
 int fcc_bwd_warp_f32(const float* em, const float* e, const float* c, const int* li,

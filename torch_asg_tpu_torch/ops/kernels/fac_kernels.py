@@ -19,11 +19,13 @@ A call that autograd will not differentiate runs K7 alone.  Otherwise
 posteriors softmax(alpha + beta) * g and the self and diagonal edge
 fractions (exponents <= 0) summed over t >= 1 into gself and gnext (shifted
 left by one slot, 0 fill), which ``scatter_to_full`` maps back to (N, N)
-and (T, B, N) without atomics.  K8 has two routes, picked by
-``common.width_route`` of the slot count: the warp route (up to 128 slots;
-a posterior kernel over (element, chunk of frames), then a fixed-order sums
-kernel) and the block route (one block walking each element's frames, up
-to 512 slots).
+and (T, B, N) without atomics.  K7 and K8 each have two routes, picked by
+``common.width_route`` of the slot count: the warp route (up to 128 slots)
+and the block route (one block walking each element's frames, one thread
+per slot, up to 512 slots).  K7's warp route walks the log-domain chain on
+one warp per element, the same recursion as ``fac_beta_plain``, which is
+the plain version of both routes; K8's is a posterior kernel over
+(element, chunk of frames), then a fixed-order sums kernel.
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/fac.cu``; on CPU tensors they run the plain versions beside them.
@@ -182,9 +184,26 @@ def fac_alpha_pallas(lat: AlignedLattice) -> torch.Tensor:
     return alpha
 
 
-def fac_beta_pallas(lat: AlignedLattice, input_lengths, target_lengths):
-    """beta (T, B, S): K7 on CUDA tensors, its plain version on CPU ones.
-    ``fac_beta_pallas.launches`` counts the kernel's launches."""
+def _launch_beta(route, lat, li, lo, beta):
+    """Launch K7 on ``route`` with the output ``beta``: ``fac_beta_{f32,f64}``
+    (the block route) or ``fac_beta_warp_{f32,f64}`` (one warp per element);
+    both take the same arguments."""
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev = lat.inputs.device
+    stem = "fac_beta_warp" if route == "warp" else "fac_beta"
+    fn = c_function("fac", stem, beta.dtype, 6, 3)
+    with torch.cuda.device(dev):
+        err = fn(ptr(lat.inputs), ptr(lat.self_trans), ptr(lat.next_trans), ptr(li),
+                 ptr(lo), ptr(beta), t_total, num_batches, s_total, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+
+
+def fac_beta_pallas(lat: AlignedLattice, input_lengths, target_lengths, *, route=None):
+    """beta (T, B, S): K7 on CUDA tensors, on ``route`` ('warp', 'block', or
+    None for ``width_route`` of the slot count), and its plain version on
+    CPU ones.  ``fac_beta_pallas.launches`` counts the kernel's launches,
+    ``.launches_<route>`` each route's."""
+    route = check_route("K7", route, lat.inputs.shape[2])
     if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, input_lengths,
                       target_lengths):
         return fac_beta_plain(lat, input_lengths, target_lengths)
@@ -192,17 +211,12 @@ def fac_beta_pallas(lat: AlignedLattice, input_lengths, target_lengths):
     li = input_lengths.to(torch.int32).contiguous()
     lo = target_lengths.to(torch.int32).contiguous()
     _check_lattice(lat, li, lo)
-    t_total, num_batches, s_total = lat.inputs.shape
     beta = torch.empty_like(lat.inputs)
     if beta.numel() == 0:
         return beta
-    fn = c_function("fac", "fac_beta", beta.dtype, 6, 3)
-    dev = beta.device
-    with torch.cuda.device(dev):
-        err = fn(ptr(lat.inputs), ptr(lat.self_trans), ptr(lat.next_trans), ptr(li),
-                 ptr(lo), ptr(beta), t_total, num_batches, s_total, stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+    _launch_beta(route, lat, li, lo, beta)
     fac_beta_pallas.launches += 1
+    count_route(fac_beta_pallas, route)
     return beta
 
 
@@ -301,5 +315,6 @@ def fac_score_pallas(transition: torch.Tensor, inputs: torch.Tensor,
 fac_alpha_pallas.launches = 0
 fac_beta_pallas.launches = 0
 fac_bwd_pallas.launches = 0
-for _route in ROUTES:
-    setattr(fac_bwd_pallas, f"launches_{_route}", 0)
+for _wrapper in (fac_beta_pallas, fac_bwd_pallas):
+    for _route in ROUTES:
+        setattr(_wrapper, f"launches_{_route}", 0)

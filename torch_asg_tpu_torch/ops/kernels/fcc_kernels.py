@@ -24,17 +24,19 @@ u's exponent is bounded by the transition spread, which the 60-nat guard of
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/fcc.cu``; on CPU tensors they run the plain versions beside them,
-step-by-step loops of the same arithmetic.  K3 and K5 each have two routes
-with the same outputs, chosen by ``common.width_route`` of the label
-count: up to ``common.WARP_MAX_WIDTH`` labels the warp route, past it the
-block route (one thread per label, one block per element walking its
+step-by-step loops of the same arithmetic.  K3, K4 and K5 each have two
+routes with the same outputs, chosen by ``common.width_route`` of the
+label count: up to ``common.WARP_MAX_WIDTH`` labels the warp route, past it
+the block route (one thread per label, one block per element walking its
 frames).  K3's warp route walks each chain
 on a warp of its own in the exp domain with a per-step rescale, writing
 raw rows and per-frame offsets that a frame-parallel pass turns into the
-log-domain rows (``_fcc_fwd_warp_plain`` is its arithmetic in torch).
+log-domain rows (``_fcc_fwd_warp_plain`` is its arithmetic in torch);
+K4's warp route is K3's beta warp alone, then the same pass for beta
+(``_fcc_beta_warp_plain``).
 K5's warp route has no walk: a kernel parallel over (element, chunk of
 frames) computes the posteriors and per-chunk transition partials, and a
-second sums them in a fixed order (``_fcc_bwd_split_plain``).  Both
+second sums them in a fixed order (``_fcc_bwd_split_plain``).  These
 mirrors are used by the tests; CPU tensors run the plain versions.
 """
 
@@ -135,44 +137,33 @@ def fcc_bwd_plain(e, c, inputs, input_lengths, alpha, beta, g):
     return gi_all, acc * e
 
 
-def _fcc_fwd_warp_plain(e, c, inputs, input_lengths):
-    """Plain version of K3's warp route: ``fcc_fwd_plain``'s outputs from
-    exp-domain chains with a per-step rescale.  Used by the tests; the main
-    path runs ``fcc_fwd_plain`` on CPU tensors.
+def _rescale(x):
+    """(x / m, log m) with m the row max, 1 where the max is not positive."""
+    m = torch.amax(x, dim=1)
+    m_s = torch.where(m > 0, m, torch.ones_like(m))
+    return x / m_s[:, None], torch.log(m_s)
 
-    alpha, t ascending: s_t = pa_{t-1} @ E^T (s_0 = 1), pa_t = s_t *
-    exp(I_t - max I_t) rescaled to max 1, and A_t, the log-scale offset of
-    pa_t, beside the chain; alpha_t = I_t + log s_t + (A_{t-1} + c).  beta,
+
+def _fcc_beta_warp_plain(e, c, inputs, input_lengths):
+    """Plain version of K4's warp route (K3's beta warp alone, then the log
+    pass): ``fcc_beta_plain``'s output from an exp-domain chain with a
+    per-step rescale.  Used by the tests; the main path runs
+    ``fcc_beta_plain`` on CPU tensors.
+
     t descending from the seed pb_{L-1} = 1: y_t = (pb_{t+1} * exp(I_{t+1}
     - max I_{t+1})) @ E, pb_t = y_t rescaled to max 1, beta_t = log y_t +
-    (offset of pb_{t+1} + max I_{t+1} + c).  The chains keep the raw rows
+    (offset of pb_{t+1} + max I_{t+1} + c).  The chain keeps the raw rows
     and the per-frame offsets; a last pass takes the logs and writes -inf
-    on the rows that are not live (t >= min(L, T) for alpha, t >= L for
-    beta, all of beta when L is outside [1, T]).
+    on the rows that are not live (t >= L, every row when L is outside
+    [1, T]).
     """
     t_total, num_batches, num_labels = inputs.shape
     dev, dt = inputs.device, inputs.dtype
     li = input_lengths.to(device=dev, dtype=torch.long)
-    raw_a, raw_b = torch.empty_like(inputs), torch.empty_like(inputs)
-    off_a = torch.empty((t_total, num_batches), dtype=dt, device=dev)
-    off_b = torch.empty_like(off_a)
-
-    def rescale(x):
-        m = torch.amax(x, dim=1)
-        m_s = torch.where(m > 0, m, torch.ones_like(m))
-        return x / m_s[:, None], torch.log(m_s)
-
-    # alpha: every element walks all T frames; rows past its length are masked
+    raw = torch.empty_like(inputs)
+    off = torch.empty((t_total, num_batches), dtype=dt, device=dev)
     ones = torch.ones((num_batches, num_labels), dtype=dt, device=dev)
-    pa, a_off = None, None
-    for t in range(t_total):
-        ex, m = exp_rows(inputs[t])
-        s = ones if t == 0 else pa @ e.T
-        o = torch.zeros_like(m) if t == 0 else a_off + c
-        raw_a[t], off_a[t] = s, o
-        pa, log_m = rescale(s * ex)
-        a_off = o + m + log_m
-    # beta: seeded at t = L - 1, where the walk restarts
+    # seeded at t = L - 1, where the walk restarts
     pb = ones
     b_off = torch.zeros((num_batches,), dtype=dt, device=dev)
     for t in range(t_total - 1, -1, -1):
@@ -183,15 +174,43 @@ def _fcc_fwd_warp_plain(e, c, inputs, input_lengths):
             ex, m = exp_rows(inputs[t + 1])
             y, o = (pb * ex) @ e, b_off + m + c
         y, o = torch.where(seed, ones, y), torch.where(seed[:, 0], 0.0, o)
-        raw_b[t], off_b[t] = y, o
-        pb, log_m = rescale(y)
+        raw[t], off[t] = y, o
+        pb, log_m = _rescale(y)
         b_off = o + log_m
     rows = torch.arange(t_total, device=dev)[:, None, None]
-    live_a = rows < li[None, :, None]
-    live_b = live_a & (li <= t_total)[None, :, None]
+    live = (rows < li[None, :, None]) & (li <= t_total)[None, :, None]
+    return torch.where(live, torch.log(raw) + off[..., None], NEG_INF)
+
+
+def _fcc_fwd_warp_plain(e, c, inputs, input_lengths):
+    """Plain version of K3's warp route: ``fcc_fwd_plain``'s outputs from
+    exp-domain chains with a per-step rescale.  Used by the tests; the main
+    path runs ``fcc_fwd_plain`` on CPU tensors.
+
+    alpha, t ascending: s_t = pa_{t-1} @ E^T (s_0 = 1), pa_t = s_t *
+    exp(I_t - max I_t) rescaled to max 1, and A_t, the log-scale offset of
+    pa_t, beside the chain; alpha_t = I_t + log s_t + (A_{t-1} + c), -inf on
+    the rows t >= min(L, T).  beta is ``_fcc_beta_warp_plain``'s, K3's
+    beta warp being K4's.
+    """
+    t_total, num_batches, num_labels = inputs.shape
+    dev, dt = inputs.device, inputs.dtype
+    li = input_lengths.to(device=dev, dtype=torch.long)
+    raw_a = torch.empty_like(inputs)
+    off_a = torch.empty((t_total, num_batches), dtype=dt, device=dev)
+    # every element walks all T frames; rows past its length are masked
+    ones = torch.ones((num_batches, num_labels), dtype=dt, device=dev)
+    pa, a_off = None, None
+    for t in range(t_total):
+        ex, m = exp_rows(inputs[t])
+        s = ones if t == 0 else pa @ e.T
+        o = torch.zeros_like(m) if t == 0 else a_off + c
+        raw_a[t], off_a[t] = s, o
+        pa, log_m = _rescale(s * ex)
+        a_off = o + m + log_m
+    live_a = torch.arange(t_total, device=dev)[:, None, None] < li[None, :, None]
     alpha = torch.where(live_a, inputs + torch.log(raw_a) + off_a[..., None], NEG_INF)
-    beta = torch.where(live_b, torch.log(raw_b) + off_b[..., None], NEG_INF)
-    return alpha, beta
+    return alpha, _fcc_beta_warp_plain(e, c, inputs, input_lengths)
 
 
 def _fcc_bwd_split_plain(e, c, inputs, input_lengths, alpha, beta, g, chunk=None):
@@ -289,25 +308,39 @@ def fcc_fwd_pallas(e, c, inputs, input_lengths, *, route=None):
     return alpha, beta
 
 
-def fcc_beta_pallas(e, c, inputs, input_lengths):
-    """beta (T, B, N): K4 on CUDA tensors, its plain version on CPU ones.
-    ``fcc_beta_pallas.launches`` counts the kernel's launches."""
+def _launch_beta(route, e, c, inputs, li, beta):
+    """Launch K4 on ``route`` with the output ``beta``: ``fcc_beta_{f32,f64}``
+    (the block route) or ``fcc_beta_warp_{f32,f64}`` (the chain, then the
+    log pass, with a (T, B) scratch of per-frame offsets between them)."""
+    t_total, num_batches, num_labels = inputs.shape
+    dev, dt = inputs.device, inputs.dtype
+    ptrs = [inputs, e, c, li, beta]
+    if route == "warp":
+        ptrs.append(torch.empty((t_total, num_batches), dtype=dt, device=dev))
+    stem = "fcc_beta_warp" if route == "warp" else "fcc_beta"
+    fn = c_function("fcc", stem, dt, len(ptrs), 3)
+    with torch.cuda.device(dev):
+        err = fn(*map(ptr, ptrs), t_total, num_batches, num_labels, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+
+
+def fcc_beta_pallas(e, c, inputs, input_lengths, *, route=None):
+    """beta (T, B, N): K4 on CUDA tensors, on ``route`` ('warp', 'block', or
+    None for ``width_route`` of the label count), and its plain version on
+    CPU ones.  ``fcc_beta_pallas.launches`` counts the kernel's launches,
+    ``.launches_<route>`` each route's."""
+    route = check_route("K4", route, inputs.shape[2])
     if not use_kernel(inputs, e, c, input_lengths):
         return fcc_beta_plain(e, c, inputs, input_lengths)
     li = input_lengths.to(torch.int32).contiguous()
     e = e.contiguous()
     _check(e, c, inputs, li)
-    t_total, num_batches, num_labels = inputs.shape
     beta = torch.empty_like(inputs)
     if beta.numel() == 0:
         return beta
-    fn = c_function("fcc", "fcc_beta", inputs.dtype, 5, 3)
-    dev = inputs.device
-    with torch.cuda.device(dev):
-        err = fn(ptr(inputs), ptr(e), ptr(c), ptr(li), ptr(beta),
-                 t_total, num_batches, num_labels, stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+    _launch_beta(route, e, c, inputs, li, beta)
     fcc_beta_pallas.launches += 1
+    count_route(fcc_beta_pallas, route)
     return beta
 
 
@@ -405,6 +438,6 @@ def fcc_score_pallas(transition: torch.Tensor, inputs: torch.Tensor,
 fcc_fwd_pallas.launches = 0
 fcc_beta_pallas.launches = 0
 fcc_bwd_pallas.launches = 0
-for _wrapper in (fcc_fwd_pallas, fcc_bwd_pallas):
+for _wrapper in (fcc_fwd_pallas, fcc_beta_pallas, fcc_bwd_pallas):
     for _route in ROUTES:
         setattr(_wrapper, f"launches_{_route}", 0)
