@@ -1,19 +1,39 @@
 #!/usr/bin/env python3
-"""The per-lattice tier's warp routes (K3, K4, K5 and K7) on one CUDA card,
-for bring-up and for reading what the compiler made of them.
+"""The warp routes of the per-lattice tier (K3-K7) and of the alignment
+forward (K12) on one CUDA card, for bring-up and for reading what the
+compiler made of them.
 
-    python3 scripts/fcc_diag.py [--sass] [--check K3,K5] [--profiler]
+    python3 scripts/fcc_diag.py [--sass] [--same-sass PARENT_ROOT] [--check K3,K5]
+                                [--k6-variants] [--profiler]
 
 Builds the kernels first (``_build.build_all``), then:
   --sass:  disassembles the fp32 instances of the warp-route kernels of
-           K3, K4 and K5 (``csrc/fcc.cu``) and K7 (``csrc/fac.cu``)
-           (``cuobjdump -sass`` of the built libraries) into the
-           ignored ``build/sass/<kernel>.sass`` beside the libraries and
-           prints, for each, its
+           K3, K4 and K5 (``csrc/fcc.cu``), K6 and K7 (``csrc/fac.cu``) and
+           K12 (``csrc/viterbi.cu``) (``cuobjdump -sass`` of the built
+           libraries) into the ignored ``build/sass/<kernel>.sass`` beside
+           the libraries and prints, for each, its
            registers and spills (``-Xptxas -v``) and its count of each kind
            of instruction that sets a chain's step: FFMA/FMUL/FADD, shared
            loads and stores, MUFU (exp, log, reciprocal), shuffles, REDUX,
            warp and block barriers, global loads and stores;
+  --same-sass PARENT_ROOT: compiles every ``csrc/*.cu`` of this checkout
+           and of the checkout at PARENT_ROOT to a cubin (the build's
+           target and optimisation flags), disassembles both, and prints,
+           for each source, the kernels whose SASS is the same, those whose
+           SASS differs and those only one checkout has (names compared
+           with the anonymous namespace's per-file tag cut out);
+  --k6-variants: K6's warp route at the training shape built from this
+           checkout's ``csrc/fac.cu`` and from patched copies of it (in the
+           ignored build directory), launched directly and timed with CUDA
+           events in turns: the block sweep, 2 and 8 frames a block in
+           place of 4 (``block_2``, ``block_8``; these and the baseline in
+           fp32 and fp64); in fp32, the chain's exp and log as expf and
+           logf (``accurate_exp_log``) and as __expf and __logf
+           (``intrinsic_exp_log``) in place of the SFU's flushing
+           ex2.approx.ftz and lg2.approx.ftz, and two timing probes whose
+           outputs are wrong (``probe_*``: no refill of the ring of bands,
+           only the last row stored); each variant's largest error against
+           the sequential plain version is printed beside its times;
   --check: ``chip_smoke.check_lattice_kernels`` restricted to the named
            kernels (each on both routes in every case, against its plain
            version), printing the kernels' lines;
@@ -26,6 +46,7 @@ Run from the repository root on a machine with the CUDA toolkit.
 """
 
 import collections
+import functools
 import re
 import subprocess
 import sys
@@ -44,15 +65,17 @@ from torch_asg_tpu_torch.ops.kernels import _build  # noqa: E402
 # the warp-route kernels, by library
 KERNELS = {"fcc": ("fcc_fwd_warp_kernel", "fcc_fwd_log_kernel", "fcc_beta_warp_kernel",
                    "fcc_beta_log_kernel", "fcc_bwd_post_kernel", "fcc_bwd_sums_kernel"),
-           "fac": ("fac_beta_warp_kernel",)}
+           "fac": ("fac_alpha_band_kernel", "fac_alpha_warp_kernel", "fac_alpha_fill_kernel",
+                   "fac_beta_warp_kernel"),
+           "viterbi": ("align_forward_warp_kernel",)}
 KINDS = {"fp_arith": r"^(FFMA|FMUL|FADD|DFMA|DMUL|DADD)", "lds": r"^LDS", "sts": r"^STS",
          "mufu": r"^MUFU", "shfl": r"^SHFL", "redux": r"^REDUX", "warpsync": r"^WARPSYNC",
          "bar": r"^BAR", "ldg": r"^LDG", "stg": r"^STG", "branch": r"^(BRA|BSSY|BSYNC)"}
 
 
-def sass(lib, kernels):
+def sass(lib, kernels=None):
     """{mangled kernel name: its SASS lines} for the fp32 instances of
-    ``kernels`` in the library ``lib``."""
+    ``kernels`` in the library or cubin ``lib`` (every kernel for None)."""
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -60,11 +83,152 @@ def sass(lib, kernels):
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1) if any(k + "If" in m.group(1) for k in kernels) else None
+            name = m.group(1) if kernels is None or any(k + "If" in m.group(1)
+                                                        for k in kernels) else None
             if name:
                 out[name] = []
         elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
             out[name].append(line.split("*/", 1)[1].strip().rstrip(";").strip())
+    return out
+
+
+def cut_anonymous(name):
+    """A mangled name with its anonymous namespace (``<length>_GLOBAL__N_...``,
+    whose tag differs from file to file) cut out."""
+    m = re.search(r"(\d+)(_GLOBAL__N_)", name)
+    if not m:
+        return name
+    return name[:m.start()] + name[m.start(2) + int(m.group(1)):]
+
+
+def same_sass(parent_root, out_dir):
+    """{source: {"same": n, "differs": [...], "only_here": [...],
+    "only_parent": [...]}}, "differs" giving each differing kernel's first
+    pair of unequal lines: each ``csrc/*.cu`` of this checkout and of
+    ``parent_root`` compiled to a cubin (one nvcc each, all at once) and
+    disassembled, kernel by kernel."""
+    nvcc = _build.nvcc_path()
+    flags = list(_build.NVCC_FLAGS[:4]) + ["-O3"]  # the target, C++17, -O3
+    roots = {"here": ROOT, "parent": Path(parent_root).resolve()}
+    procs = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for tag, root in roots.items():
+            path = root / src.relative_to(ROOT)
+            if path.exists():
+                cubin = out_dir / f"{src.stem}-{tag}.cubin"
+                procs[src.stem, tag] = (cubin, subprocess.Popen(
+                    [nvcc, *flags, "-cubin", "-o", str(cubin), str(path)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    listings = {}
+    for key, (cubin, proc) in procs.items():
+        log, _ = proc.communicate()
+        c.check(proc.returncode == 0, f"nvcc -cubin failed for {key}:\n{log}")
+        # the listing's column widths follow the file's longest line
+        listings[key] = {cut_anonymous(k): [" ".join(line.split()) for line in v]
+                         for k, v in sass(cubin).items()}
+    report = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        here, parent = (listings.get((src.stem, tag), {}) for tag in roots)
+        common = sorted(set(here) & set(parent))
+        report[src.stem] = {
+            "same": sum(here[k] == parent[k] for k in common),
+            "differs": {k: next([a, b] for a, b in zip(here[k] + [""], parent[k] + [""])
+                                if a != b)
+                        for k in common if here[k] != parent[k]},
+            "only_here": sorted(set(here) - set(parent)),
+            "only_parent": sorted(set(parent) - set(here)),
+        }
+    return report
+
+
+# K6's chain with other fp32 exps and logs: the accurate ones, and the
+# intrinsics that guard denormals
+CHAIN_EXP = ('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x * 1.4426950408889634f));\n'
+             '  return r;\n')
+CHAIN_LOG = ('  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));\n'
+             '  return r * 0.6931471805599453f;\n')
+# ... and two probes of what paces a block step (their outputs are wrong):
+# no refill of the ring of bands, and the last row alone stored
+REFILL = ("      // block j + D's bands into the slot just read (past the last block:\n"
+          "      // the spare blocks, never consumed)\n#pragma unroll\n"
+          "      for (int i = 0; i <= K; ++i) {\n#pragma unroll\n"
+          "        for (int r = 0; r < RS; ++r) ring[u][i][r] = wb[i * WS + 32 * r];\n"
+          "      }\n")
+BLOCK = "constexpr int kAlphaBlock = 4;\n"
+K6_VARIANTS = {
+    "block_2": [(BLOCK, BLOCK.replace("4", "2"))],
+    "block_8": [(BLOCK, BLOCK.replace("4", "8"))],
+    "accurate_exp_log": [(CHAIN_EXP, "  return expf(x);\n"),
+                         (CHAIN_LOG, "  return logf(x);\n")],
+    "intrinsic_exp_log": [(CHAIN_EXP, "  return __expf(x);\n"),
+                          (CHAIN_LOG, "  return __logf(x);\n")],
+    "probe_no_band_refill": [(REFILL, "")],
+    "probe_last_row_only": [("        if (has[r] && j < nblocks) row[32 * r] = a[r];\n",
+                             "        if (has[r] && j == nblocks - 1) row[32 * r] = a[r];\n")],
+}
+
+
+def k6_variants(dev):
+    """{variant: {dtype: {"ms": [ms in turns], "max_abs_err": x}}} for K6's
+    warp route at chip_smoke.py's training shape (fp64: the block sweep
+    alone), each variant's error taken against ``fac_alpha_plain``."""
+    import ctypes
+
+    from torch_asg_tpu_torch.ops.fac import AlignedLattice, make_aligned
+    from torch_asg_tpu_torch.ops.kernels import common as kc
+    from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
+
+    src = (_build.CSRC / "fac.cu").read_text()
+    out_dir = _build.BUILD / "k6_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    procs = {}
+    for name, pairs in K6_VARIANTS.items():
+        text = src
+        for old, new in pairs:
+            c.check(text.count(old) == 1, f"patch does not apply: {old!r}")
+            text = text.replace(old, new)
+        cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
+        cu.write_text(text)
+        procs[name] = (subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                                         "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), so)
+    libs = {"baseline": _build.load("fac")}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        c.check(proc.returncode == 0, f"variant {name} failed to build:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+
+    rng = np.random.default_rng([c.SEED, 4])
+    lat32 = make_aligned(*c.lattice_case(rng, dev, torch.float32, c.B, c.T, c.N, c.S,
+                                         (500, 1000), (10, c.S)))
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        lat = AlignedLattice(*(x.to(dtype) for x in lat32[:3]), lat32.targets)
+        want = ak.fac_alpha_plain(lat)
+        calls = {}
+        for name, lib in libs.items():
+            block = int(name[6:]) if name.startswith("block_") else ak.FAC_ALPHA_BLOCK
+            if tag == "f64" and not (name == "baseline" or name.startswith("block_")):
+                continue
+            nblocks = -(-(c.T - 1) // block)
+            band = torch.empty((nblocks + ak._BAND_SPARE, c.B, block + 1, 64), dtype=dtype,
+                               device=dev)
+            alpha = torch.empty_like(lat.inputs)
+            args = [kc.ptr(x) for x in (lat.inputs, lat.self_trans, lat.next_trans, alpha, band)]
+            args += [c.T, c.B, c.S, kc.post_chunk(nblocks, c.B)]
+            fn = getattr(lib, f"fac_alpha_warp_{tag}")
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            c.check(fn(*args, kc.stream_ptr(dev)) == 0, f"{name} {tag}: launch failed")
+            torch.cuda.synchronize()
+            out.setdefault(name, {})[tag] = {
+                "block": block, "ms": [],
+                "max_abs_err": None if name.startswith("probe") else c.max_err(alpha, want)}
+            calls[name] = functools.partial(fn, *args, kc.stream_ptr(dev))
+        names = list(calls)
+        for name in names + names[::-1]:
+            out[name][tag]["ms"].append(c.time_ms(calls[name]))
     return out
 
 
@@ -130,6 +294,15 @@ def main(argv):
                         counts[kind] += 1
             c.emit({"kernel": name, "instructions": len(ops), "spill_bytes": usage.get(name),
                     "by_kind": dict(counts)})
+    if "--same-sass" in argv:
+        out_dir = _build.BUILD / "sass"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        report = same_sass(argv[argv.index("--same-sass") + 1], out_dir)
+        for src, r in report.items():
+            c.emit({"source": src, "same": r["same"], "differs": r["differs"],
+                    "only_here": len(r["only_here"]), "only_parent": len(r["only_parent"])})
+    if "--k6-variants" in argv:
+        c.emit({"k6_variants": k6_variants(torch.device("cuda", 0))})
     if "--profiler" in argv:
         profiler_probe(torch.device("cuda", 0))
     if "--check" in argv:

@@ -116,6 +116,36 @@ def test_align_brute_force(seed):
             assert (res.positions[li[b]:, b] == -1).all()
 
 
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_target_lengths_outside_range_score_neg_inf(impl):
+    """An element with no alignment scores -inf on both port tiers.  At
+    L_out = 0 (an empty transcript, which ``encode_targets`` gives) the
+    scores, positions and labels equal the JAX ``'xla'`` tier's, -inf
+    included.  At L_out > S the port scores -inf where the JAX ``'xla'``
+    tier gives NaN (``take_along_axis`` fills past the end) and its
+    ``'pallas'`` tier 0.0: a deliberate deviation, recorded in ROADMAP
+    Queue 3; positions and labels still equal the JAX ``'xla'`` tier's."""
+    trans, inputs, targets, _, _ = _case(9, t_total=12, num_batches=4, num_labels=6,
+                                         s_total=4)
+    li = np.array([12, 9, 12, 7], np.int32)
+    for lo, empty in ((np.array([0, 0, 2, 4], np.int32), True),
+                      (np.array([5, 3, 2, 6], np.int32), False)):
+        case = (trans, inputs, targets, li, lo)
+        want = jx.viterbi_align(*_jax(*case), impl="xla")
+        got = pt.viterbi_align(*_torch(*case), impl=impl)
+        np.testing.assert_array_equal(got.positions.numpy(), np.asarray(want.positions))
+        np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+        outside = (lo < 1) | (lo > targets.shape[1])
+        assert (got.scores.numpy()[outside] == -np.inf).all()
+        assert np.isfinite(got.scores.numpy()[~outside]).all()
+        if empty:
+            np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
+        else:
+            assert np.isnan(np.asarray(want.scores)[outside]).all()
+            np.testing.assert_allclose(got.scores.numpy()[~outside],
+                                       np.asarray(want.scores)[~outside], rtol=1e-12)
+
+
 def test_kernel_plain_versions_match_jax_kernels():
     """The plain K12 and K13 against the Pallas kernels they replace: the
     advance bits, the end rows and the positions, bit for bit."""

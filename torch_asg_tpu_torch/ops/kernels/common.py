@@ -18,8 +18,8 @@ DEFAULT_DEVICE = "cuda"
 
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
-# The routes of the kernels that have two (K1, K2, K3, K4, K5, K7, K8,
-# K10): the warp route, one warp per chain of an element (lane l holds
+# The routes of the kernels that have two (K1, K2, K3, K4, K5, K6, K7, K8,
+# K10, K12): the warp route, one warp per chain of an element (lane l holds
 # labels or slots l, l+32, ..., at most 4), up to WARP_MAX_WIDTH; the block
 # route, one thread per label or slot, up to the kernel's own cap.
 ROUTES = ("warp", "block")
@@ -95,7 +95,7 @@ def raise_on_error(fn_name: str, err: int) -> None:
 def width_route(width: int) -> str:
     """The route ``'auto'`` takes for a kernel with two routes whose widest
     row is ``width`` words (K1 and K2: max(labels, target slots); K3, K4,
-    K5 and K10: labels; K7 and K8: target slots): ``'warp'`` up to
+    K5 and K10: labels; K6, K7, K8 and K12: target slots): ``'warp'`` up to
     WARP_MAX_WIDTH, else ``'block'``."""
     return "warp" if width <= WARP_MAX_WIDTH else "block"
 
@@ -122,8 +122,9 @@ def count_route(wrapper, route: str) -> None:
 
 def post_chunk(t_total: int, num_batches: int) -> int:
     """Frames per chunk of the frame-parallel kernels of K2's, K5's, K8's
-    and K10's warp routes: ``POST_BLOCKS`` blocks over the batch, each
-    chunk at least one frame."""
+    and K10's warp routes (blocks of frames per chunk for K6's band and
+    fill kernels): ``POST_BLOCKS`` blocks over the batch, each chunk at
+    least one frame."""
     chunks = -(-POST_BLOCKS // max(num_batches, 1))
     return max(1, -(-t_total // chunks))
 

@@ -36,7 +36,42 @@
 // Its bound is its bytes; a design that walks the frames in order pays a
 // chain's latency for work with none.
 //
-// K6, and K7's block route (S <= 512), one block per element, one thread
+// K6 has two routes with the same outputs, picked by the wrapper
+// (common.py::width_route of the slot count):
+//   - the warp route (S <= 128; lane l holds slots l, l+32, ..., RS = 1, 2
+//     or 4 words of a row), which cuts the dependent chain by about a
+//     factor K (K = kAlphaBlock = 4 frames, chosen from 2, 4 and 8 by timing
+//     each in fp32 and fp64: PERF.md section 6).  A single-step chain, on a warp or on a block, pays
+//     at least one log-add's dependent latency a frame (max, subtract,
+//     exp, log, add), and K7's warp runs at about that pace (PERF.md
+//     section 6).  Over a
+//     block of K frames, the row at t0+K is a (K+1)-term log-sum-exp of
+//     the row at t0:
+//       alpha_{t0+K}[s] = LSE_i (alpha_{t0}[s-i] + W_{t0}[s, i]),
+//     with W_{t0}[s, i] the log-sum of the paths from slot s-i at t0 to
+//     slot s at t0+K with i advances, transitions and emissions included.
+//     W does not depend on alpha, so it leaves the chain:
+//     fac_alpha_band_kernel builds it by a small band recursion (O(K^2 S)
+//     log-adds a block) over (element, chunk of blocks), sized by the
+//     wrapper (common.py::post_chunk) to fill the SMs;
+//     fac_alpha_warp_kernel, one warp per element, walks only the T/K
+//     checkpoint rows: K shuffled copies of the row (independent, back to
+//     back), one max tree, K+1 exps, one sum tree in a fixed order and one
+//     log, so about one log-add's depth plus two trees for K frames; the
+//     bands wait in a register ring several blocks deep, so the chain does
+//     not wait on their loads.  One warp issues the chain's instructions in
+//     order, so a step's cost is its instruction count as much as its
+//     depth: the bands are laid out at the lane layout's padded width, a
+//     block's loads are fixed offsets from one pointer, the block loop has
+//     no exit inside its unrolled groups, and the fp32 exps and log run on
+//     the SFU (chain_exp, chain_log).  fac_alpha_fill_kernel then
+//     recomputes the rows between the checkpoints over (element, block) by
+//     the one-step recursion.  The chain stays in the log domain; an
+//     all--inf sum gives -inf, and no sum uses atomics, so two runs give
+//     the same bits.
+//   - the block route (S <= 512), as K7's block route below.
+//
+// K6's block route, and K7's (S <= 512), one block per element, one thread
 // per slot:
 //   - elements run side by side on separate SMs;
 //   - a step exchanges the neighbouring slot's value through a shared row
@@ -80,8 +115,8 @@
 //     memory, with two barriers a step (the row max and the row sum); each
 //     thread keeps its slot's two edge sums in registers over t, so they
 //     are summed in a fixed order with no second kernel and no atomics.
-// Both routes' times on an H100, K7's and K8's, are in PERF.md section 6
-// (chip_smoke.py).
+// Both routes' times on an H100, K6's, K7's and K8's, are in PERF.md
+// section 6 (chip_smoke.py).
 
 #include "chain_common.cuh"
 
@@ -139,6 +174,291 @@ __global__ void fac_alpha_kernel(const T* __restrict__ al,      // (T, B, S)
       alpha_out[((size_t)t * batch + b) * s + k] = a;
     }
     av = av_n;
+  }
+}
+
+// ------------------------------------------------------ K6's warp route
+
+constexpr int kBandWarps = 4;
+
+// Frames a block of K6's chain (the kernels' template parameter K): 4 ran
+// fastest of 2, 4 and 8 in fp32 and in fp64 (scripts/fcc_diag.py
+// --k6-variants builds the others).
+constexpr int kAlphaBlock = 4;
+
+// Blocks of bands in flight in K6's chain: a register ring of at most 96
+// 32-bit words a lane, 1 to 8 blocks deep.
+template <typename T, int RS, int K>
+__host__ __device__ constexpr int alpha_ring() {
+  constexpr int words = (K + 1) * RS * (int)(sizeof(T) / 4);
+  return 96 / words < 1 ? 1 : (96 / words > 8 ? 8 : 96 / words);
+}
+
+// Frames in block j: min(K, T - 1 - jK); blocks: ceil((T - 1) / K).
+template <int K>
+__device__ __forceinline__ int block_steps(int j, int t_total) {
+  const int left = t_total - 1 - j * K;
+  return left < K ? left : K;
+}
+
+// The bands: (blocks + kBandSpare, B, K+1, 32 RS), each row padded to the
+// lane layout's width (-inf past S), so that the chain reads a block's
+// bands at fixed offsets from one pointer; the kBandSpare blocks at the end
+// are never written: the chain runs whole groups of its ring's depth D, and
+// its loads past the last block (up to 2D - 1 blocks) need no guard.
+constexpr int kBandSpare = 16;
+
+// K6's warp route, step 1: the bands, one block of kBandWarps warps per
+// (element b = blockIdx.y, chunk blockIdx.x of ``chunk`` blocks of K
+// frames), warp w taking the chunk's blocks j_begin + w, j_begin + w +
+// kBandWarps, ...; lane l holds slots l, l+32, ...  For block j (t0 = jK,
+// steps = min(K, T-1-t0)), from w[0] = 0 and w[i > 0] = -inf, m = 1 ..
+// steps:
+//   w[i][s] = A_{t0+m}[s] + logaddexp(w[i][s] + self[s], w[i-1][s-1] + next[s-1]),
+// i = m .. 1 in descending order (each reads the old w[i-1]; rows i > m are
+// still -inf), then w[0][s] += self[s] + A_{t0+m}[s].  The block's rows of
+// A are loaded before the recursion starts.
+template <typename T, int RS, int K>
+__global__ void __launch_bounds__(kBandWarps * 32) fac_alpha_band_kernel(
+    const T* __restrict__ al,      // (T, B, S)
+    const T* __restrict__ self_t,  // (B, S)
+    const T* __restrict__ next_t,  // (B, S)
+    T* __restrict__ band,          // (blocks + kBandSpare, B, K+1, 32 RS)
+    int t_total, int batch, int s, int chunk) {
+  constexpr int WS = 32 * RS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int nblocks = (t_total - 1 + K - 1) / K;
+  const int j_begin = blockIdx.x * chunk;
+  const int j_stop = j_begin + chunk < nblocks ? j_begin + chunk : nblocks;
+  T self_r[RS], next_l[RS];
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    const int k = lane + 32 * r;
+    self_r[r] = k < s ? self_t[(size_t)b * s + k] : T(0);
+    next_l[r] = (k >= 1 && k < s) ? next_t[(size_t)b * s + k - 1] : T(0);
+  }
+  for (int j = j_begin + warp; j < j_stop; j += kBandWarps) {
+    const int t0 = j * K;
+    const int steps = block_steps<K>(j, t_total);
+    T a[K][RS];
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      if (m < steps) load_row(al + ((size_t)(t0 + 1 + m) * batch + b) * s, s, lane, a[m]);
+    }
+    T w[K + 1][RS];
+#pragma unroll
+    for (int i = 0; i <= K; ++i) {
+#pragma unroll
+      for (int r = 0; r < RS; ++r) w[i][r] = i == 0 ? T(0) : neg_inf<T>();
+    }
+#pragma unroll
+    for (int m = 1; m <= K; ++m) {
+      if (m > steps) break;
+#pragma unroll
+      for (int i = m; i >= 1; --i) {
+        T up[RS], x[RS], y[RS];
+        shift_up_slots<T, RS>(w[i - 1], 1, lane, up);
+#pragma unroll
+        for (int r = 0; r < RS; ++r) {
+          x[r] = w[i][r] + self_r[r];
+          y[r] = up[r] + next_l[r];
+        }
+        log_add_row<T, RS>(x, y, w[i]);
+#pragma unroll
+        for (int r = 0; r < RS; ++r) w[i][r] = a[m - 1][r] + w[i][r];
+      }
+#pragma unroll
+      for (int r = 0; r < RS; ++r) w[0][r] = a[m - 1][r] + (w[0][r] + self_r[r]);
+    }
+    T* out = band + ((size_t)j * batch + b) * (K + 1) * WS + lane;
+#pragma unroll
+    for (int i = 0; i <= K; ++i) {
+#pragma unroll
+      for (int r = 0; r < RS; ++r) out[i * WS + 32 * r] = w[i][r];
+    }
+  }
+}
+
+// The chain's exp and log.  fp32: the SFU's base-2 exp and log with
+// denormals flushed (ex2.approx.ftz, lg2.approx.ftz), each a multiply away
+// from e^x and ln x: 2 instructions where expf and logf take about 10 and
+// 25, for a chain that one warp issues in order.  The flush matters too:
+// __expf and __logf guard denormals with a predicate a call, and with the
+// predicate registers taken by the chain's slot and shift masks, the
+// compiler reuses one predicate for every guard and so runs the step's
+// K+1 exps one after another (PERF.md section 6).  Their error stays far
+// inside the fp32 rounding of alpha: exponents are <= 0, ex2.approx's
+// relative error is about 2^-22 and the term's weight falls as e^x, a
+// result below 2^-126 flushes to 0, and lg2.approx's error is about 2^-22
+// absolute on sums in [1, K+1].  fp64: exp and log.  exp(-inf) = 0 and
+// log(0) = -inf in both.
+__device__ __forceinline__ float chain_exp(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x * 1.4426950408889634f));
+  return r;
+}
+__device__ __forceinline__ double chain_exp(double x) { return exp(x); }
+__device__ __forceinline__ float chain_log(float x) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r * 0.6931471805599453f;
+}
+__device__ __forceinline__ double chain_log(double x) { return log(x); }
+
+// K6's warp route, step 2: the chain, one warp per element b = blockIdx.x
+// walking the checkpoint rows alone.  From alpha_0 (A_0 at slot 0, -inf
+// elsewhere), block j's last row t0 + steps is
+//   alpha[s] = LSE_{i=0..K} (alpha_{t0}[s-i] + band_j[i][s]):
+// K shifted copies of the row by independent shuffles, K+1 adds, a max
+// tree, K+1 exps of exponents <= 0, a sum tree in a fixed order and one
+// log, the R slots of a lane stage by stage; an all--inf sum gives -inf.
+// Block j's bands wait in ring slot j % D (D = alpha_ring), loaded D block
+// steps before their step from one pointer advanced a block a step, with
+// the block loop unrolled by D; each row goes out as fire-and-forget
+// stores.  A step's addresses are increments and fixed offsets: a single
+// warp issues every instruction of the chain in order, so its integer
+// work paces it as much as its arithmetic.  The loop runs whole groups of
+// D blocks with no exit inside a group: the blocks past the last compute
+// on the spare bands and store nothing.  (An exit inside the unrolled
+// group made the compiler copy ring registers at each step, and a copy
+// waits on its load: scripts/fcc_diag.py --k6-variants, PERF.md section 6.)
+template <typename T, int RS, int K>
+__global__ void __launch_bounds__(32, 1) fac_alpha_warp_kernel(
+    const T* __restrict__ al,    // (T, B, S)
+    const T* __restrict__ band,  // (blocks + kBandSpare, B, K+1, 32 RS)
+    T* __restrict__ alpha_out,   // (T, B, S)
+    int t_total, int batch, int s) {
+  constexpr int D = alpha_ring<T, RS, K>();
+  constexpr int WS = 32 * RS;
+  static_assert(2 * D - 1 <= kBandSpare, "the look-ahead must stay inside the spare blocks");
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const int nblocks = (t_total - 1 + K - 1) / K;
+  const size_t block_stride = (size_t)batch * (K + 1) * WS;  // one block's bands
+  const size_t row_stride = (size_t)batch * s;               // one frame's row
+  const T* wb = band + (size_t)b * (K + 1) * WS + lane;      // block 0, lane's word 0
+  T* out = alpha_out + (size_t)b * s + lane;                 // frame 0, lane's word 0
+  bool has[RS];
+#pragma unroll
+  for (int r = 0; r < RS; ++r) has[r] = lane + 32 * r < s;
+  T a[RS];
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    a[r] = lane + 32 * r == 0 ? al[(size_t)b * s] : neg_inf<T>();
+    if (has[r]) out[32 * r] = a[r];
+  }
+  T ring[D][K + 1][RS];
+#pragma unroll
+  for (int u = 0; u < D; ++u) {
+#pragma unroll
+    for (int i = 0; i <= K; ++i) {
+#pragma unroll
+      for (int r = 0; r < RS; ++r) ring[u][i][r] = wb[i * WS + 32 * r];
+    }
+    wb += block_stride;
+  }
+
+  for (int j0 = 0; j0 < nblocks; j0 += D) {
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const int j = j0 + u;
+      T x[K + 1][RS];
+#pragma unroll
+      for (int i = 1; i <= K; ++i) shift_up_slots<T, RS>(a, i, lane, x[i]);
+#pragma unroll
+      for (int r = 0; r < RS; ++r) x[0][r] = a[r] + ring[u][0][r];
+#pragma unroll
+      for (int i = 1; i <= K; ++i) {
+#pragma unroll
+        for (int r = 0; r < RS; ++r) x[i][r] += ring[u][i][r];
+      }
+      // block j + D's bands into the slot just read (past the last block:
+      // the spare blocks, never consumed)
+#pragma unroll
+      for (int i = 0; i <= K; ++i) {
+#pragma unroll
+        for (int r = 0; r < RS; ++r) ring[u][i][r] = wb[i * WS + 32 * r];
+      }
+      wb += block_stride;
+
+      T m[RS];
+#pragma unroll
+      for (int r = 0; r < RS; ++r) {
+        T v[K + 1];
+#pragma unroll
+        for (int i = 0; i <= K; ++i) v[i] = x[i][r];
+        m[r] = tree_reduce<true>(v);
+        m[r] = m[r] > neg_inf<T>() ? m[r] : T(0);
+      }
+#pragma unroll
+      for (int i = 0; i <= K; ++i) {
+#pragma unroll
+        for (int r = 0; r < RS; ++r) x[i][r] = chain_exp(x[i][r] - m[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < RS; ++r) {
+        T v[K + 1];
+#pragma unroll
+        for (int i = 0; i <= K; ++i) v[i] = x[i][r];
+        a[r] = m[r] + chain_log(tree_reduce<false>(v));
+      }
+      const int t = j * K + K < t_total ? j * K + K : t_total - 1;
+      T* row = out + (size_t)t * row_stride;
+#pragma unroll
+      for (int r = 0; r < RS; ++r) {
+        if (has[r] && j < nblocks) row[32 * r] = a[r];
+      }
+    }
+  }
+}
+
+// K6's warp route, step 3: the fill, on the bands' grid.  Block j's rows
+// t0+1 .. t0+steps-1 from the chain's checkpoint row t0 by the one-step
+// recursion; row t0 + steps is the chain's.
+template <typename T, int RS, int K>
+__global__ void __launch_bounds__(kBandWarps * 32) fac_alpha_fill_kernel(
+    const T* __restrict__ al,      // (T, B, S)
+    const T* __restrict__ self_t,  // (B, S)
+    const T* __restrict__ next_t,  // (B, S)
+    T* __restrict__ alpha,         // (T, B, S)
+    int t_total, int batch, int s, int chunk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int nblocks = (t_total - 1 + K - 1) / K;
+  const int j_begin = blockIdx.x * chunk;
+  const int j_stop = j_begin + chunk < nblocks ? j_begin + chunk : nblocks;
+  T self_r[RS], next_l[RS];
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    const int k = lane + 32 * r;
+    self_r[r] = k < s ? self_t[(size_t)b * s + k] : T(0);
+    next_l[r] = (k >= 1 && k < s) ? next_t[(size_t)b * s + k - 1] : T(0);
+  }
+  for (int j = j_begin + warp; j < j_stop; j += kBandWarps) {
+    const int t0 = j * K;
+    const int steps = block_steps<K>(j, t_total);
+    T av[K - 1][RS];
+#pragma unroll
+    for (int m = 1; m < K; ++m) {
+      if (m < steps) load_row(al + ((size_t)(t0 + m) * batch + b) * s, s, lane, av[m - 1]);
+    }
+    T a[RS];
+    load_row(alpha + ((size_t)t0 * batch + b) * s, s, lane, a);
+#pragma unroll
+    for (int m = 1; m < K; ++m) {
+      if (m >= steps) break;
+      T up[RS], x[RS], y[RS];
+      shift_up_slots<T, RS>(a, 1, lane, up);
+#pragma unroll
+      for (int r = 0; r < RS; ++r) {
+        x[r] = a[r] + self_r[r];
+        y[r] = up[r] + next_l[r];
+      }
+      log_add_row<T, RS>(x, y, a);
+#pragma unroll
+      for (int r = 0; r < RS; ++r) a[r] = av[m - 1][r] + a[r];
+      store_row(alpha + ((size_t)(t0 + m) * batch + b) * s, s, lane, a);
+    }
   }
 }
 
@@ -414,6 +734,45 @@ int launch_alpha(const T* al, const T* self_t, const T* next_t, T* alpha, int t_
   return (int)cudaGetLastError();
 }
 
+template <typename T, int RS, int K>
+int launch_alpha_warp_rk(const T* al, const T* self_t, const T* next_t, T* alpha, T* band,
+                         int t_total, int batch, int s, int chunk, cudaStream_t st) {
+  const int nblocks = (t_total - 1 + K - 1) / K;
+  const dim3 grid((nblocks + chunk - 1) / chunk, batch);
+  cudaError_t err;
+  if (nblocks > 0) {
+    fac_alpha_band_kernel<T, RS, K><<<grid, kBandWarps * 32, 0, st>>>(
+        al, self_t, next_t, band, t_total, batch, s, chunk);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  fac_alpha_warp_kernel<T, RS, K><<<batch, 32, 0, st>>>(al, band, alpha, t_total, batch, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nblocks == 0) return (int)err;
+  fac_alpha_fill_kernel<T, RS, K><<<grid, kBandWarps * 32, 0, st>>>(
+      al, self_t, next_t, alpha, t_total, batch, s, chunk);
+  return (int)cudaGetLastError();
+}
+
+// RS = 1, 2 or 4 words a lane of each slot row: S <= 128.
+template <typename T>
+int launch_alpha_warp(const T* al, const T* self_t, const T* next_t, T* alpha, T* band,
+                      int t_total, int batch, int s, int chunk, void* stream) {
+  constexpr int K = kAlphaBlock;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  if (s <= 32)
+    return launch_alpha_warp_rk<T, 1, K>(al, self_t, next_t, alpha, band, t_total, batch, s,
+                                         chunk, st);
+  if (s <= 64)
+    return launch_alpha_warp_rk<T, 2, K>(al, self_t, next_t, alpha, band, t_total, batch, s,
+                                         chunk, st);
+  if (s <= 128)
+    return launch_alpha_warp_rk<T, 4, K>(al, self_t, next_t, alpha, band, t_total, batch, s,
+                                         chunk, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int launch_beta(const T* al, const T* self_t, const T* next_t, const int* li,
                 const int* lo, T* beta, int t_total, int batch, int s, void* stream) {
@@ -504,6 +863,25 @@ int fac_alpha_f32(const float* al, const float* self_t, const float* next_t,
 int fac_alpha_f64(const double* al, const double* self_t, const double* next_t,
                   double* alpha, int t_total, int batch, int s, void* stream) {
   return launch_alpha<double>(al, self_t, next_t, alpha, t_total, batch, s, stream);
+}
+
+// K6's warp route: the block route's arguments, then a (blocks + 16, B, 5,
+// 32 RS) scratch for the bands (K = 4 frames a block, blocks = ceil((T - 1)
+// / K); RS = 1, 2 or 4 for S <= 32, 64, 128), the sizes and the blocks a
+// chunk of the band and fill kernels.
+
+int fac_alpha_warp_f32(const float* al, const float* self_t, const float* next_t,
+                       float* alpha, float* band, int t_total, int batch, int s, int chunk,
+                       void* stream) {
+  return launch_alpha_warp<float>(al, self_t, next_t, alpha, band, t_total, batch, s, chunk,
+                                  stream);
+}
+
+int fac_alpha_warp_f64(const double* al, const double* self_t, const double* next_t,
+                       double* alpha, double* band, int t_total, int batch, int s, int chunk,
+                       void* stream) {
+  return launch_alpha_warp<double>(al, self_t, next_t, alpha, band, t_total, batch, s, chunk,
+                                   stream);
 }
 
 int fac_beta_f32(const float* al, const float* self_t, const float* next_t,

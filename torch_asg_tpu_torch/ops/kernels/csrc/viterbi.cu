@@ -73,9 +73,31 @@
 //   back when p >= S), -1 after it.
 //
 // What bounds them: the serial chain again, two candidates a step instead
-// of N.  K12 runs one block per element and one thread per slot with the
-// carry in shared memory, and loads the next frame's emission before the
-// step's barrier; K13 is K11's chunked walk over the advance bits.
+// of N, so a step is a few dependent operations; K13 is K11's chunked walk
+// over the advance bits.  K12 has two routes with the same outputs, picked
+// by the wrapper (common.py::width_route of the slot count):
+//   - the warp route (S <= 128; lane l holds slots l, l+32, ..., RS = 1, 2
+//     or 4 words of a row, a template parameter), align_forward_warp_kernel:
+//     one warp per element walks the chain with no barrier.  A step takes
+//     slot s-1's value by one shuffle a register (shift_up_slots; slot
+//     32r's from lane 31 of register r-1), then stay, move, one compare and
+//     one select: the block route's arithmetic, so the bits and rows are
+//     the same.  The
+//     compare's bit is stored straight from the chain, fire-and-forget, as
+//     it lies off the dependent path.  At a few tens of nanoseconds a step,
+//     the aligned rows must be asked for far ahead: they wait in a register
+//     ring of align_ring = 16-32 frames (about 0.5-1 us of steps), with the
+//     time loop unrolled by the ring's depth, each load refilling the slot
+//     its step has just read.  A single warp issues every instruction in
+//     order, so the step's integer work counts as much as its arithmetic:
+//     its addresses are pointer increments.  The chain walks t = 1 .. L - 1
+//     (L clipped to T) and then row L from d_{L-1}: A is -inf from frame L
+//     on (make_aligned's mask), so d_t is -inf there and every bit past row
+//     L is 0, while row L can hold a 1.  Row 0 and the rows past L are
+//     written as zeros before the walk, off the chain.
+//   - the block route (S <= 512): one block per element and one thread per
+//     slot, with the carry in shared memory and two barriers a step; the
+//     next frame's emission is loaded before the step's barrier.
 
 #include "chain_common.cuh"
 
@@ -499,6 +521,109 @@ __global__ void __launch_bounds__(kBpWarps * 32) viterbi_bp_kernel(
   }
 }
 
+// Frames of aligned rows in flight in K12's warp route: 32, or 16 where a
+// lane's row is 16 or 32 bytes (fp32 RS = 4, fp64 RS = 2 and 4), so that
+// the ring stays at or under 128 registers.
+template <typename T, int RS>
+__host__ __device__ constexpr int align_ring() { return RS * sizeof(T) <= 8 ? 32 : 16; }
+
+// K12's warp route: one warp per element b = blockIdx.x walks rows t = 1 ..
+// live - 1 (live = L clipped to [0, T]) on the chain, then row L (when 1 <=
+// L < T) from d_{L-1}; the end row is d_{L-1}.  Frame f of the chain waits
+// in ring slot (f - 1) % kRing, loaded kRing steps before its step into
+// the slot its step has just read (frames from live on are not loaded).
+// A step's addresses are pointer increments: one warp issues every
+// instruction in order, so integer work paces the chain as much as its
+// arithmetic does.
+template <typename T, int RS>
+__global__ void __launch_bounds__(32, 1) align_forward_warp_kernel(
+    const T* __restrict__ ap,       // (T, B, S) aligned emissions
+    const T* __restrict__ self_tr,  // (B, S) stay transitions
+    const T* __restrict__ next_tr,  // (B, S) advance transitions, slot s -> s+1
+    const int* __restrict__ li,     // (B,)
+    int* __restrict__ adv,          // (T, B, S) advance bits
+    T* __restrict__ dend,           // (B, S) end rows
+    int t_total, int batch, int s_total) {
+  constexpr int kRing = align_ring<T, RS>();
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const int L = li[b];
+  const int live = L < 0 ? 0 : (L > t_total ? t_total : L);
+  const int last = L >= 1 && L < t_total ? L : live - 1;  // the last row of bits
+  const size_t stride = (size_t)batch * s_total;           // one frame's row
+  const T ninf = neg_inf<T>();
+  bool has[RS];
+#pragma unroll
+  for (int r = 0; r < RS; ++r) has[r] = lane + 32 * r < s_total;
+
+  // row 0 (a dummy) and the rows past the last: zeros, off the chain
+  int* bits = adv + (size_t)b * s_total + lane;  // frame 0, lane's word 0
+  for (int t = 0; t < t_total; t = t == 0 && last > 0 ? last + 1 : t + 1) {
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      if (has[r]) bits[t * stride + 32 * r] = 0;
+    }
+  }
+
+  T stay_tr[RS], move_tr[RS], d[RS], d_end[RS];
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    const int k = lane + 32 * r;
+    const size_t bs = (size_t)b * s_total + k;
+    stay_tr[r] = has[r] ? self_tr[bs] : T(0);
+    move_tr[r] = (k >= 1 && has[r]) ? next_tr[bs - 1] : T(0);
+    d[r] = k == 0 ? ap[(size_t)b * s_total] : ninf;  // d_0: A_0 at slot 0 only
+  }
+  // one step from d: the bits of row t, and d_t = a + the chosen edge
+  auto step = [&](const T (&a)[RS], int* row) {
+    T prev[RS];  // d_{t-1}[s-1], -inf at slot 0
+    shift_up_slots<T, RS>(d, 1, lane, prev);
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      const T stay = d[r] + stay_tr[r];
+      const T move = prev[r] + move_tr[r];  // -inf at slot 0: prev is -inf, move_tr 0
+      const bool advanced = move > stay;    // a tie stays
+      d[r] = a[r] + (advanced ? move : stay);
+      if (has[r]) row[32 * r] = advanced ? 1 : 0;
+    }
+  };
+
+  if (live > 1) {
+    const T* src = ap + (size_t)b * s_total + lane + stride;  // frame 1, lane's word 0
+    T ring[kRing][RS];
+#pragma unroll
+    for (int u = 0; u < kRing; ++u) {
+#pragma unroll
+      for (int r = 0; r < RS; ++r) ring[u][r] = 1 + u < live && has[r] ? src[32 * r] : ninf;
+      src += stride;
+    }
+    int* row = bits + stride;  // frame 1
+    for (int t0 = 1; t0 < live; t0 += kRing) {
+#pragma unroll
+      for (int u = 0; u < kRing; ++u) {
+        const int t = t0 + u;
+        if (t >= live) break;
+        step(ring[u], row);
+        row += stride;
+        // frame t + kRing into the slot just read
+#pragma unroll
+        for (int r = 0; r < RS; ++r)
+          ring[u][r] = t + kRing < live && has[r] ? src[32 * r] : ninf;
+        src += stride;
+      }
+    }
+  }
+  // d_{L-1}, then row L from it (A_L is -inf: only the bits matter)
+#pragma unroll
+  for (int r = 0; r < RS; ++r) d_end[r] = L >= 1 && L <= t_total ? d[r] : ninf;
+  if (L >= 1 && L < t_total) {
+    T a[RS];
+#pragma unroll
+    for (int r = 0; r < RS; ++r) a[r] = ninf;
+    step(a, bits + (size_t)L * stride);
+  }
+  store_row(dend + (size_t)b * s_total, s_total, lane, d_end);
+}
+
 template <typename T>
 int launch_align_forward(const T* ap, const T* self_tr, const T* next_tr, const int* li,
                          int* adv, T* dend, int t_total, int batch, int s_total,
@@ -508,6 +633,27 @@ int launch_align_forward(const T* ap, const T* self_tr, const T* next_tr, const 
   align_forward_kernel<T><<<batch, threads, sizeof(T) * (size_t)s_total,
                             (cudaStream_t)stream>>>(ap, self_tr, next_tr, li, adv, dend,
                                                     t_total, batch, s_total);
+  return (int)cudaGetLastError();
+}
+
+// RS = 1, 2 or 4 words a lane of each slot row: S <= 128.
+template <typename T>
+int launch_align_forward_warp(const T* ap, const T* self_tr, const T* next_tr, const int* li,
+                              int* adv, T* dend, int t_total, int batch, int s_total,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s_total <= 32) {
+    align_forward_warp_kernel<T, 1><<<batch, 32, 0, st>>>(ap, self_tr, next_tr, li, adv, dend,
+                                                          t_total, batch, s_total);
+  } else if (s_total <= 64) {
+    align_forward_warp_kernel<T, 2><<<batch, 32, 0, st>>>(ap, self_tr, next_tr, li, adv, dend,
+                                                          t_total, batch, s_total);
+  } else if (s_total <= 128) {
+    align_forward_warp_kernel<T, 4><<<batch, 32, 0, st>>>(ap, self_tr, next_tr, li, adv, dend,
+                                                          t_total, batch, s_total);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -616,6 +762,22 @@ int align_forward_f64(const double* ap, const double* self_tr, const double* nex
                       int s_total, void* stream) {
   return launch_align_forward<double>(ap, self_tr, next_tr, li, adv, dend, t_total, batch,
                                       s_total, stream);
+}
+
+// K12's warp route: the block route's arguments.
+
+int align_forward_warp_f32(const float* ap, const float* self_tr, const float* next_tr,
+                           const int* li, int* adv, float* dend, int t_total, int batch,
+                           int s_total, void* stream) {
+  return launch_align_forward_warp<float>(ap, self_tr, next_tr, li, adv, dend, t_total, batch,
+                                          s_total, stream);
+}
+
+int align_forward_warp_f64(const double* ap, const double* self_tr, const double* next_tr,
+                           const int* li, int* adv, double* dend, int t_total, int batch,
+                           int s_total, void* stream) {
+  return launch_align_forward_warp<double>(ap, self_tr, next_tr, li, adv, dend, t_total,
+                                           batch, s_total, stream);
 }
 
 int align_backtrace(const int* adv, const int* end_s, const int* li, int* pos,

@@ -19,13 +19,20 @@ A call that autograd will not differentiate runs K7 alone.  Otherwise
 posteriors softmax(alpha + beta) * g and the self and diagonal edge
 fractions (exponents <= 0) summed over t >= 1 into gself and gnext (shifted
 left by one slot, 0 fill), which ``scatter_to_full`` maps back to (N, N)
-and (T, B, N) without atomics.  K7 and K8 each have two routes, picked by
-``common.width_route`` of the slot count: the warp route (up to 128 slots)
-and the block route (one block walking each element's frames, one thread
-per slot, up to 512 slots).  K7's warp route walks the log-domain chain on
-one warp per element, the same recursion as ``fac_beta_plain``, which is
-the plain version of both routes; K8's is a posterior kernel over
-(element, chunk of frames), then a fixed-order sums kernel.
+and (T, B, N) without atomics.  K6, K7 and K8 each have two routes, picked
+by ``common.width_route`` of the slot count: the warp route (up to 128
+slots) and the block route (one block walking each element's frames, one
+thread per slot, up to 512 slots).  K6's warp route takes the chain
+``FAC_ALPHA_BLOCK`` frames at a time: bands over (element, block of
+frames), one warp per element walking the checkpoint rows alone by a
+(k+1)-term log-sum-exp a block, then the rows between the checkpoints
+over (element, block); ``fac_alpha_blocked_plain`` is its plain version,
+``fac_alpha_plain`` the block route's.  K7's warp route walks the
+log-domain chain on one warp per element, the same recursion as
+``fac_beta_plain``, which is the plain version of both routes; K8's is a
+posterior kernel over (element, chunk of frames), then a fixed-order sums
+kernel.  On CPU tensors each wrapper runs the block route's plain
+version.
 
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/fac.cu``; on CPU tensors they run the plain versions beside them.
@@ -42,13 +49,91 @@ from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tenso
 from .fcc_kernels import PER_LATTICE_MAX_WIDTH
 from ..fac import (AlignedLattice, _alpha_scan, _shift_left_s, _shift_right_s,
                    make_aligned, scatter_to_full)
-from ..semiring import NEG_INF, logaddexp
+from ..semiring import NEG_INF, logaddexp, logsumexp
+
+# K6's warp route: the frames a block of its chain takes (csrc/fac.cu's
+# kAlphaBlock), chosen from 2, 4 and 8 by timing each on the card in fp32
+# and fp64 (PERF.md section 6).
+FAC_ALPHA_BLOCK = 4
+_BAND_SPARE = 16  # csrc/fac.cu's kBandSpare
 
 
 def fac_alpha_plain(lat: AlignedLattice) -> torch.Tensor:
     """Plain version of K6: alpha (T, B, S).  The scan tier's alpha loop is
     the same recursion from the same seed."""
     return _alpha_scan(lat)
+
+
+def _slots_up(x: torch.Tensor, j: int) -> torch.Tensor:
+    """x shifted up by ``j`` slots along the last axis: slot s holds the old
+    slot s - j, -inf below slot j."""
+    if j == 0:
+        return x
+    pad = torch.full(x.shape[:-1] + (min(j, x.shape[-1]),), NEG_INF, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([pad, x[..., :max(x.shape[-1] - j, 0)]], dim=-1)
+
+
+def _fac_alpha_bands(lat: AlignedLattice, k: int):
+    """K6's warp route, step 1: the bands W (blocks, B, k+1, S) and each
+    block's frame count (blocks,).  Block j starts at checkpoint t0 = j k
+    and spans steps = min(k, T-1-t0) frames; W[j, b, i, s] is the log-sum
+    of every path from slot s-i at frame t0 to slot s at frame t0 + steps
+    with exactly i advances, counting each transition and the emissions of
+    frames t0+1 .. t0+steps (-inf where no such path exists).  The band
+    recursion, m = 1 .. steps, from w = 0 at i = 0 and -inf elsewhere:
+        w[s, i] = A_{t0+m}[s] + logaddexp(w[s, i] + self[s],
+                                          w[s-1, i-1] + next[s-1])."""
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev, dt = lat.inputs.device, lat.inputs.dtype
+    nblocks = -(-(t_total - 1) // k)
+    t0 = torch.arange(nblocks, device=dev) * k
+    steps = (t_total - 1 - t0).clamp(max=k)
+    w = torch.full((nblocks, num_batches, k + 1, s_total), NEG_INF, dtype=dt, device=dev)
+    w[:, :, 0] = 0.0
+    self_t = lat.self_trans[None, :, None, :]
+    next_t = lat.next_trans[None, :, None, :]
+    no_source = torch.full_like(w[:, :, :1], NEG_INF)
+    for m in range(1, k + 1):
+        a = lat.inputs[(t0 + m).clamp(max=max(t_total - 1, 0))][:, :, None, :]
+        move = torch.cat([no_source, _shift_right_s(w + next_t)[:, :, :-1]], dim=2)
+        w = torch.where((m <= steps)[:, None, None, None], a + logaddexp(w + self_t, move), w)
+    return w, steps
+
+
+def fac_alpha_blocked_plain(lat: AlignedLattice, k: int) -> torch.Tensor:
+    """Plain version of K6's warp route: alpha (T, B, S), the recursion of
+    ``fac_alpha_plain`` taken k frames at a time.
+
+    1. The bands W (``_fac_alpha_bands``), parallel over (element, block).
+    2. The chain over the checkpoints t0 = 0, k, 2k, ...: from alpha_0 (A_0
+       at slot 0, -inf elsewhere), the row that ends block j is the
+       (k+1)-term log-sum-exp
+           alpha_{t0+steps}[s] = LSE_i (alpha_{t0}[s-i] + W[j, :, i, s]),
+       all--inf terms giving -inf.
+    3. The fill, parallel over (element, block): rows t0+1 .. t0+steps-1
+       from checkpoint t0 by the one-step recursion.
+    """
+    t_total, num_batches, s_total = lat.inputs.shape
+    alpha = torch.empty_like(lat.inputs)
+    if alpha.numel() == 0:
+        return alpha
+    w, steps = _fac_alpha_bands(lat, k)
+    a = torch.full((num_batches, s_total), NEG_INF, dtype=alpha.dtype, device=alpha.device)
+    a[:, 0] = lat.inputs[0, :, 0]
+    alpha[0] = a
+    t0 = torch.arange(w.shape[0], device=alpha.device) * k
+    for j in range(w.shape[0]):
+        terms = torch.stack([_slots_up(a, i) for i in range(k + 1)], dim=1) + w[j]
+        a = logsumexp(terms, dim=1)
+        alpha[int(t0[j] + steps[j])] = a
+    cur = alpha[t0]
+    for m in range(1, k):
+        cur = lat.inputs[(t0 + m).clamp(max=t_total - 1)] + logaddexp(
+            cur + lat.self_trans, _shift_right_s(cur + lat.next_trans))
+        keep = m < steps
+        alpha[t0[keep] + m] = cur[keep]
+    return alpha
 
 
 def fac_beta_plain(lat: AlignedLattice, input_lengths, target_lengths):
@@ -163,24 +248,48 @@ def _contiguous(lat: AlignedLattice) -> AlignedLattice:
                           lat.next_trans.contiguous(), lat.targets)
 
 
-def fac_alpha_pallas(lat: AlignedLattice) -> torch.Tensor:
-    """alpha (T, B, S): K6 on CUDA tensors, its plain version on CPU ones.
-    ``fac_alpha_pallas.launches`` counts the kernel's launches."""
+def _launch_alpha(route, lat, alpha):
+    """Launch K6 on ``route`` with the output ``alpha``: ``fac_alpha_{f32,f64}``
+    (the block route) or ``fac_alpha_warp_{f32,f64}`` (the bands, the chain
+    over checkpoints ``FAC_ALPHA_BLOCK`` frames apart, and the fill, with a
+    scratch of bands and the band and fill kernels over chunks of
+    ``post_chunk`` blocks).  The bands' scratch is (blocks + _BAND_SPARE,
+    B, FAC_ALPHA_BLOCK+1, 32 RS): rows padded to the warp's lane layout,
+    RS = 1, 2 or 4 words a lane, and spare blocks that the chain reads past
+    the last block and never uses."""
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev, dt = lat.inputs.device, lat.inputs.dtype
+    ptrs = [lat.inputs, lat.self_trans, lat.next_trans, alpha]
+    sizes = [t_total, num_batches, s_total]
+    if route == "warp":
+        nblocks = -(-(t_total - 1) // FAC_ALPHA_BLOCK)
+        lane_words = 32 * next(r for r in (1, 2, 4) if s_total <= 32 * r)
+        ptrs.append(torch.empty((nblocks + _BAND_SPARE, num_batches, FAC_ALPHA_BLOCK + 1,
+                                 lane_words), dtype=dt, device=dev))
+        sizes.append(post_chunk(nblocks, num_batches))
+    stem = "fac_alpha_warp" if route == "warp" else "fac_alpha"
+    fn = c_function("fac", stem, dt, len(ptrs), len(sizes))
+    with torch.cuda.device(dev):
+        err = fn(*map(ptr, ptrs), *sizes, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
+
+
+def fac_alpha_pallas(lat: AlignedLattice, *, route=None) -> torch.Tensor:
+    """alpha (T, B, S): K6 on CUDA tensors, on ``route`` ('warp', 'block',
+    or None for ``width_route`` of the slot count), and its plain version
+    on CPU ones.  ``fac_alpha_pallas.launches`` counts the kernel's
+    launches, ``.launches_<route>`` each route's."""
+    route = check_route("K6", route, lat.inputs.shape[2])
     if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans):
         return fac_alpha_plain(lat)
     lat = _contiguous(lat)
     _check_lattice(lat)
-    t_total, num_batches, s_total = lat.inputs.shape
     alpha = torch.empty_like(lat.inputs)
     if alpha.numel() == 0:
         return alpha
-    fn = c_function("fac", "fac_alpha", alpha.dtype, 4, 3)
-    dev = alpha.device
-    with torch.cuda.device(dev):
-        err = fn(ptr(lat.inputs), ptr(lat.self_trans), ptr(lat.next_trans), ptr(alpha),
-                 t_total, num_batches, s_total, stream_ptr(dev))
-    raise_on_error(fn.__name__, err)
+    _launch_alpha(route, lat, alpha)
     fac_alpha_pallas.launches += 1
+    count_route(fac_alpha_pallas, route)
     return alpha
 
 
@@ -315,6 +424,6 @@ def fac_score_pallas(transition: torch.Tensor, inputs: torch.Tensor,
 fac_alpha_pallas.launches = 0
 fac_beta_pallas.launches = 0
 fac_bwd_pallas.launches = 0
-for _wrapper in (fac_beta_pallas, fac_bwd_pallas):
+for _wrapper in (fac_alpha_pallas, fac_beta_pallas, fac_bwd_pallas):
     for _route in ROUTES:
         setattr(_wrapper, f"launches_{_route}", 0)

@@ -14,7 +14,11 @@ the warp route (up to 128 labels: one warp per element walks the max-plus
 chain alone, then a pass parallel over (element, chunk of frames)
 recomputes each step's candidates from the chain's rows and takes the
 backpointers) and the block route (one thread per label, up to
-``VITERBI_KERNEL_MAX_LABELS``).
+``VITERBI_KERNEL_MAX_LABELS``).  K12 has two too, picked by the slot
+count: the warp route (up to 128 slots: one warp per element walks the
+two-edge chain and stores each advance bit as it goes) and the block route
+(one thread per slot, up to ``ALIGN_KERNEL_MAX_WIDTH``); ``align_forward_plain``
+is the plain version of both.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
                      count_route, post_chunk, ptr, raise_on_error, stream_ptr,
                      use_kernel)
-from ..fac import _shift_right_s
+from ..fac import AlignedLattice, _shift_right_s
 from ..semiring import NEG_INF
 from ...utils.lengths import mask_emissions
 
@@ -277,12 +281,33 @@ def align_backtrace_plain(end_s, adv, input_lengths):
     return positions
 
 
-def align_forward_pallas(lat, input_lengths):
-    """(d_end (B, S), adv (T, B, S) int32) from an ``AlignedLattice``: K12 on
-    CUDA tensors, its plain version on CPU ones.
+def _launch_align(route, lat, li, outs):
+    """Launch K12 on ``route`` with the outputs ``outs`` (adv, d_end):
+    ``align_forward_{f32,f64}`` (the block route) or
+    ``align_forward_warp_{f32,f64}`` (one warp per element); both take the
+    same arguments."""
+    t_total, num_batches, s_total = lat.inputs.shape
+    dev = lat.inputs.device
+    stem = "align_forward_warp" if route == "warp" else "align_forward"
+    fn = c_function("viterbi", stem, lat.inputs.dtype, 6, 3)
+    with torch.cuda.device(dev):
+        err = fn(ptr(lat.inputs), ptr(lat.self_trans), ptr(lat.next_trans), ptr(li),
+                 *map(ptr, outs), t_total, num_batches, s_total, stream_ptr(dev))
+    raise_on_error(fn.__name__, err)
 
-    ``align_forward_pallas.launches`` counts the kernel's launches.
+
+def align_forward_pallas(lat, input_lengths, *, route=None):
+    """(d_end (B, S), adv (T, B, S) int32) from an ``AlignedLattice``: K12 on
+    CUDA tensors, on ``route`` ('warp', 'block', or None for
+    ``width_route`` of the slot count), and its plain version on CPU ones.
+    Both routes give the plain version's bits.  The warp route walks each
+    element's chain only to row L_in, the last whose bits can be 1: it
+    takes the emissions ``make_aligned`` gives, -inf from frame L_in on.
+
+    ``align_forward_pallas.launches`` counts the kernel's launches,
+    ``.launches_<route>`` each route's.
     """
+    route = check_route("K12", route, lat.inputs.shape[2])
     if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, input_lengths):
         return align_forward_plain(lat, input_lengths)
     t_total, num_batches, s_total = lat.inputs.shape
@@ -293,23 +318,19 @@ def align_forward_pallas(lat, input_lengths):
         raise ValueError(
             f"alignment forward kernel takes s_total <= {ALIGN_KERNEL_MAX_WIDTH}; "
             f"got {s_total}")
-    aligned = lat.inputs.contiguous()
-    self_trans = lat.self_trans.to(dt).contiguous()
-    next_trans = lat.next_trans.to(dt).contiguous()
+    lat = AlignedLattice(lat.inputs.contiguous(), lat.self_trans.to(dt).contiguous(),
+                         lat.next_trans.to(dt).contiguous(), lat.targets)
     li = input_lengths.to(torch.int32).contiguous()
-    for name, t in (("self_trans", self_trans), ("next_trans", next_trans)):
+    for name, t in (("self_trans", lat.self_trans), ("next_trans", lat.next_trans)):
         check_tensor(name, t, dt, (num_batches, s_total), dev)
     check_tensor("input_lengths", li, torch.int32, (num_batches,), dev)
     adv = torch.empty((t_total, num_batches, s_total), dtype=torch.int32, device=dev)
     d_end = torch.empty((num_batches, s_total), dtype=dt, device=dev)
     if adv.numel() == 0:
         return d_end.fill_(NEG_INF), adv
-    fn = _lib_fn("align_forward_f32" if dt == torch.float32 else "align_forward_f64", 6)
-    with torch.cuda.device(dev):
-        err = fn(ptr(aligned), ptr(self_trans), ptr(next_trans), ptr(li), ptr(adv),
-                 ptr(d_end), t_total, num_batches, s_total, stream_ptr(dev))
-    raise_on_error("align_forward", err)
+    _launch_align(route, lat, li, (adv, d_end))
     align_forward_pallas.launches += 1
+    count_route(align_forward_pallas, route)
     return d_end, adv
 
 
@@ -344,5 +365,6 @@ viterbi_forward_pallas.launches = 0
 viterbi_backtrace_pallas.launches = 0
 align_forward_pallas.launches = 0
 align_backtrace_pallas.launches = 0
-for _route in ROUTES:
-    setattr(viterbi_forward_pallas, f"launches_{_route}", 0)
+for _wrapper in (viterbi_forward_pallas, align_forward_pallas):
+    for _route in ROUTES:
+        setattr(_wrapper, f"launches_{_route}", 0)

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .fac import make_aligned
+from .semiring import NEG_INF
 from .kernels.viterbi_kernels import (ALIGN_KERNEL_MAX_WIDTH,
                                       VITERBI_KERNEL_MAX_LABELS, _select_row,
                                       _select_rows, align_backtrace_pallas,
@@ -198,7 +199,8 @@ def viterbi_align(
 
     transition: (N, N), [i, j] = score of j -> i; inputs: (T, B, N);
     targets: (B, S) int labels.  impl: 'pallas' | 'xla' | 'auto' (see the
-    module docstring).
+    module docstring).  An element with no alignment, a target length
+    outside [1, S] or an input length outside [1, T], scores -inf.
     """
     t_total, num_batches, _ = inputs.shape
     s_total = targets.shape[1]
@@ -230,5 +232,8 @@ def viterbi_align(
     end_s = (target_lengths - 1).to(torch.int32)
     d_end, adv = forward(lat, input_lengths)
     positions = backtrace(end_s, adv, input_lengths)
-    return AlignmentResult(_select_row(d_end, end_s), positions,
-                           _labels_from_positions(positions, lat.targets))
+    # no alignment exists for a target length outside [1, S]: -inf, as for an
+    # input length outside [1, T] (``_select_row`` alone would read 0 there)
+    alignable = (target_lengths >= 1) & (target_lengths <= s_total)
+    scores = torch.where(alignable, _select_row(d_end, end_s), NEG_INF)
+    return AlignmentResult(scores, positions, _labels_from_positions(positions, lat.targets))
