@@ -18,7 +18,8 @@ launches:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``,
      one process per source, all at once; the fp32 instances of the warp
-     routes of K1-K8, K10 and K12 must not spill (``-Xptxas -v``);
+     routes of K1-K8, K10 and K12, and the instances of K11's and K13's,
+     must not spill (``-Xptxas -v``);
   3. kernels: each kernel against its plain version on the card, at the
      serving and training shape B=64, T=1000, N=30, S=50 with ragged
      lengths, plus small fp64, degenerate-length and wide-label cases; times
@@ -33,13 +34,17 @@ launches:
      B=8, N=10,000 (fp32, ragged lengths) and at small fp64 shapes; twice
      with the same bits; and against the two matmul-tier scans, the
      formulation it replaces, which are timed beside it.  K10 and K11
-     bit-identical to their plain versions, K10 on each route that takes
+     bit-identical to their plain versions, each on each route that takes
      the width (also at the warp route's width edges), both routes timed,
-     one warp-route call profiled by kernel (``k10_warp``).  K12 and K13
-     (forced alignment) bit-identical to their plain versions at the
-     serving shape, at S=512, on ties, on degenerate lengths and at fp64,
-     K12 on each route that takes the width (also at the warp route's
-     width edges), both routes timed.  K3-K8 (the per-lattice tier) at the
+     one warp-route call of each profiled by kernel (``k10_warp``,
+     ``k11_warp``).  K12 and K13 (forced alignment) bit-identical to their
+     plain versions at the serving shape, at S=512, on ties, on degenerate
+     lengths and at fp64, each on each route that takes the width (also at
+     the warp route's width edges), both routes timed, one warp-route call
+     of each profiled (``k12_warp``, ``k13_warp``).  K11 and K13 also on
+     rows drawn at random, inside their domain and outside it, with final
+     labels and end slots outside [0, width) and input lengths 0, 1, T - 1,
+     T and T + 1 (``check_backtrace``).  K3-K8 (the per-lattice tier) at the
      training shape, at small fp64 shapes, on degenerate lengths, with -inf
      transitions, with E in and out of shared memory and at the width cap
      N = S = 512; each on each route that takes the width, also at the warp
@@ -55,8 +60,8 @@ launches:
      requests of 64 utterances after one warm-up request: encoder ->
      viterbi_decode -> collapse_path -> asg_scores and asg_loss.  Every
      serving kernel's launch count must rise in those 3 requests, and every
-     K1 and K10 launch must take the route 'auto' takes; the outputs are
-     checked against the log-domain oracle tiers, one more request,
+     K1, K10 and K11 launch must take the route 'auto' takes; the outputs
+     are checked against the log-domain oracle tiers, one more request,
      synchronised after each stage, shows where its time goes, and one
      asg_scores call is timed and profiled alone, and one viterbi_decode
      call profiled alone (device busy time, idle share);
@@ -77,7 +82,7 @@ launches:
      gradients must agree with the two scans', and the loss must fall;
   8. align: the full-width letter model answers 3 alignment requests of 64
      utterances after a warm-up: encoder -> viterbi_align ->
-     alignment_segments.  K12 and K13 must launch once a request, K12 on
+     alignment_segments.  K12 and K13 must launch once a request, each on
      the route 'auto' takes, positions must equal the 'xla' tier's, the
      spans must partition each utterance, and an empty transcript (one
      element a request) must score -inf;
@@ -287,16 +292,17 @@ def check_k1(rng, dev):
 
 
 def route_launches(reset=False):
-    """K1's (both variants), K2's and K10's launches by route,
+    """K1's (both variants), K2's, K10's and K11's launches by route,
     {"<wrapper>.<route>": n}; with ``reset`` the counts are set to 0
     first."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
     from torch_asg_tpu_torch.ops.kernels.common import ROUTES
-    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import viterbi_forward_pallas
+    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (viterbi_backtrace_pallas,
+                                                                 viterbi_forward_pallas)
 
     out = {}
     for wrapper in (ak._fwd_scores_kernel, ak._fwd_store_kernel, ak._bwd_kernel,
-                    viterbi_forward_pallas):
+                    viterbi_forward_pallas, viterbi_backtrace_pallas):
         for route in ROUTES:
             if reset:
                 setattr(wrapper, f"launches_{route}", 0)
@@ -306,16 +312,19 @@ def route_launches(reset=False):
 
 def check_auto_route(scores, store, bwd, vit=0):
     """Since the last reset, the score-only K1 launched ``scores`` times, K1
-    with stores ``store`` times, K2 ``bwd`` times and K10 ``vit`` times,
-    each through the route 'auto' takes at N, S (K10: at N)."""
+    with stores ``store`` times, K2 ``bwd`` times and K10 and K11 ``vit``
+    times each (one decode), each through the route 'auto' takes at N, S
+    (K10, K11: at N)."""
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     got = route_launches()
     route, vit_route = width_route(max(N, S)), width_route(N)
     want = dict.fromkeys(got, 0)
     want.update({f"_fwd_scores_kernel.{route}": scores, f"_fwd_store_kernel.{route}": store,
-                 f"_bwd_kernel.{route}": bwd, f"viterbi_forward_pallas.{vit_route}": vit})
-    check(got == want, f"every K1, K2 and K10 launch must take the route 'auto' takes: {got}")
+                 f"_bwd_kernel.{route}": bwd, f"viterbi_forward_pallas.{vit_route}": vit,
+                 f"viterbi_backtrace_pallas.{vit_route}": vit})
+    check(got == want,
+          f"every K1, K2, K10 and K11 launch must take the route 'auto' takes: {got}")
     return got
 
 
@@ -330,6 +339,57 @@ VITERBI_WIDTH_CASES = tuple(
     for dt in (torch.float32, torch.float64) for n in (32, 33, 64, 65, 128))
 # K10's warp route in a device profile: its two kernels, by name.
 K10_WARP_PHASES = ("viterbi_fwd_warp_kernel", "viterbi_bp_kernel")
+# K11's and K13's warp routes in a device profile: one kernel each.
+K11_WARP_PHASES = ("viterbi_backtrace_warp_kernel",)
+K13_WARP_PHASES = ("align_backtrace_warp_kernel",)
+# K11's and K13's own cases, on rows drawn at random rather than taken from
+# K10 or K12 (each kernel from a seeded stream of its own): widths 1 and 5,
+# the serving widths 30 and 50, the warp route's edges 32, 33, 64, 65 and
+# 128, and 129 and 300 on the block route alone; rows inside the kernels'
+# domain (backpointers in [0, W), advance bits in {0, 1}) and outside it
+# (backpointers in [-3, W + 3), advance values in [-1, 3)); every pair of an
+# input length in BACKTRACE_LENGTHS and a start value (K11: final labels -1,
+# 0, W - 1, W and W + 5; K13: end slots -1, 0, W - 1, W + 3 and W // 2), then
+# 7 elements of random lengths in [1, T] and starts in [0, W).
+BACKTRACE_WIDTHS = (1, 5, 30, 32, 33, 50, 64, 65, 128, 129, 300)
+BACKTRACE_T = 200
+BACKTRACE_LENGTHS = (0, 1, BACKTRACE_T - 1, BACKTRACE_T, BACKTRACE_T + 1)
+
+
+def check_backtrace(kernel, rng, dev):
+    """K11 or K13 (``kernel``) bit-identical to its plain version on each
+    route that takes the width, in every case of BACKTRACE_WIDTHS; returns
+    {case: routes run}."""
+    from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
+
+    if kernel == "K11":
+        wrapper, plain = vk.viterbi_backtrace_pallas, vk.viterbi_backtrace_plain
+    else:
+        wrapper, plain = vk.align_backtrace_pallas, vk.align_backtrace_plain
+    t = BACKTRACE_T
+    runs = {}
+    for w in BACKTRACE_WIDTHS:
+        if kernel == "K11":
+            starts = (-1, 0, w - 1, w, w + 5)
+            domains = {"valid": (0, w), "wild": (-3, w + 3)}
+        else:
+            starts = (-1, 0, w - 1, w + 3, w // 2)
+            domains = {"valid": (0, 2), "wild": (-1, 3)}
+        li = [n for n in BACKTRACE_LENGTHS for _ in starts] + list(rng.integers(1, t + 1, 7))
+        st = [x for _ in BACKTRACE_LENGTHS for x in starts] + list(rng.integers(0, w, 7))
+        li, st = (torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+                  for x in (li, st))
+        for domain, (lo, hi) in domains.items():
+            rows = torch.as_tensor(rng.integers(lo, hi, size=(t, len(li), w)),
+                                   dtype=torch.int32, device=dev)
+            want = plain(st, rows, li)
+            name = f"w{w}_{domain}"
+            runs[name] = width_routes(w)
+            for route in width_routes(w):
+                got = wrapper(st, rows, li, route=route)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"{kernel} {route} {name}: outputs differ")
+    return runs
 
 
 def check_viterbi(rng, dev):
@@ -337,9 +397,10 @@ def check_viterbi(rng, dev):
     end rows and paths, on random and on integer (tie-forcing) emissions, on
     degenerate lengths, with the transition in global memory (N=300), at
     the kernel's label cap, and at the warp route's width edges
-    (VITERBI_WIDTH_CASES); K10 on each route that takes the case's width.
-    Both of K10's routes timed at the serving shape, and its warp route's
-    kernels by device time (the profile ``k10_warp``)."""
+    (VITERBI_WIDTH_CASES); K11 also on its own cases (``check_backtrace``);
+    each on each route that takes the case's width.  Both routes of each
+    timed at the serving shape, and their warp routes' kernels by device
+    time (the profiles ``k10_warp`` and ``k11_warp``)."""
     from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
@@ -368,15 +429,19 @@ def check_viterbi(rng, dev):
             if route == width_route(n):
                 d_auto = d_end
         _, final = vk.argmax_first(d_ref, dim=1)
-        path = vk.viterbi_backtrace_pallas(final, bp_ref, li)
         path_ref = vk.viterbi_backtrace_plain(final, bp_ref, li)
-        torch.cuda.synchronize()
-        check(torch.equal(path, path_ref), f"K11 {name}: paths differ")
+        for route in width_routes(n):
+            path = vk.viterbi_backtrace_pallas(final, bp_ref, li, route=route)
+            torch.cuda.synchronize()
+            check(torch.equal(path, path_ref), f"K11 {route} {name}: paths differ")
+            if route == width_route(n):
+                path_auto = path
         if name == "fp32_serving":
             serving = (trans, inputs, li, final, bp_ref)
             same = d_auto == d_ref  # also where both are -inf
             errs["k10"] = float(torch.where(same, 0.0, (d_auto - d_ref).abs()).max())
-            errs["k11"] = float((path - path_ref).abs().max())
+            errs["k11"] = float((path_auto - path_ref).abs().max())
+    k11_routes = {**routes_run, **check_backtrace("K11", np.random.default_rng([SEED, 13]), dev)}
     trans, inputs, li, final, bp = serving
     lsum = int(li.sum())
     fwd_bytes = (lsum * N + N * N + B + T * B * N + B * N) * 4
@@ -387,6 +452,8 @@ def check_viterbi(rng, dev):
     exact = "bit-identical (max-plus is exact)"
     split = profile_call("k10_warp")
     check(split["complete"], f"K10's warp route must run its two kernels: {split}")
+    bt_split = profile_call("k11_warp")
+    check(bt_split["complete"], f"K11's warp route must run its kernel: {bt_split}")
     serial_steps = int(li.max()) - 1
     k10 = {
         "name": "viterbi_forward (K10)", "max_abs_err": errs["k10"], "tolerance": exact,
@@ -398,10 +465,15 @@ def check_viterbi(rng, dev):
         "bound_ms": k10_bound, "bound_by": k10_by, "serial_steps": serial_steps,
     }
     k11 = {
-        "name": "viterbi_backtrace (K11)", "max_abs_err": errs["k11"], "tolerance": exact,
-        "ms": time_ms(lambda: vk.viterbi_backtrace_pallas(final, bp, li)),
+        "name": "viterbi_backtrace (K11)", "max_abs_err": errs["k11"],
+        "tolerance": "bit-identical (integer lookups)",
+        "routes_by_case": k11_routes,
+        # the warp route's chain: frames min(L_in, T) - 2 .. 0, K10's step count
+        **time_routes(vk.viterbi_backtrace_pallas, (final, bp, li), serial_steps,
+                      width_route(N)),
+        "warp_device_ms": {p: bt_split["phase_ms"][p] for p in K11_WARP_PHASES},
         "plain_ms": time_ms(lambda: vk.viterbi_backtrace_plain(final, bp, li)),
-        "bound_ms": k11_bound, "bound_by": k11_by, "serial_steps": T - 1,
+        "bound_ms": k11_bound, "bound_by": k11_by, "serial_steps": serial_steps,
     }
     return k10, k11
 
@@ -700,11 +772,12 @@ def check_align_kernels(rng, dev):
     """K12 and K13 against their plain versions: bit-identical advance bits
     in every (t, b, s), end rows and positions at the serving shape, with
     integer (tie-forcing) scores, at S=512, on degenerate lengths, at fp64
-    and at the warp route's width edges (ALIGN_WIDTH_CASES); K12 on each
-    route that takes the case's width, both routes timed at the serving
-    shape.  K13 runs on the plain version's bits, so both K13 versions see
-    the same inputs.  The warp route's kernel by device time (the profile
-    ``k12_warp``)."""
+    and at the warp route's width edges (ALIGN_WIDTH_CASES); K13 also on
+    its own cases (``check_backtrace``); each on each route that takes the
+    case's width, both routes of each timed at the serving shape.  K13 runs
+    on the plain version's bits, so both K13 versions see the same inputs.
+    The warp routes' kernels by device time (the profiles ``k12_warp`` and
+    ``k13_warp``)."""
     from torch_asg_tpu_torch.ops.fac import make_aligned
     from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
     from torch_asg_tpu_torch.ops.kernels.common import width_route
@@ -734,10 +807,11 @@ def check_align_kernels(rng, dev):
             torch.cuda.synchronize()
             check(torch.equal(adv, adv_ref), f"K12 {route} {name}: advance bits differ")
             check(torch.equal(d_end, d_ref), f"K12 {route} {name}: end rows differ")
-        pos = vk.align_backtrace_pallas(end_s, adv_ref, li)
         pos_ref = vk.align_backtrace_plain(end_s, adv_ref, li)
-        torch.cuda.synchronize()
-        check(torch.equal(pos, pos_ref), f"K13 {name}: positions differ")
+        for route in width_routes(s):
+            pos = vk.align_backtrace_pallas(end_s, adv_ref, li, route=route)
+            torch.cuda.synchronize()
+            check(torch.equal(pos, pos_ref), f"K13 {route} {name}: positions differ")
         if name == "fp32_serving":
             serving = (lat, li, end_s, adv_ref)
     lat, li, end_s, adv = serving
@@ -750,8 +824,12 @@ def check_align_kernels(rng, dev):
     k13_bound, k13_by = bound(k13_bytes, 0)
     exact = "bit-identical (max-plus is exact)"
     serial_steps = min(int(li.max()), T - 1)  # the warp route's chain: rows 1 .. L_in
+    bt_steps = int(li.max()) - 1  # K13's warp route: frames min(L_in, T) - 2 .. 0
     split = profile_call("k12_warp")
     check(split["complete"], f"K12's warp route must run its kernel: {split}")
+    bt_split = profile_call("k13_warp")
+    check(bt_split["complete"], f"K13's warp route must run its kernel: {bt_split}")
+    k13_routes = {**routes_run, **check_backtrace("K13", np.random.default_rng([SEED, 14]), dev)}
     k12 = {
         "name": "align_forward (K12)", "max_abs_err": 0.0, "tolerance": exact,
         "routes_by_case": routes_run,
@@ -761,11 +839,14 @@ def check_align_kernels(rng, dev):
         "bound_ms": k12_bound, "bound_by": k12_by, "serial_steps": serial_steps,
     }
     k13 = {
-        "name": "align_backtrace (K13)", "max_abs_err": 0.0, "tolerance": exact,
-        "ms": time_ms(lambda: vk.align_backtrace_pallas(end_s, adv, li)),
+        "name": "align_backtrace (K13)", "max_abs_err": 0.0,
+        "tolerance": "bit-identical (integer lookups)",
+        "routes_by_case": k13_routes,
+        **time_routes(vk.align_backtrace_pallas, (end_s, adv, li), bt_steps, width_route(S)),
+        "warp_device_ms": {p: bt_split["phase_ms"][p] for p in K13_WARP_PHASES},
         "plain_ms": time_ms(lambda: vk.align_backtrace_plain(end_s, adv, li), runs=5,
                             warmup=1),
-        "bound_ms": k13_bound, "bound_by": k13_by, "serial_steps": T - 1,
+        "bound_ms": k13_bound, "bound_by": k13_by, "serial_steps": bt_steps,
     }
     return k12, k13
 
@@ -1395,9 +1476,11 @@ PROFILES = {
     "lattice_warp": (K3_WARP_PHASES + K4_WARP_PHASES + K5_WARP_PHASES + K6_WARP_PHASES
                      + K7_WARP_PHASES + K8_WARP_PHASES),
     "k10_warp": K10_WARP_PHASES,
+    "k11_warp": K11_WARP_PHASES,
     "k12_warp": K12_WARP_PHASES,
+    "k13_warp": K13_WARP_PHASES,
     "serve_scores": ("asg_fwd_warp_kernel",),
-    "serve_decode": K10_WARP_PHASES + ("viterbi_backtrace_kernel",),
+    "serve_decode": K10_WARP_PHASES + K11_WARP_PHASES,
     "train_criterion": ("asg_fwd_warp_kernel",) + K2_WARP_PHASES,
     "wordpiece_criterion": ("row_max_kernel", "dual_init_kernel"),
     "pallas_criterion": (K3_WARP_PHASES + K5_WARP_PHASES + K6_WARP_PHASES
@@ -1449,15 +1532,28 @@ def profile_target(name, dev):
         trans, inputs, _, li, _ = lattice_case(rng, dev, torch.float32, B, T, N, 1, (500, T),
                                                [1] * B)
         return (lambda: vk.viterbi_forward_pallas(trans, inputs, li, route="warp")), RUNS
-    if name == "k12_warp":
-        # the kernel's serving-shape case
+    if name == "k11_warp":
+        # the kernel's serving-shape case: K10's backpointers and final labels
+        from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
+
+        trans, inputs, _, li, _ = lattice_case(rng, dev, torch.float32, B, T, N, 1, (500, T),
+                                               [1] * B)
+        d_end, bp = vk.viterbi_forward_pallas(trans, inputs, li)
+        final = vk.argmax_first(d_end, dim=1)[1]
+        return (lambda: vk.viterbi_backtrace_pallas(final, bp, li, route="warp")), RUNS
+    if name in ("k12_warp", "k13_warp"):
+        # the kernels' serving-shape case; K13 on K12's advance bits
         from torch_asg_tpu_torch.ops.fac import make_aligned
         from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
 
         trans, inputs, targets, li, lo = lattice_case(rng, dev, torch.float32, B, T, N, S,
                                                       (500, T), (10, S))
         lat = make_aligned(trans, inputs, targets, li, lo)
-        return (lambda: vk.align_forward_pallas(lat, li, route="warp")), RUNS
+        if name == "k12_warp":
+            return (lambda: vk.align_forward_pallas(lat, li, route="warp")), RUNS
+        adv = vk.align_forward_pallas(lat, li)[1]
+        end_s = (lo - 1).to(torch.int32)
+        return (lambda: vk.align_backtrace_pallas(end_s, adv, li, route="warp")), RUNS
     if name in ("k2_warp", "lattice_warp"):
         # the kernels' training-shape case
         case = lattice_case(rng, dev, torch.float32, B, T, N, S, (500, 1000), (10, S))
@@ -1722,7 +1818,7 @@ def align(rng, dev):
     utterances after one warm-up request: encoder -> viterbi_align ->
     alignment_segments.  Element 0 of each request has an empty transcript
     (L_out = 0, as ``encode_targets`` gives for one), which must score
-    -inf; K12 must take the route 'auto' takes at S slots."""
+    -inf; K12 and K13 must take the route 'auto' takes at S slots."""
     from torch_asg_tpu_torch import alignment_segments, viterbi_align
     from torch_asg_tpu_torch.convert import transition_from_numpy
     from torch_asg_tpu_torch.ops.kernels.common import ROUTES, width_route
@@ -1756,8 +1852,8 @@ def align(rng, dev):
     counters = (align_forward_pallas, align_backtrace_pallas)
     for c in counters:
         c.launches = 0
-    for route in ROUTES:
-        setattr(align_forward_pallas, f"launches_{route}", 0)
+        for route in ROUTES:
+            setattr(c, f"launches_{route}", 0)
     latencies, outs = [], []
     for req in requests[1:]:
         t0 = time.perf_counter()
@@ -1766,10 +1862,11 @@ def align(rng, dev):
     launches = {c.__name__: c.launches for c in counters}
     check(launches == {"align_forward_pallas": 3, "align_backtrace_pallas": 3},
           f"each alignment request must launch K12 and K13 once: {launches}")
-    route_launches_k12 = {route: getattr(align_forward_pallas, f"launches_{route}")
-                          for route in ROUTES}
-    check(route_launches_k12[width_route(S)] == 3,
-          f"every K12 launch must take the route 'auto' takes: {route_launches_k12}")
+    align_routes = {f"{c.__name__}.{route}": getattr(c, f"launches_{route}")
+                    for c in counters for route in ROUTES}
+    want = {k: 3 if k.endswith("." + width_route(S)) else 0 for k in align_routes}
+    check(align_routes == want,
+          f"every K12 and K13 launch must take the route 'auto' takes: {align_routes}")
     for em, li, ali, seg, targets, lo in outs:
         with torch.no_grad():
             ref = viterbi_align(trans, em, targets, li, lo, impl="xla")
@@ -1788,7 +1885,7 @@ def align(rng, dev):
     emit({"phase": "align", "card": torch.cuda.get_device_name(0), "requests": 3,
           "batch": B, "frames": T, "latency_ms": latencies,
           "median_latency_ms": statistics.median(latencies), "launches": launches,
-          "route_launches": route_launches_k12, "positions_equal_xla": True,
+          "route_launches": align_routes, "positions_equal_xla": True,
           "empty_transcript_scores": [float(o[2].scores[0]) for o in outs]})
     return launches
 
@@ -2170,12 +2267,17 @@ def main(argv):
                                               (fac_log, "fac_alpha_fill_kernelIf"),
                                               (vit_log, "align_forward_warp_kernelIf"))
                      for k, v in spill_bytes(log, marker).items()}
+    # the backtraces take int rows: their instances are named by RW alone
+    k11_k13_spills = {k: v for marker in ("viterbi_backtrace_warp_kernelI",
+                                          "align_backtrace_warp_kernelI")
+                      for k, v in spill_bytes(vit_log, marker).items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
           "k1_warp_fp32_spill_bytes": warp_spills, "k2_warp_fp32_spill_bytes": k2_spills,
           "k3_k5_warp_fp32_spill_bytes": k3_k5_spills,
           "k4_k7_warp_fp32_spill_bytes": k4_k7_spills,
           "k8_k10_warp_fp32_spill_bytes": k8_k10_spills,
-          "k6_k12_warp_fp32_spill_bytes": k6_k12_spills})
+          "k6_k12_warp_fp32_spill_bytes": k6_k12_spills,
+          "k11_k13_warp_spill_bytes": k11_k13_spills})
     # K1: two variants x 3 label x 3 slot register counts; K2: the chain and
     # posterior kernels x 3 x 3, and the sums
     check(len(warp_spills) == 18 and not any(warp_spills.values()),
@@ -2198,6 +2300,9 @@ def main(argv):
     # chain x 3 slot register counts
     check(len(k6_k12_spills) == 12 and not any(k6_k12_spills.values()),
           f"K6's and K12's fp32 warp-route instances must not spill: {k6_k12_spills}")
+    # K11 and K13: the walk x 3 row register counts each
+    check(len(k11_k13_spills) == 6 and not any(k11_k13_spills.values()),
+          f"K11's and K13's warp-route instances must not spill: {k11_k13_spills}")
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(rng, dev)
@@ -2247,9 +2352,9 @@ def main(argv):
         "launches": launches[wrapper], "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
-        # the two routes of K1-K8, K10 and K12, timed in this run; the
-        # warp-route kernels of K2-K8, K10 and K12, by device time (one profiled
-        # call)
+        # the two routes of K1-K8 and K10-K13, timed in this run; the
+        # warp-route kernels of K2-K8 and K10-K13, by device time (one
+        # profiled call)
         **{key: k[key] for key in ("route_auto", "ms_warp", "ms_block", "us_per_step",
                                    "warp_device_ms") if key in k},
     } for k, wrapper, source, replaces in meta]

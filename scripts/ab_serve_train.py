@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's serving and letter-training paths, through the
-fused and through the per-lattice tier, in two checkouts on one CUDA card,
+"""Time the PyTorch port's serving, alignment and letter-training paths
+(training through the fused and through the per-lattice tier) in two
+checkouts on one CUDA card,
 in turns (A, B, B, A), so that a change is compared with its parent within
 one run on one card.
 
@@ -10,9 +11,10 @@ Each turn is a fresh process started in that checkout's root.  It builds
 the checkout's kernels, then runs that checkout's ``chip_smoke.py`` phases
 ``serve`` (3 requests of 64 utterances after a warm-up), ``train`` (5
 AdamW steps after a warm-up, then the criterion's forward+backward alone),
-``train_pallas`` (the same, through ``impl='pallas'``) and
-``serve_posterior`` (3 posterior-decoding requests after a warm-up), each
-on data from ``chip_smoke.SEED`` as ``chip_smoke.main`` draws it, so both
+``train_pallas`` (the same, through ``impl='pallas'``),
+``serve_posterior`` (3 posterior-decoding requests after a warm-up) and
+``align`` (3 forced-alignment requests after a warm-up), each on data from
+``chip_smoke.SEED`` (``align``: from a stream of its own), so both
 checkouts see the same inputs.  The turn takes no profile.  After it, this
 checkout's ``chip_smoke.profile_call`` profiles five calls of that
 checkout's port, each in a new process (the letter criterion through each
@@ -53,6 +55,7 @@ _, (utts, labels) = c.train(np.random.default_rng(c.SEED), dev)
 rng_pallas = np.random.default_rng([c.SEED, 41])
 c.train_pallas(rng_pallas, dev, utts, labels)
 c.serve_posterior(rng_pallas, dev)
+c.align(np.random.default_rng([c.SEED, 8]), dev)
 """
 
 KEEP = {
@@ -61,6 +64,7 @@ KEEP = {
     "train_pallas": ("median_step_ms", "step_ms", "stage_ms", "criterion_fwd_bwd_ms",
                      "scores_only_ms"),
     "serve_posterior": ("median_latency_ms", "latency_ms", "stage_ms_second_request"),
+    "align": ("median_latency_ms", "latency_ms"),
 }
 # the calls profiled after each turn (chip_smoke.PROFILES)
 PROFILED = ("train_criterion", "pallas_criterion", "pallas_scores", "posterior_request",
@@ -114,6 +118,7 @@ def main(argv):
                                         for t in ts],
         "posterior_decode_stage_ms": [
             t["serve_posterior"]["stage_ms_second_request"]["posterior_decode"] for t in ts],
+        "align_median_latency_ms": [t["align"]["median_latency_ms"] for t in ts],
     } for label, ts in turns.items()}), flush=True)
     return 0
 

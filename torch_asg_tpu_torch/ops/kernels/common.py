@@ -18,10 +18,11 @@ DEFAULT_DEVICE = "cuda"
 
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
-# The routes of the kernels that have two (K1, K2, K3, K4, K5, K6, K7, K8,
-# K10, K12): the warp route, one warp per chain of an element (lane l holds
-# labels or slots l, l+32, ..., at most 4), up to WARP_MAX_WIDTH; the block
-# route, one thread per label or slot, up to the kernel's own cap.
+# The routes of the kernels that have two (K1-K8, K10-K13): the warp route,
+# one warp per chain of an element (lane l holds labels or slots l, l+32,
+# ..., at most 4), up to WARP_MAX_WIDTH; the block route, one thread per
+# label or slot (K11, K13: a block staging rows for one walking thread), up
+# to the kernel's own cap.
 ROUTES = ("warp", "block")
 WARP_MAX_WIDTH = 128
 # K2's, K5's and K8's warp routes run their posterior kernel, and K10's its
@@ -95,8 +96,8 @@ def raise_on_error(fn_name: str, err: int) -> None:
 def width_route(width: int) -> str:
     """The route ``'auto'`` takes for a kernel with two routes whose widest
     row is ``width`` words (K1 and K2: max(labels, target slots); K3, K4,
-    K5 and K10: labels; K6, K7, K8 and K12: target slots): ``'warp'`` up to
-    WARP_MAX_WIDTH, else ``'block'``."""
+    K5, K10 and K11: labels; K6, K7, K8, K12 and K13: target slots):
+    ``'warp'`` up to WARP_MAX_WIDTH, else ``'block'``."""
     return "warp" if width <= WARP_MAX_WIDTH else "block"
 
 

@@ -13,8 +13,10 @@
 //   d_end = d_{L-1} (-inf when L is outside [1, T]).
 //   Max-plus is exact, so scores and backpointers are bit-identical to the
 //   plain PyTorch version.
-// K11: path[t] = final at t = L-1, backptr[t+1][path[t+1]] before it, -1
-//   after it (and at t = T-1 unless L = T).
+// K11: path[t] = final at t = L-1 (as given, whatever its range),
+//   backptr[t+1][p] with p = max(path[t+1], 0) before it, or 0 where p >= N
+//   (the JAX kernel's one-hot select finds no lane there), -1 after it (and
+//   at t = T-1 unless L = T; for L > T the walk starts from -1 at T-1).
 //
 // What bounds them on an H100: the serial chains.  K10 takes T dependent
 // steps of an N x N max-plus product (no tensor-core form); K11 takes T
@@ -47,10 +49,26 @@
 //     when it fits (thread i reads column i, conflict-free), the carry d in
 //     shared memory, and the next emission row is loaded before the step's
 //     max-plus loop so its latency overlaps it.  Two barriers a step.
-// K11: one block per element; the block copies a chunk of backpointer rows
-// into shared memory with coalesced loads, then one thread walks the
-// chunk, so each dependent lookup costs a shared-memory read and not a
-// global-memory round trip.
+// K11 and K13 (below) have two routes each with the same outputs, picked
+// by the wrapper (common.py::width_route of the label or slot count):
+//   - the warp route (width <= 128; lane l holds words l, l+32, ..., RW =
+//     1, 2 or 4 of a row, a template parameter), backtrace_warp: one warp
+//     per element walks t = min(L, T) - 2 .. 0 with no barrier.  A step is
+//     s = max(x, 0), the lanes' word s >> 5 (0 past the last), one shuffle
+//     from lane s & 31, and x = that value (K11) or s minus it (K13).
+//     Lanes past the width hold 0, so the "0 outside [0, width)" rule costs
+//     nothing on the chain.  The rows wait in a register ring of
+//     backtrace_ring = 16-32 frames, walked downward with pointer
+//     decrements, each load refilling the slot its step has just read; the
+//     time loop is unrolled by the ring's depth with no exit inside a group
+//     and no condition on a load (the steps past frame 0 read row 1 again
+//     and store nothing).  Each step's value is stored by lane 0,
+//     fire-and-forget, off the dependent path.  Frames min(L, T)-1 .. T-1
+//     (the start value, then -1) are written before the walk, off the chain.
+//   - the block route (any width): one block per element copies a chunk of
+//     rows into shared memory with coalesced loads, then one thread walks
+//     the chunk, so each dependent lookup costs a shared-memory read and
+//     not a global-memory round trip.
 // Both routes' times on an H100 are in PERF.md section 6 (chip_smoke.py).
 //
 // Forced alignment in the same semiring: the forward with one advance bit
@@ -70,12 +88,13 @@
 //   version's too.  Max-plus is exact: bit-identical to the plain version.
 // K13: pos[T-1] = L_out-1 if L = T else -1; for t < T-1, pos[t] = L_out-1 at
 //   t = L-1, p - adv[t+1][p] with p = max(pos[t+1], 0) before it (no step
-//   back when p >= S), -1 after it.
+//   back when p >= S; adv values other than 0 and 1 are subtracted as
+//   given), -1 after it.
 //
 // What bounds them: the serial chain again, two candidates a step instead
-// of N, so a step is a few dependent operations; K13 is K11's chunked walk
-// over the advance bits.  K12 has two routes with the same outputs, picked
-// by the wrapper (common.py::width_route of the slot count):
+// of N, so a step is a few dependent operations; K13 is K11's walk over the
+// advance bits, on the same two routes.  K12 has two routes with the same
+// outputs, picked by the wrapper (common.py::width_route of the slot count):
 //   - the warp route (S <= 128; lane l holds slots l, l+32, ..., RS = 1, 2
 //     or 4 words of a row, a template parameter), align_forward_warp_kernel:
 //     one warp per element walks the chain with no barrier.  A step takes
@@ -176,8 +195,7 @@ __global__ void viterbi_backtrace_kernel(
 
   const int b = blockIdx.x;
   const int L = li[b];
-  const int f = fin[b];
-  const int final_lab = f < 0 ? 0 : (f >= n ? n - 1 : f);
+  const int final_lab = fin[b];
   int lab = -1;  // thread 0's walk state: the label at frame t+1
 
   for (int t1 = t_total; t1 > 0; t1 -= tc) {
@@ -198,7 +216,7 @@ __global__ void viterbi_backtrace_kernel(
           lab = final_lab;
         } else if (t < L - 1 && t < t_total - 1) {
           const int from = lab < 0 ? 0 : lab;
-          lab = rows[(size_t)(t - t0) * n + from];
+          lab = from < n ? rows[(size_t)(t - t0) * n + from] : 0;
         } else {
           lab = -1;
         }
@@ -624,6 +642,115 @@ __global__ void __launch_bounds__(32, 1) align_forward_warp_kernel(
   store_row(dend + (size_t)b * s_total, s_total, lane, d_end);
 }
 
+// Frames of rows in flight in the backtraces' warp route: 32, or 16 where a
+// lane's row is 4 words (RW = 4), so that the ring stays at 64 registers.
+template <int RW>
+__host__ __device__ constexpr int backtrace_ring() { return RW <= 2 ? 32 : 16; }
+
+// The warp route of K11 (kAlign false: x = the label, rows = backpointers)
+// and K13 (kAlign true: x = the position, rows = advance bits): one warp per
+// element b = blockIdx.x.  Frame t reads row t + 1, which waits in ring slot
+// (live - 2 - t) % kRing, loaded kRing steps before its step into the slot
+// its step has just read.  Loads never wait on a condition: the loads for
+// the steps past frame 0, which store nothing, read row 1 again.  (Loads
+// under a condition made the compiler branch around them at RW > 1, and a
+// branch in the group serialised the steps.)  The word is picked by
+// comparing s with each word's bound; a test of s >> 5 against the word's
+// index made the compiler index a copy of the row in local memory.
+template <bool kAlign, int RW>
+__device__ __forceinline__ void backtrace_warp(
+    const int* __restrict__ rows,   // (T, B, W) backpointers or advance bits
+    const int* __restrict__ start,  // (B,) final labels or end slots
+    const int* __restrict__ li,     // (B,)
+    int* __restrict__ out,          // (T, B) path or positions
+    int t_total, int batch, int width) {
+  constexpr int kRing = backtrace_ring<RW>();
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const int L = li[b];
+  const int live = L < 0 ? 0 : (L > t_total ? t_total : L);
+  // frame live - 1 holds the start where L lies in [1, T], -1 past T
+  int x = L >= 1 && L <= t_total ? start[b] : -1;
+  // frames live - 1 .. T - 1, off the chain: x, then -1
+  for (int t = (live > 0 ? live - 1 : 0) + lane; t < t_total; t += 32)
+    out[(size_t)t * batch + b] = t == live - 1 ? x : -1;
+  if (live < 2) return;
+
+  bool has[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) has[r] = lane + 32 * r < width;
+  const size_t stride = (size_t)batch * width;  // one frame's rows
+  const int* src = rows + ((size_t)(live - 1) * batch + b) * width + lane;  // row live - 1
+  int ring[kRing][RW];
+#pragma unroll
+  for (int u = 0; u < kRing; ++u) {  // rows live - 1 - u, row 1 below it
+#pragma unroll
+    for (int r = 0; r < RW; ++r) ring[u][r] = has[r] ? src[32 * r] : 0;
+    src -= live - 2 - u >= 1 ? stride : 0;
+  }
+  int* dst = out + (size_t)(live - 2) * batch + b;  // frame live - 2
+  for (int t0 = live - 2; t0 >= 0; t0 -= kRing) {
+#pragma unroll
+    for (int u = 0; u < kRing; ++u) {
+      const int t = t0 - u;  // reads row t + 1 from slot u
+      const int s = x > 0 ? x : 0;
+      int w = 0;  // the lane's word s >> 5 of the row, 0 past the last
+#pragma unroll
+      for (int r = RW - 1; r >= 0; --r) w = s < 32 * (r + 1) ? ring[u][r] : w;
+      const int v = __shfl_sync(kFull, w, s & 31);
+      x = kAlign ? s - v : v;
+      if (lane == 0 && t >= 0) *dst = x;
+      dst -= batch;
+      // row t + 1 - kRing (row 1 below it) into the slot just read
+#pragma unroll
+      for (int r = 0; r < RW; ++r) ring[u][r] = has[r] ? src[32 * r] : 0;
+      src -= t > kRing ? stride : 0;
+    }
+  }
+}
+
+template <int RW>
+__global__ void __launch_bounds__(32, 1) viterbi_backtrace_warp_kernel(
+    const int* __restrict__ bp, const int* __restrict__ fin, const int* __restrict__ li,
+    int* __restrict__ path, int t_total, int batch, int n) {
+  backtrace_warp<false, RW>(bp, fin, li, path, t_total, batch, n);
+}
+
+template <int RW>
+__global__ void __launch_bounds__(32, 1) align_backtrace_warp_kernel(
+    const int* __restrict__ adv, const int* __restrict__ end_s, const int* __restrict__ li,
+    int* __restrict__ pos, int t_total, int batch, int s_total) {
+  backtrace_warp<true, RW>(adv, end_s, li, pos, t_total, batch, s_total);
+}
+
+template <bool kAlign, int RW>
+void launch_backtrace_warp_r(const int* rows, const int* start, const int* li, int* out,
+                             int t_total, int batch, int width, cudaStream_t st) {
+  if constexpr (kAlign) {
+    align_backtrace_warp_kernel<RW><<<batch, 32, 0, st>>>(rows, start, li, out, t_total,
+                                                          batch, width);
+  } else {
+    viterbi_backtrace_warp_kernel<RW><<<batch, 32, 0, st>>>(rows, start, li, out, t_total,
+                                                            batch, width);
+  }
+}
+
+// RW = 1, 2 or 4 words a lane of each row: width <= 128.
+template <bool kAlign>
+int launch_backtrace_warp(const int* rows, const int* start, const int* li, int* out,
+                          int t_total, int batch, int width, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (width <= 32) {
+    launch_backtrace_warp_r<kAlign, 1>(rows, start, li, out, t_total, batch, width, st);
+  } else if (width <= 64) {
+    launch_backtrace_warp_r<kAlign, 2>(rows, start, li, out, t_total, batch, width, st);
+  } else if (width <= 128) {
+    launch_backtrace_warp_r<kAlign, 4>(rows, start, li, out, t_total, batch, width, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_align_forward(const T* ap, const T* self_tr, const T* next_tr, const int* li,
                          int* adv, T* dend, int t_total, int batch, int s_total,
@@ -750,6 +877,12 @@ int viterbi_backtrace(const int* bp, const int* fin, const int* li, int* path,
   return (int)cudaGetLastError();
 }
 
+// K11's warp route: the block route's arguments.
+int viterbi_backtrace_warp(const int* bp, const int* fin, const int* li, int* path,
+                           int t_total, int batch, int n, void* stream) {
+  return launch_backtrace_warp<false>(bp, fin, li, path, t_total, batch, n, stream);
+}
+
 int align_forward_f32(const float* ap, const float* self_tr, const float* next_tr,
                       const int* li, int* adv, float* dend, int t_total, int batch,
                       int s_total, void* stream) {
@@ -789,6 +922,12 @@ int align_backtrace(const int* adv, const int* end_s, const int* li, int* pos,
   align_backtrace_kernel<<<batch, 128, smem, (cudaStream_t)stream>>>(
       adv, end_s, li, pos, t_total, batch, s_total, tc);
   return (int)cudaGetLastError();
+}
+
+// K13's warp route: the block route's arguments.
+int align_backtrace_warp(const int* adv, const int* end_s, const int* li, int* pos,
+                         int t_total, int batch, int s_total, void* stream) {
+  return launch_backtrace_warp<true>(adv, end_s, li, pos, t_total, batch, s_total, stream);
 }
 
 // K10's warp route: the block route's arguments, then a (T, B, N) scratch

@@ -18,7 +18,12 @@ backpointers) and the block route (one thread per label, up to
 count: the warp route (up to 128 slots: one warp per element walks the
 two-edge chain and stores each advance bit as it goes) and the block route
 (one thread per slot, up to ``ALIGN_KERNEL_MAX_WIDTH``); ``align_forward_plain``
-is the plain version of both.
+is the plain version of both.  K11 and K13 have two routes each, picked by
+the label or slot count: the warp route (up to 128: one warp per element
+walks the rows from a register ring, one shuffle a frame) and the block
+route (a block stages a chunk of rows in shared memory and one thread walks
+it); ``viterbi_backtrace_plain`` and ``align_backtrace_plain`` are the plain
+versions of both.
 """
 
 from __future__ import annotations
@@ -116,21 +121,22 @@ def _viterbi_forward_split_plain(transition, inputs, input_lengths, chunk=None):
 
 
 def viterbi_backtrace_plain(final_labels, backptr, input_lengths):
-    """Plain version of K11: the (T, B) int32 path, -1 past L_in.
+    """Plain version of K11 (both routes): the (T, B) int32 path, -1 past
+    L_in.  Frame L_in - 1 holds ``final_labels`` as given; frame t before it
+    holds backptr[t + 1][b, max(path[t + 1], 0)], or 0 where that index is
+    N or more (the JAX kernel's one-hot select).
 
     backptr[t] maps the label at frame t to the label at frame t-1."""
-    t_total, num_batches, num_labels = backptr.shape
+    t_total, num_batches, _ = backptr.shape
     li = input_lengths.to(backptr.device)
     final = final_labels.to(device=backptr.device, dtype=torch.int32)
-    final = final.clamp(0, num_labels - 1)
     pad = torch.full_like(final, -1)
     paths = torch.empty((t_total, num_batches), dtype=torch.int32,
                         device=backptr.device)
     lab = torch.where(li - 1 == t_total - 1, final, pad)
     paths[t_total - 1] = lab
     for t in range(t_total - 2, -1, -1):
-        src = lab.clamp(min=0).long()[:, None]
-        prev = torch.gather(backptr[t + 1], 1, src)[:, 0]
+        prev = _select_row(backptr[t + 1], lab.clamp(min=0))
         lab = torch.where(li - 1 == t, final, torch.where(t < li - 1, prev, pad))
         paths[t] = lab
     return paths
@@ -200,12 +206,30 @@ def viterbi_forward_pallas(transition, inputs, input_lengths, *, route=None):
     return d_end, bp
 
 
-def viterbi_backtrace_pallas(final_labels, backptr, input_lengths):
-    """(T, B) int32 path from (T, B, N) backpointers, -1 past L_in: K11 on
-    CUDA tensors, its plain version on CPU ones.
+def _launch_backtrace(stem, route, rows, start, li, out):
+    """Launch K11 (``stem`` 'viterbi_backtrace') or K13 ('align_backtrace')
+    on ``route``: ``<stem>`` (the block route) or ``<stem>_warp`` (one warp
+    per element); both take the same arguments."""
+    t_total, num_batches, width = rows.shape
+    fn = _lib_fn(f"{stem}_warp" if route == "warp" else stem, 4)
+    with torch.cuda.device(rows.device):
+        err = fn(ptr(rows), ptr(start), ptr(li), ptr(out), t_total, num_batches, width,
+                 stream_ptr(rows.device))
+    raise_on_error(fn.__name__, err)
 
-    ``viterbi_backtrace_pallas.launches`` counts the kernel's launches.
+
+def viterbi_backtrace_pallas(final_labels, backptr, input_lengths, *, route=None):
+    """(T, B) int32 path from (T, B, N) backpointers, -1 past L_in: K11 on
+    CUDA tensors, on ``route`` ('warp', 'block', or None for
+    ``width_route`` of the label count), and its plain version on CPU ones.
+    Final labels are taken as given, and backpointers read as given: a
+    label outside [0, N) reads 0 at the frame before it (negative labels
+    read column 0).  Both routes give the plain version's path.
+
+    ``viterbi_backtrace_pallas.launches`` counts the kernel's launches,
+    ``.launches_<route>`` each route's.
     """
+    route = check_route("K11", route, backptr.shape[2])
     if not use_kernel(backptr, final_labels, input_lengths):
         return viterbi_backtrace_plain(final_labels, backptr, input_lengths)
     t_total, num_batches, num_labels = backptr.shape
@@ -219,12 +243,9 @@ def viterbi_backtrace_pallas(final_labels, backptr, input_lengths):
     paths = torch.empty((t_total, num_batches), dtype=torch.int32, device=dev)
     if paths.numel() == 0 or num_labels == 0:
         return paths.fill_(-1)
-    fn = _lib_fn("viterbi_backtrace", 4)
-    with torch.cuda.device(dev):
-        err = fn(ptr(backptr), ptr(fin), ptr(li), ptr(paths),
-                 t_total, num_batches, num_labels, stream_ptr(dev))
-    raise_on_error("viterbi_backtrace", err)
+    _launch_backtrace("viterbi_backtrace", route, backptr, fin, li, paths)
     viterbi_backtrace_pallas.launches += 1
+    count_route(viterbi_backtrace_pallas, route)
     return paths
 
 
@@ -263,8 +284,10 @@ def align_forward_plain(lat, input_lengths):
 
 
 def align_backtrace_plain(end_s, adv, input_lengths):
-    """Plain version of K13: (T, B) int32 target positions from the advance
-    bits, -1 past L_in.  Frame t reads adv[t + 1] at max(pos[t + 1], 0)."""
+    """Plain version of K13 (both routes): (T, B) int32 target positions
+    from the advance bits, -1 past L_in.  Frame L_in - 1 holds ``end_s`` as
+    given; frame t before it holds p - adv[t + 1][b, p] with p =
+    max(pos[t + 1], 0), or p where p is S or more."""
     t_total, num_batches, _ = adv.shape
     dev = adv.device
     end_t = input_lengths.to(dev) - 1
@@ -334,12 +357,19 @@ def align_forward_pallas(lat, input_lengths, *, route=None):
     return d_end, adv
 
 
-def align_backtrace_pallas(end_s, adv, input_lengths):
+def align_backtrace_pallas(end_s, adv, input_lengths, *, route=None):
     """(T, B) int32 target positions from (T, B, S) advance bits, -1 past
-    L_in: K13 on CUDA tensors, its plain version on CPU ones.
+    L_in: K13 on CUDA tensors, on ``route`` ('warp', 'block', or None for
+    ``width_route`` of the slot count), and its plain version on CPU ones.
+    End slots are taken as given, and advance values are subtracted as
+    given (not only 0 and 1): a position p reads adv[t + 1][max(p, 0)], or
+    0 where that slot is S or more.  Both routes give the plain version's
+    positions.
 
-    ``align_backtrace_pallas.launches`` counts the kernel's launches.
+    ``align_backtrace_pallas.launches`` counts the kernel's launches,
+    ``.launches_<route>`` each route's.
     """
+    route = check_route("K13", route, adv.shape[2])
     if not use_kernel(adv, end_s, input_lengths):
         return align_backtrace_plain(end_s, adv, input_lengths)
     t_total, num_batches, s_total = adv.shape
@@ -352,12 +382,9 @@ def align_backtrace_pallas(end_s, adv, input_lengths):
     positions = torch.empty((t_total, num_batches), dtype=torch.int32, device=dev)
     if positions.numel() == 0 or s_total == 0:
         return positions.fill_(-1)
-    fn = _lib_fn("align_backtrace", 4)
-    with torch.cuda.device(dev):
-        err = fn(ptr(adv), ptr(es), ptr(li), ptr(positions),
-                 t_total, num_batches, s_total, stream_ptr(dev))
-    raise_on_error("align_backtrace", err)
+    _launch_backtrace("align_backtrace", route, adv, es, li, positions)
     align_backtrace_pallas.launches += 1
+    count_route(align_backtrace_pallas, route)
     return positions
 
 
@@ -365,6 +392,7 @@ viterbi_forward_pallas.launches = 0
 viterbi_backtrace_pallas.launches = 0
 align_forward_pallas.launches = 0
 align_backtrace_pallas.launches = 0
-for _wrapper in (viterbi_forward_pallas, align_forward_pallas):
+for _wrapper in (viterbi_forward_pallas, viterbi_backtrace_pallas, align_forward_pallas,
+                 align_backtrace_pallas):
     for _route in ROUTES:
         setattr(_wrapper, f"launches_{_route}", 0)
