@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, wordpiece-training,
-forced-alignment, per-lattice training and posterior-decoding paths on one
-CUDA card, and check and time each hand-written kernel against its plain
-PyTorch version.
+forced-alignment, per-lattice training, posterior-decoding and n-best/beam
+serving paths on one CUDA card, with the native host library, and check
+and time each hand-written kernel against its plain PyTorch version.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit:
@@ -56,9 +56,14 @@ launches:
      scatter_to_full) and the per-lattice tier's (K3, K6, K7 -> K5, K8 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
      training shape;
+     native_runtime: g++ builds the native host library
+     (``torch_asg_tpu_torch/runtime/csrc/asg_host.cpp``), which must load;
+     every host call below passes ``use_native=True``;
   5. serve: the full-width Wav2Letter (random weights from a seed) answers 3
      requests of 64 utterances after one warm-up request: encoder ->
-     viterbi_decode -> collapse_path -> asg_scores and asg_loss.  Every
+     viterbi_decode -> collapse_path (native) -> asg_scores and asg_loss.
+     The first request's native hypotheses must equal the NumPy arm's, and
+     its stage split is taken with each arm of collapse_path.  Every
      serving kernel's launch count must rise in those 3 requests, and every
      K1, K10 and K11 launch must take the route 'auto' takes; the outputs
      are checked against the log-domain oracle tiers, one more request,
@@ -68,12 +73,23 @@ launches:
   6. train: the full-width Wav2Letter takes one warm-up step and 5 timed
      AdamW steps on one fixed batch of 64 utterances, prepared as
      ``examples/train_asg.py`` prepares them (cmvn -> pack_frames ->
-     encode_targets).  Each step must launch K1 with stores and K2 once,
+     encode_targets, native).  Host prep is timed with each arm, whose
+     batches must agree (features within CMVN_TOL, the rest exactly).  Each
+     step must launch K1 with stores and K2 once,
      each on the route 'auto' takes, and the score-only K1 never; losses and
      gradients must be finite, the first step's gradients must agree with
      the scan tier's, and the loss must fall.  One more step, synchronised
      after each stage, and the criterion's forward+backward alone (timed and
-     profiled) show where the time goes;
+     profiled) show where the time goes.  Then (``train_prefetch``) the
+     model trains on PREFETCH_BATCHES distinct full-width batches of one
+     shape three times from one saved model and optimizer state: serially
+     (prepare, copy, step), through ``device_prefetch(depth=2)`` (prep and
+     copy on a worker thread and a side stream), and on the serial loop's
+     batches already on the card (the step's own pace); each prefetched
+     batch must equal the serial loop's, tensor for tensor, and every loss
+     must be finite; each loop's steps per second, the worker's prep time
+     per batch, and the prefetched loop profiled (``train_prefetch``: busy
+     time, idle share);
   7. train_wordpiece: the full-width Wav2Letter with a 10,000-wordpiece head
      takes one warm-up step and 5 timed steps on a batch of 8 utterances
      (150-200 feature frames, 5-10 wordpiece targets), so 'auto' runs the
@@ -103,7 +119,20 @@ launches:
      collapse_path.  The posteriors must agree with the scan tier's, and the
      paths wherever the posteriors decide; one request is profiled
      (``posterior_request``);
- 11. the kernel table (every kernel launched on its path), the nvidia-smi
+ 11. serve_nbest: the full-width letter model answers 3 n-best requests of
+     64 utterances after a warm-up (encoder -> viterbi_nbest(k=4) -> native
+     collapse_path of the 4 x 64 hypotheses) and 3 beam requests on the same
+     features (encoder -> beam_decode(beam_size=16) -> collapse_path), and
+     beam_nbest(n=4, beam_size=16) runs on each request's emissions.  These
+     decoders are plain PyTorch (no kernel).  On the card they must equal
+     the port's CPU run on the same emissions to the bit, at the letter
+     width and at the wordpiece shape (T=100, B=8, N=10,000, beam decoders
+     only); rank 0 of viterbi_nbest must equal viterbi_decode (K10 + K11),
+     beam_decode at a full beam its scores, rank 0 of beam_nbest
+     beam_decode; scores descend along the ranks, and each path rescored on
+     the host gives its score within the fp32 accumulation bound.  One
+     viterbi_nbest call is profiled (``serve_nbest``);
+ 12. the kernel table (every kernel launched on its path), the nvidia-smi
      line, and last the result line.
 
 Precision: float32 matrix products and convolutions run in full float32
@@ -111,6 +140,7 @@ Precision: float32 matrix products and convolutions run in full float32
 when no CUDA device is available.
 """
 
+import copy
 import json
 import statistics
 import subprocess
@@ -1213,9 +1243,9 @@ def serve(rng, dev, counters):
                          (feats, feat_lengths, targets.astype(np.int32), lo.astype(np.int32))])
     torch.cuda.synchronize()
 
-    def answer(feats, feat_lengths, targets, lo, sync=lambda: None):
+    def answer(feats, feat_lengths, targets, lo, sync=lambda: None, native=True):
         """One request; ``sync`` runs after each stage (a no-op when timing
-        the whole request)."""
+        the whole request); ``native``: collapse_path's arm."""
         marks = [time.perf_counter()]
 
         def mark():
@@ -1229,7 +1259,8 @@ def serve(rng, dev, counters):
             dec = viterbi_decode(trans, em, li)
             mark()
             paths = dec.paths.cpu().numpy()
-            hyps = [collapse_path(paths[:, b], ALPHABET, MAX_REPS) for b in range(B)]
+            hyps = [collapse_path(paths[:, b], ALPHABET, MAX_REPS, use_native=native)
+                    for b in range(B)]
             mark()
             full, aligned = asg_scores(trans, em, targets, li, lo)
             mark()
@@ -1254,10 +1285,19 @@ def serve(rng, dev, counters):
     routes_seen = check_auto_route(launches["asg_scores_fused"], 0, 0,
                                    launches["viterbi_forward_pallas"])
     # where a request's time goes: the first request again, synchronised
-    # after each stage (outside the counted run)
-    _, stage_ms = answer(*requests[0], sync=torch.cuda.synchronize)
-    stages = dict(zip(("encoder", "viterbi_decode", "paths_to_host_and_collapse",
-                       "asg_scores", "asg_loss"), stage_ms))
+    # after each stage (outside the counted run), with each collapse arm
+    stage_names = ("encoder", "viterbi_decode", "paths_to_host_and_collapse", "asg_scores",
+                   "asg_loss")
+    stages = dict(zip(stage_names, answer(*requests[0], sync=torch.cuda.synchronize)[1]))
+    stages_numpy = dict(zip(stage_names, answer(*requests[0], sync=torch.cuda.synchronize,
+                                                native=False)[1]))
+    # the native hypotheses against the NumPy arm's, on the same paths
+    first_paths = outs[0][4].paths.cpu().numpy()
+    hyps_numpy = [collapse_path(first_paths[:, b], ALPHABET, MAX_REPS, use_native=False)
+                  for b in range(B)]
+    check(all(np.array_equal(h, w) and h.dtype == w.dtype
+              for h, w in zip(outs[0][5], hyps_numpy)),
+          "native hypotheses differ from the NumPy arm's")
     # one asg_scores call alone: its CUDA-event median and the device's share
     em, li, targets, lo = outs[0][:4]
 
@@ -1290,7 +1330,9 @@ def serve(rng, dev, counters):
           "requests": 3, "batch": B, "frames": T,
           "latency_ms": latencies, "median_latency_ms": statistics.median(latencies),
           "launches": launches, "route_launches": routes_seen,
-          "stage_ms_first_request": stages, "asg_scores_ms": scores_ms,
+          "stage_ms_first_request": stages,
+          "stage_ms_first_request_numpy_collapse": stages_numpy,
+          "native_hypotheses_equal_numpy": True, "asg_scores_ms": scores_ms,
           "asg_scores_profile": scores_profile, "viterbi_decode_profile": decode_profile,
           "max_abs_err_scores_vs_scan": max(float((full - ref_full).abs().max()),
                                             float((aligned - ref_aligned).abs().max())),
@@ -1299,11 +1341,15 @@ def serve(rng, dev, counters):
     return launches
 
 
-def train_batch(rng):
+def train_batch(rng, longest=None):
     """Random utterances (64 features, 1000-2000 frames, each with its own
-    offset and scale) and label sequences (10-50 letters of ALPHABET)."""
+    offset and scale) and label sequences (10-50 letters of ALPHABET);
+    ``longest``, when given, is the first utterance's length."""
     utts = []
-    for length in rng.integers(1000, 2001, size=B):
+    lengths = rng.integers(1000, 2001, size=B)
+    if longest is not None:
+        lengths[0] = longest
+    for length in lengths:
         loc, scale = rng.normal(size=FEATURES), rng.uniform(0.5, 2.0, size=FEATURES)
         utts.append((rng.normal(size=(int(length), FEATURES)) * scale + loc)
                     .astype(np.float32))
@@ -1311,17 +1357,52 @@ def train_batch(rng):
     return utts, labels
 
 
-def prepare_batch(utts, labels, dev):
+def host_batch(utts, labels, use_native=True):
     """The host data path of examples/train_asg.py with the port's own
-    modules: cmvn -> pack_frames -> encode_targets, then to the card."""
+    modules: cmvn -> pack_frames -> encode_targets, as NumPy arrays."""
     from torch_asg_tpu_torch.runtime import cmvn, encode_targets, pack_frames
 
-    feats, feat_lengths = pack_frames(cmvn(utts))
-    targets, target_lengths = encode_targets(labels, ALPHABET, MAX_REPS)
-    host = {"features": np.ascontiguousarray(feats.transpose(1, 0, 2)),
+    feats, feat_lengths = pack_frames(cmvn(utts, use_native=use_native),
+                                      use_native=use_native)
+    targets, target_lengths = encode_targets(labels, ALPHABET, MAX_REPS,
+                                             use_native=use_native)
+    return {"features": np.ascontiguousarray(feats.transpose(1, 0, 2)),
             "feature_lengths": feat_lengths, "targets": targets,
             "target_lengths": target_lengths}
-    return {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+
+
+def prepare_batch(utts, labels, dev):
+    """``host_batch`` (native), then to the card."""
+    return {k: torch.as_tensor(v).to(dev) for k, v in host_batch(utts, labels).items()}
+
+
+# the native arm's CMVN against the NumPy arm's (rtol, atol): float64
+# statistics in both, the last float32 rounding apart
+CMVN_TOL = (1e-5, 1e-5)
+
+
+def host_prep_arms(utts, labels, runs=3):
+    """Host prep of one batch with each arm: {arm: median ms}; the batches
+    must agree, features within CMVN_TOL and the rest exactly."""
+    batches, times = {}, {}
+    for arm, native in (("numpy", False), ("native", True)):
+        ms = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            batches[arm] = host_batch(utts, labels, use_native=native)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[arm] = statistics.median(ms)
+    for key, want in batches["numpy"].items():
+        got = batches["native"][key]
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"native {key} {got.shape} {got.dtype} against {want.shape} {want.dtype}")
+        if key == "features":
+            check(np.allclose(got, want, rtol=CMVN_TOL[0], atol=CMVN_TOL[1]),
+                  f"native features differ by {np.abs(got - want).max()}")
+        else:
+            check(np.array_equal(got, want), f"native {key} differ from the NumPy arm's")
+    return times, float(np.abs(batches["native"]["features"]
+                               - batches["numpy"]["features"]).max())
 
 
 def train(rng, dev):
@@ -1342,6 +1423,7 @@ def train(rng, dev):
     batch = prepare_batch(utts, labels, dev)
     li = model.output_length(batch["feature_lengths"]).to(torch.int32)
     check(int(batch["targets"].shape[1]) <= S, "encoded targets wider than S")
+    host_prep_ms, features_err = host_prep_arms(utts, labels)
 
     # the first step's gradients, fused tier against the scan tier (fp32)
     with torch.no_grad():
@@ -1437,8 +1519,105 @@ def train(rng, dev):
           "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
           "criterion_fwd_bwd_ms": criterion_ms, "spread_guard_ms": guard_ms,
           "criterion_frames_per_s": frames / (criterion_ms * 1e-3),
-          "criterion_profile": profiled})
+          "criterion_profile": profiled, "host_prep_ms": host_prep_ms,
+          "cmvn_tolerance": CMVN_TOL, "max_abs_err_native_features": features_err})
+    train_prefetch(np.random.default_rng([SEED, 13]), dev, state, step)
     return {k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")}, (utts, labels)
+
+
+PREFETCH_BATCHES = 12
+
+
+def prefetch_batches(rng):
+    """PREFETCH_BATCHES distinct full-width batches (utterances and labels),
+    each with a longest utterance of 2000 frames, so that every batch has one
+    shape and the encoder's convolutions plan it once."""
+    return [train_batch(rng, longest=2000) for _ in range(PREFETCH_BATCHES)]
+
+
+def prefetched(raw, dev, prep_ms=None):
+    """The batches of ``raw`` through ``device_prefetch(depth=2)``: native host
+    prep on a worker thread, the copy on a side stream; each batch's host
+    prep time on the worker is appended to ``prep_ms`` when given."""
+    from torch_asg_tpu_torch.runtime import device_prefetch
+
+    def prepare(item):
+        t0 = time.perf_counter()
+        out = host_batch(*item)
+        if prep_ms is not None:
+            prep_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return device_prefetch(raw, prepare, depth=2, device=dev)
+
+
+def run_loop(state, step, make_batches):
+    """One step on each batch that ``make_batches()`` yields, timed from
+    before that call to a device synchronise after the last step: (the
+    batches, the losses, the wall time in s, the ms until the first batch
+    was in hand: the part of a prefetched loop that nothing overlaps)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = make_batches()
+    seen, losses = [], []
+    try:
+        for batch in batches:
+            if not seen:
+                first_ms = (time.perf_counter() - t0) * 1e3
+            seen.append(batch)
+            state, loss = step(state, batch)
+            losses.append(loss)
+    finally:
+        if hasattr(batches, "close"):
+            batches.close()
+    torch.cuda.synchronize()
+    return seen, [float(x) for x in losses], time.perf_counter() - t0, first_ms
+
+
+def train_prefetch(rng, dev, state, step):
+    """PREFETCH_BATCHES distinct full-width batches, trained on from one
+    saved model and optimizer state, in the same order: serially (prepare,
+    copy, step), through ``device_prefetch``, and from the serial loop's
+    batches already on the card (the step's own pace).  The prefetcher
+    changes when a batch is copied, not what is copied: each of its batches
+    must equal the serial loop's, tensor for tensor."""
+    raw = prefetch_batches(rng)
+    state, _ = step(state, prepare_batch(*raw[0], dev))  # warm-up: the batches' shape
+    saved = (copy.deepcopy(state.model.state_dict()),
+             copy.deepcopy(state.optimizer.state_dict()), state.transition.detach().clone())
+
+    def restore():
+        state.model.load_state_dict(saved[0])
+        state.optimizer.load_state_dict(copy.deepcopy(saved[1]))
+        with torch.no_grad():
+            state.transition.copy_(saved[2])
+
+    runs = {}
+    restore()
+    runs["serial"] = run_loop(state, step, lambda: (prepare_batch(u, lab, dev)
+                                                    for u, lab in raw))
+    restore()
+    worker_prep_ms = []
+    runs["prefetched"] = run_loop(state, step, lambda: prefetched(raw, dev, worker_prep_ms))
+    restore()
+    runs["resident"] = run_loop(state, step, lambda: iter(runs["serial"][0]))
+    check(len(runs["prefetched"][0]) == PREFETCH_BATCHES, "the prefetcher lost a batch")
+    for i, (got, want) in enumerate(zip(runs["prefetched"][0], runs["serial"][0])):
+        for key in want:
+            check(got[key].device == want[key].device and got[key].dtype == want[key].dtype
+                  and torch.equal(got[key], want[key]),
+                  f"prefetched batch {i}'s {key} differs from the serial loop's")
+    for name, (_, losses, _, _) in runs.items():
+        check(all(np.isfinite(losses)), f"non-finite loss in the {name} loop: {losses}")
+    profiled = profile_call("train_prefetch")
+    emit({"phase": "train_prefetch", "card": torch.cuda.get_device_name(0),
+          "batches": PREFETCH_BATCHES, "batch": B, "depth": 2,
+          **{f"{name}_steps_per_s": PREFETCH_BATCHES / wall
+             for name, (_, _, wall, _) in runs.items()},
+          **{f"{name}_first_batch_ms": first for name, (_, _, _, first) in runs.items()},
+          **{f"{name}_losses": losses for name, (_, losses, _, _) in runs.items()},
+          "worker_host_prep_ms": worker_prep_ms,
+          "batches_equal_serial": True, "prefetched_loop_profile": profiled})
 
 
 def device_profile(fn, names=()):
@@ -1487,6 +1666,9 @@ PROFILES = {
                          + K7_WARP_PHASES + K8_WARP_PHASES),
     "pallas_scores": K4_WARP_PHASES + K7_WARP_PHASES,
     "posterior_request": K3_WARP_PHASES + K5_WARP_PHASES,
+    # plain PyTorch: no kernel of the port
+    "train_prefetch": (),
+    "serve_nbest": (),
 }
 PROFILE_TRIES = 3
 
@@ -1583,6 +1765,15 @@ def profile_target(name, dev):
             ak.fac_bwd_pallas(lat, *fac_chains, g, route="warp")
 
         return warp_routes, RUNS
+    if name == "train_prefetch":
+        # train_prefetch's prefetched loop over batches of its shape
+        from torch_asg_tpu_torch.models import create_train_state, make_train_step
+
+        model = letter_model(rng, dev)
+        state = create_train_state(model)
+        step = make_train_step(model, state.optimizer)
+        raw = prefetch_batches(rng)
+        return (lambda: run_loop(state, step, lambda: prefetched(raw, dev))), 3
     if name.endswith("criterion") or name == "pallas_scores":
         # asg_loss forward + backward on fixed emissions, as the training
         # phases time it; or one score-only call through the per-lattice
@@ -1619,6 +1810,13 @@ def profile_target(name, dev):
     feat_lengths = torch.as_tensor(rng.integers(1000, 2001, size=B), device=dev)
     feats = torch.as_tensor(rng.normal(size=(B, 2000, FEATURES)).astype(np.float32),
                             device=dev)
+    if name == "serve_nbest":
+        from torch_asg_tpu_torch import viterbi_nbest
+
+        with torch.no_grad():
+            em = model(feats)
+            li = model.output_length(feat_lengths).to(torch.int32)
+        return (lambda: viterbi_nbest(trans, em, NBEST_K, li)), 5
     if name == "serve_decode":
         with torch.no_grad():
             em = model(feats)
@@ -1650,7 +1848,7 @@ def profile_target(name, dev):
             li = model.output_length(feat_lengths).to(torch.int32)
             paths = posterior_decode(trans, em, li).paths.cpu().numpy()
             for b in range(B):
-                collapse_path(paths[:, b], ALPHABET, MAX_REPS)
+                collapse_path(paths[:, b], ALPHABET, MAX_REPS, use_native=True)
         torch.cuda.synchronize()
 
     return request, 5
@@ -1689,7 +1887,7 @@ def wordpiece_batch(rng, dev):
         loc, scale = rng.normal(size=FEATURES), rng.uniform(0.5, 2.0, size=FEATURES)
         utts.append((rng.normal(size=(int(length), FEATURES)) * scale + loc)
                     .astype(np.float32))
-    feats, feat_lengths = pack_frames(cmvn(utts))
+    feats, feat_lengths = pack_frames(cmvn(utts, use_native=True), use_native=True)
     target_lengths = rng.integers(WP_S // 2, WP_S + 1, size=WP_B).astype(np.int32)
     targets = rng.integers(0, WP_N, size=(WP_B, WP_S)).astype(np.int32)
     host = {"features": np.ascontiguousarray(feats.transpose(1, 0, 2)),
@@ -2134,7 +2332,8 @@ def serve_posterior(rng, dev):
             dec = posterior_decode(trans, em, li)
             mark()
             paths = dec.paths.cpu().numpy()
-            hyps = [collapse_path(paths[:, b], ALPHABET, MAX_REPS) for b in range(B)]
+            hyps = [collapse_path(paths[:, b], ALPHABET, MAX_REPS, use_native=True)
+                    for b in range(B)]
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         return (em, li, dec, hyps), [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
@@ -2196,6 +2395,169 @@ def serve_posterior(rng, dev):
           "paths_equal_scan_share": float((dec.paths == ref.paths)[valid].float().mean()),
           "hypothesis_lengths_first_request": [len(h) for h in outs[0][3][:8]]})
     return launches
+
+
+NBEST_K, BEAM = 4, 16
+
+
+def rescore(trans, em, li, paths):
+    """(scores, bounds): each path of ``paths`` (T, B, R) rescored in
+    float64 on the host over the emissions ``em`` (T, B, N) and the
+    transition, and the worst-case float32 accumulation error of the
+    decoder's sum, 2 L u sum |terms| (two roundings a frame, u = 2^-24)."""
+    em = em.double().cpu().numpy()
+    tr = trans.double().cpu().numpy()
+    p = paths.cpu().numpy().astype(np.int64)
+    valid = np.arange(em.shape[0])[:, None, None] < li.cpu().numpy()[None, :, None]
+    check(bool(((p >= 0) & (p < em.shape[2]))[np.broadcast_to(valid, p.shape)].all())
+          and bool((p[~np.broadcast_to(valid, p.shape)] == -1).all()),
+          "paths must hold labels inside L_in and -1 past it")
+    q = p.clip(0)
+    terms_e = np.where(valid, np.take_along_axis(em, q, axis=2), 0.0)
+    terms_t = np.where(valid[1:], tr[q[1:], q[:-1]], 0.0)
+    scores = terms_e.sum(axis=0) + terms_t.sum(axis=0)
+    mass = np.abs(terms_e).sum(axis=0) + np.abs(terms_t).sum(axis=0)
+    return scores, 2.0 * li.cpu().numpy()[:, None] * 2.0 ** -24 * mass
+
+
+def check_rescore(name, trans, em, li, paths, scores):
+    want, tol = rescore(trans, em, li, paths)
+    err = np.abs(scores.double().cpu().numpy().reshape(want.shape) - want)
+    check(bool((err <= tol).all()), f"{name}: a path rescores {float((err - tol).max())} "
+          "past the fp32 accumulation bound")
+    return float(err.max())
+
+
+def serve_nbest(rng, dev):
+    """The full-width letter model answers 3 n-best requests of 64
+    utterances after a warm-up (encoder -> viterbi_nbest(k=NBEST_K) ->
+    native collapse_path of each hypothesis) and 3 beam requests on the same
+    features (encoder -> beam_decode(beam_size=BEAM) -> collapse_path);
+    beam_nbest(n=NBEST_K, beam_size=BEAM) runs on each request's emissions.
+    The card's results must equal the port's CPU run on the same emissions,
+    to the bit (additions, maxima and selections only, with one tie rule on
+    both devices), here and at the wordpiece shape."""
+    from torch_asg_tpu_torch import beam_decode, beam_nbest, viterbi_decode, viterbi_nbest
+    from torch_asg_tpu_torch.convert import transition_from_numpy
+    from torch_asg_tpu_torch.runtime import collapse_path
+
+    model = letter_model(rng, dev).eval()
+    trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
+                                  dtype=torch.float32)
+    requests = []
+    for _ in range(4):
+        feat_lengths = rng.integers(1000, 2001, size=B)
+        feats = rng.normal(size=(B, 2000, FEATURES)).astype(np.float32)
+        requests.append([torch.as_tensor(x, device=dev) for x in (feats, feat_lengths)])
+    torch.cuda.synchronize()
+
+    def answer(feats, feat_lengths, decoder, sync=lambda: None):
+        """One request through ``decoder`` ('nbest' or 'beam')."""
+        marks = [time.perf_counter()]
+
+        def mark():
+            sync()
+            marks.append(time.perf_counter())
+
+        with torch.no_grad():
+            em = model(feats)
+            li = model.output_length(feat_lengths).to(torch.int32)
+            mark()
+            if decoder == "nbest":
+                res = viterbi_nbest(trans, em, NBEST_K, li)
+            else:
+                res = beam_decode(trans, em, li, beam_size=BEAM)
+            mark()
+            paths = res.paths.cpu().numpy().reshape(T, B, -1)
+            hyps = [collapse_path(paths[:, b, r], ALPHABET, MAX_REPS, use_native=True)
+                    for b in range(B) for r in range(paths.shape[2])]
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return (em, li, res, hyps), [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    for decoder in ("nbest", "beam"):
+        answer(*requests[0], decoder)  # warm-up
+    latencies = {"nbest": [], "beam": [], "beam_nbest": []}
+    outs = []
+    for req in requests[1:]:
+        out, stage_ms = answer(*req, "nbest")
+        latencies["nbest"].append(sum(stage_ms))
+        beam_out, stage_ms = answer(*req, "beam")
+        latencies["beam"].append(sum(stage_ms))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            bn = beam_nbest(trans, out[0], NBEST_K, out[1], beam_size=BEAM)
+        torch.cuda.synchronize()
+        latencies["beam_nbest"].append((time.perf_counter() - t0) * 1e3)
+        outs.append(out + (beam_out[2], bn))
+    names = ("encoder", "decode", "paths_to_host_and_collapse")
+    stages = {d: dict(zip(names, answer(*requests[1], d, sync=torch.cuda.synchronize)[1]))
+              for d in ("nbest", "beam")}
+    profiled = profile_call("serve_nbest")
+
+    errs = {}
+    for i, (em, li, nb, hyps, bd, bn) in enumerate(outs):
+        check(all(len(h) > 0 for h in hyps), "empty hypothesis")
+        with torch.no_grad():
+            vd = viterbi_decode(trans, em, li)  # K10 + K11
+            full = beam_decode(trans, em, li, beam_size=N)
+        check(torch.equal(nb.scores[:, 0], vd.scores) and torch.equal(nb.paths[:, :, 0], vd.paths),
+              "rank 0 of viterbi_nbest differs from viterbi_decode")
+        check(torch.equal(full.scores, vd.scores),
+              "beam_decode at a full beam scores otherwise than viterbi_decode")
+        check(torch.equal(bn.scores[:, 0], bd.scores) and torch.equal(bn.paths[:, :, 0], bd.paths),
+              "rank 0 of beam_nbest differs from beam_decode")
+        for name, res in (("viterbi_nbest", nb), ("beam_nbest", bn)):
+            check(bool((res.scores[:, 1:] <= res.scores[:, :-1]).all()),
+                  f"{name} scores do not descend along the ranks")
+            check(bool(torch.isfinite(res.scores).all()), f"non-finite {name} score")
+        for name, res in (("viterbi_nbest", nb), ("beam_decode", bd), ("beam_nbest", bn)):
+            err = check_rescore(name, trans, em, li, res.paths.reshape(T, B, -1), res.scores)
+            errs[name] = max(errs.get(name, 0.0), err)
+        if i == 0:
+            # the card against the port's CPU run on the same float32 emissions
+            cpu = [x.cpu() for x in (trans, em, li)]
+            for name, got, want in (
+                    ("viterbi_nbest", nb, viterbi_nbest(cpu[0], cpu[1], NBEST_K, cpu[2])),
+                    ("beam_decode", bd, beam_decode(*cpu, beam_size=BEAM)),
+                    ("beam_nbest", bn, beam_nbest(cpu[0], cpu[1], NBEST_K, cpu[2],
+                                                  beam_size=BEAM))):
+                check(torch.equal(got.scores.cpu(), want.scores)
+                      and torch.equal(got.paths.cpu(), want.paths),
+                      f"{name} on the card differs from its CPU run")
+
+    # the beam decoders at the wordpiece shape, card against CPU
+    wp_rng = np.random.default_rng([SEED, 14])
+    wp_em = wp_rng.standard_normal((WP_T, WP_B, WP_N), dtype=np.float32)
+    wp_trans = wp_rng.standard_normal((WP_N, WP_N), dtype=np.float32) * np.float32(0.5)
+    wp_li = wp_rng.integers(WP_T // 2, WP_T + 1, size=WP_B).astype(np.int32)
+    wp_li[0] = WP_T
+    cpu = [torch.from_numpy(x) for x in (wp_trans, wp_em, wp_li)]
+    card = [x.to(dev) for x in cpu]
+    wp_ms = {}
+    for name, fn in (("beam_decode", lambda a: beam_decode(*a, beam_size=BEAM)),
+                     ("beam_nbest", lambda a: beam_nbest(a[0], a[1], NBEST_K, a[2],
+                                                         beam_size=BEAM))):
+        fn(card)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(card)
+        torch.cuda.synchronize()
+        wp_ms[name] = (time.perf_counter() - t0) * 1e3
+        want = fn(cpu)
+        check(torch.equal(got.scores.cpu(), want.scores)
+              and torch.equal(got.paths.cpu(), want.paths),
+              f"{name} at the wordpiece shape on the card differs from its CPU run")
+    emit({"phase": "serve_nbest", "card": torch.cuda.get_device_name(0), "requests": 3,
+          "batch": B, "frames": T, "k": NBEST_K, "beam_size": BEAM,
+          "latency_ms": latencies,
+          "median_latency_ms": {k: statistics.median(v) for k, v in latencies.items()},
+          "stage_ms_first_request": stages, "viterbi_nbest_profile": profiled,
+          "card_equals_cpu": True, "rank0_equals_viterbi_decode": True,
+          "rescore_tolerance": "2 L 2^-24 sum|terms| (fp32 accumulation bound)",
+          "max_abs_err_rescored": errs,
+          "wordpiece_shape": {"T": WP_T, "B": WP_B, "N": WP_N, "call_ms": wp_ms,
+                              "card_equals_cpu": True}})
 
 
 def spill_bytes(log, marker):
@@ -2317,6 +2679,13 @@ def main(argv):
         emit({"phase": "kernel", **k})
     check_grads_vs_scan(rng, dev)
 
+    from torch_asg_tpu_torch.runtime import has_native_runtime, host
+
+    t0 = time.perf_counter()
+    check(has_native_runtime(), f"the native host library did not build: {host._lib_error}")
+    emit({"phase": "native_runtime", "library": host.library_path().name,
+          "seconds": time.perf_counter() - t0})
+
     counters = (asg_scores_fused, viterbi_forward_pallas, viterbi_backtrace_pallas)
     launches = serve(rng, dev, counters)
     train_launches, (utts, labels) = train(rng, dev)
@@ -2326,6 +2695,7 @@ def main(argv):
     rng_pallas = np.random.default_rng([SEED, 41])
     launches.update(train_pallas(rng_pallas, dev, utts, labels))
     serve_posterior(rng_pallas, dev)
+    serve_nbest(np.random.default_rng([SEED, 15]), dev)
 
     src = "torch_asg_tpu_torch/ops/kernels/csrc/"
     meta = (

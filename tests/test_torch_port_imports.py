@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads no JAX, no Flax and nothing of
-the JAX package; and ``chip_smoke.py`` refuses to run without a card."""
+the JAX package, and builds nothing; and ``chip_smoke.py`` refuses to run
+without a card."""
 
 import os
 import shutil
@@ -23,6 +24,7 @@ import torch_asg_tpu_torch.ops.kernels.bigvocab_kernels
 import torch_asg_tpu_torch.ops.kernels.viterbi_kernels, torch_asg_tpu_torch.ops.kernels.common
 import torch_asg_tpu_torch.ops.kernels.fcc_kernels, torch_asg_tpu_torch.ops.kernels.fac_kernels
 import torch_asg_tpu_torch.ops.posteriors
+import torch_asg_tpu_torch.runtime.bucketing, torch_asg_tpu_torch.runtime.prefetch
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'torch_asg_tpu'))
 print(bad)
@@ -40,6 +42,23 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_runtime_import_builds_nothing(tmp_path):
+    """Importing the runtime (a copy of the package, so no other test's build
+    is seen) leaves no file under ``runtime/build/``."""
+    shutil.copytree(REPO / "torch_asg_tpu_torch", tmp_path / "torch_asg_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(tmp_path)
+    code = ("import torch_asg_tpu_torch.runtime as rt; "
+            "assert rt.host.BUILD.parent.parent.parent == __import__('pathlib').Path("
+            f"{str(tmp_path)!r}).resolve()")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    build = tmp_path / "torch_asg_tpu_torch" / "runtime" / "build"
+    assert not build.exists() or not any(build.iterdir())
 
 
 @pytest.mark.parametrize("alone", [False, True])

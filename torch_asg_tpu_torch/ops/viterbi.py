@@ -27,6 +27,14 @@ target slots; ``'xla'``, the kernels' plain versions (PyTorch loops over the
 frames, any width); ``'auto'``, ``'pallas'`` for CUDA tensors within the cap,
 ``'xla'`` otherwise.  Both break a stay/advance tie toward staying, so their
 positions are bit-identical.
+
+``viterbi_nbest`` (the k best distinct paths, for LM rescoring),
+``beam_decode`` (beam-pruned decoding for wordpiece-scale vocabularies,
+O(T B N K) instead of O(T B N^2)) and ``beam_nbest`` (the n best final-label
+hypotheses of one beam pass) are plain PyTorch loops over the frames, on
+any device; the JAX package runs them in XLA, with no Pallas kernel.  They
+use only additions, maxima and selections, and break every tie toward the
+lowest index (``_topk``), so their bits do not depend on the device.
 """
 
 from __future__ import annotations
@@ -66,6 +74,20 @@ class AlignmentResult(NamedTuple):
 class SegmentsResult(NamedTuple):
     starts: torch.Tensor  # (B, S) int32 first frame of slot s, -1 if unused
     ends: torch.Tensor  # (B, S) int32 last frame (inclusive), -1 if unused
+
+
+def _decode_inputs(transition, inputs, input_lengths):
+    """The decoders' common preparation: full lengths when none are given,
+    lengths and transition on the emissions' device, and half-precision
+    emissions in float32 (path scores accumulate over T steps, too long for
+    half-precision mantissas)."""
+    t_total, num_batches, _ = inputs.shape
+    if input_lengths is None:
+        input_lengths = default_lengths(num_batches, t_total, inputs.device)
+    input_lengths = input_lengths.to(inputs.device)
+    if inputs.dtype in (torch.bfloat16, torch.float16):
+        inputs = inputs.float()
+    return transition.to(device=inputs.device, dtype=inputs.dtype), inputs, input_lengths
 
 
 def _maxplus_argmax(transition, d_prev):
@@ -115,13 +137,7 @@ def viterbi_decode(
     impl: 'pallas' | 'xla' | 'auto' (see the module docstring).
     """
     t_total, num_batches, num_labels = inputs.shape
-    if input_lengths is None:
-        input_lengths = default_lengths(num_batches, t_total, inputs.device)
-    input_lengths = input_lengths.to(inputs.device)
-    # path scores accumulate over T steps, too long for half-precision mantissas
-    if inputs.dtype in (torch.bfloat16, torch.float16):
-        inputs = inputs.float()
-    transition = transition.to(device=inputs.device, dtype=inputs.dtype)
+    transition, inputs, input_lengths = _decode_inputs(transition, inputs, input_lengths)
 
     if impl == "auto":
         impl = (
@@ -237,3 +253,186 @@ def viterbi_align(
     alignable = (target_lengths >= 1) & (target_lengths <= s_total)
     scores = torch.where(alignable, _select_row(d_end, end_s), NEG_INF)
     return AlignmentResult(scores, positions, _labels_from_positions(positions, lat.targets))
+
+
+class NBestResult(NamedTuple):
+    scores: torch.Tensor  # (B, K) best-path scores, descending per element
+    paths: torch.Tensor  # (T, B, K) int32 labels, -1 at padding frames
+
+
+def _topk(x: torch.Tensor, k: int):
+    """The k largest entries along the last axis, as ``lax.top_k`` gives
+    them: (values, int32 indices), equal values in ascending index order,
+    -inf ties included.  ``torch.topk`` promises no order among equal
+    values, so this is a stable descending sort cut to k, at every width."""
+    if k > x.shape[-1]:
+        raise ValueError(f"_topk: k={k} exceeds last-axis width {x.shape[-1]}")
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def _maxplus_topk(transition, d_prev, k):
+    """(vals, flat_idx) of the top k over (j, r) of
+    ``transition[i, j] + d_prev[b, j, r]``, flat index j * k + r.  Past
+    ``_CHUNK_MIN_LABELS // k`` labels the destination rows go in chunks of
+    ``_CHUNK_SIZE // k``, so only (B, chunk, N * k) is live."""
+    num_labels = transition.shape[0]
+    num_batches = d_prev.shape[0]
+
+    def top(rows):
+        cand = rows[None, :, :, None] + d_prev[:, None, :, :]
+        return _topk(cand.reshape(num_batches, rows.shape[0], num_labels * k), k)
+
+    if num_labels <= max(1, _CHUNK_MIN_LABELS // k):
+        return top(transition)
+    vals, idx = zip(*(top(rows) for rows in torch.split(transition, max(1, _CHUNK_SIZE // k))))
+    return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
+
+
+def viterbi_nbest(
+    transition: torch.Tensor,
+    inputs: torch.Tensor,
+    k: int,
+    input_lengths: Optional[torch.Tensor] = None,
+) -> NBestResult:
+    """The k best label paths per batch element (for LM rescoring).
+
+    The lattice state is (label, rank): slot (i, r) holds the score of the
+    r-th best path ending in label i, so the k slots of a label are k
+    distinct paths and the final top k over all (i, r) are the k best paths.
+    Rank 0 is ``viterbi_decode``'s path.  If fewer than k paths exist (k > N
+    at T = 1), the tail ranks score -inf.  Work is O(T B N^2 k).
+    """
+    t_total, num_batches, num_labels = inputs.shape
+    transition, inputs, input_lengths = _decode_inputs(transition, inputs, input_lengths)
+    inputs_m = mask_emissions(inputs, input_lengths)
+    last = (input_lengths - 1)[:, None]
+
+    d = torch.full((num_batches, num_labels, k), NEG_INF, dtype=inputs.dtype,
+                   device=inputs.device)
+    d[:, :, 0] = inputs_m[0]
+    d_end, backptr = d, []
+    for t in range(1, t_total):
+        vals, idx = _maxplus_topk(transition, d, k)
+        d = inputs_m[t][:, :, None] + vals
+        d_end = torch.where((last == t)[:, :, None], d, d_end)
+        backptr.append(idx.reshape(num_batches, num_labels * k))
+    scores, flat_fin = _topk(d_end.reshape(num_batches, num_labels * k), k)
+
+    # the backtrace in flat (label * k + rank) coordinates, masked at each
+    # element's end as the 1-best decoder's; -1 marks padding frames
+    pad = torch.full_like(flat_fin, -1)
+    flat = torch.where(last == t_total - 1, flat_fin, pad)
+    flats = [flat]
+    for t in range(t_total - 2, -1, -1):
+        prev = _select_rows(backptr[t], flat.clamp(min=0))
+        flat = torch.where(last == t, flat_fin, torch.where(t < last, prev, pad))
+        flats.append(flat)
+    flat_all = torch.stack(flats[::-1])
+    paths = torch.where(flat_all >= 0, torch.div(flat_all, k, rounding_mode="floor"), -1)
+    return NBestResult(scores, paths.to(torch.int32))
+
+
+def beam_decode(
+    transition: torch.Tensor,
+    inputs: torch.Tensor,
+    input_lengths: Optional[torch.Tensor] = None,
+    *,
+    beam_size: int = 16,
+) -> ViterbiResult:
+    """Beam-pruned Viterbi decode: the ``beam_size`` best labels survive each
+    frame, so a step is O(B N K) (the live labels' outgoing transition rows,
+    a max over them, a top K over N) where the exact step is O(B N^2).
+
+    ``scores`` lower-bounds the exact Viterbi score, with equality whenever
+    the best path's label at every frame lies inside that frame's beam; it
+    does not fall as ``beam_size`` grows, and ``beam_size >= N`` gives
+    ``viterbi_decode``'s scores.  Ties go to the lowest (score-ranked) beam
+    slot, not the lowest source label, so on exact ties an equally scoring
+    path may differ from ``viterbi_decode``'s.
+
+    transition: (N, N), [i, j] = score of j -> i; inputs: (T, B, N).
+    """
+    d_end, labs, bps, input_lengths = _beam_forward(transition, inputs, input_lengths,
+                                                    beam_size)
+    start = torch.zeros((inputs.shape[1], 1), dtype=torch.int32, device=labs.device)
+    return ViterbiResult(d_end[:, 0], _beam_backtrace(labs, bps, input_lengths, start)[:, :, 0])
+
+
+def _beam_forward(transition, inputs, input_lengths, beam_size):
+    """The beam-pruned forward pass of ``beam_decode`` and ``beam_nbest``:
+    (d_end (B, K) the end-frame beam scores, descending; labs (T, B, K) the
+    beam's labels at each frame; bps (T, B, K) slot at t -> slot at t - 1,
+    row 0 zeros and never followed; input_lengths)."""
+    t_total, num_batches, num_labels = inputs.shape
+    if beam_size < 1:
+        raise ValueError(f"beam_size must be >= 1, got {beam_size}")
+    k = min(beam_size, num_labels)
+    transition, inputs, input_lengths = _decode_inputs(transition, inputs, input_lengths)
+    inputs_m = mask_emissions(inputs, input_lengths)
+    trans_t = transition.T.contiguous()  # (from, to): row j holds j's outgoing scores
+    last = (input_lengths - 1)[:, None]
+
+    d, lab = _topk(inputs_m[0], k)
+    d_end, labs = d, [lab]
+    bps = [torch.zeros_like(lab)]
+    for t in range(1, t_total):
+        cand = trans_t[lab.long()] + d[:, :, None]  # (B, K, N)
+        best = cand.amax(dim=1)
+        from_slot = torch.argmax(cand, dim=1).to(torch.int32)  # first maximal slot
+        d, lab = _topk(inputs_m[t] + best, k)
+        bps.append(_select_rows(from_slot, lab))
+        d_end = torch.where(last == t, d, d_end)
+        labs.append(lab)
+    return d_end, torch.stack(labs), torch.stack(bps), input_lengths
+
+
+def _beam_backtrace(labs, bps, input_lengths, start):
+    """(T, B, R) paths, path r starting from beam slot ``start[b, r]`` at
+    each element's last frame; -1 at padding frames."""
+    t_total = labs.shape[0]
+    last = (input_lengths - 1)[:, None]
+    pad = torch.full_like(start, -1)
+    slot = start
+    emits = [torch.where(last == t_total - 1, _select_rows(labs[-1], start), pad)]
+    for t in range(t_total - 2, -1, -1):
+        slot = torch.where(last == t, start, _select_rows(bps[t + 1], slot))
+        emits.append(torch.where(t <= last, _select_rows(labs[t], slot), pad))
+    return torch.stack(emits[::-1])
+
+
+def beam_nbest(
+    transition: torch.Tensor,
+    inputs: torch.Tensor,
+    n: int,
+    input_lengths: Optional[torch.Tensor] = None,
+    *,
+    beam_size: int = 16,
+) -> NBestResult:
+    """The n best final-label hypotheses of one beam-pruned pass: one
+    ``beam_decode`` forward, then a backtrace from each of the n best final
+    beam slots.
+
+    The n paths are the best surviving path ending in each of the n
+    highest-scoring final beam labels: distinct final labels, each score
+    exact for its path, scores descending, rank 0 equal to ``beam_decode``.
+    It is not the global n-best (use ``viterbi_nbest`` for that below
+    wordpiece scale); with ``beam_size >= N`` it is, for each of the n best
+    final labels, the best path ending there.  Requires ``n <= beam_size``
+    and ``n <= N``.
+    """
+    num_labels = inputs.shape[2]
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    if n > beam_size:
+        raise ValueError(
+            f"n={n} exceeds beam_size={beam_size}; the beam only carries "
+            f"beam_size final hypotheses")
+    if n > num_labels:
+        raise ValueError(
+            f"n={n} exceeds num_labels={num_labels}; final labels are "
+            f"distinct by construction so at most N hypotheses exist")
+    d_end, labs, bps, input_lengths = _beam_forward(transition, inputs, input_lengths,
+                                                    beam_size)
+    start = torch.arange(n, dtype=torch.int32, device=labs.device).repeat(inputs.shape[1], 1)
+    return NBestResult(d_end[:, :n], _beam_backtrace(labs, bps, input_lengths, start))
