@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, wordpiece-training,
-forced-alignment, per-lattice training, posterior-decoding and n-best/beam
-serving paths on one CUDA card, with the native host library, and check
-and time each hand-written kernel against its plain PyTorch version.
+forced-alignment, per-lattice training, posterior-decoding, n-best/beam,
+streaming and acceptor-scoring paths on one CUDA card, with the native host
+library, and check and time each hand-written kernel against its plain
+PyTorch version.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit:
@@ -132,7 +133,28 @@ launches:
      beam_decode; scores descend along the ranks, and each path rescored on
      the host gives its score within the fp32 accumulation bound.  One
      viterbi_nbest call is profiled (``serve_nbest``);
- 12. the kernel table (every kernel launched on its path), the nvidia-smi
+ 12. serve_stream: the full-width letter model encodes 64 utterances once and
+     the emissions reach the streaming API in ragged chunks (each stream's
+     chunk of 50-150 frames drawn per chunk, so streams advance at different
+     rates); after every chunk the stream updates and reads its scores and
+     updates its Viterbi, alignment, beam (16) and n-best (k=4) states.  The
+     read-outs after the middle chunk and at the end must equal the port's
+     one-shot calls on the same prefixes on the card (asg_scores through K1
+     within serve's fp32 bound, viterbi_decode through K10 + K11,
+     viterbi_align through K12 + K13, beam_decode, beam_nbest,
+     viterbi_nbest: paths, positions and labels equal); a float64 stream the
+     float64 scan tier's scores within rtol 1e-9, and its paths the same
+     stream's on the CPU; the streaming updates launch no kernel of the
+     port.  Timed: each surface's update per chunk, the whole-stream request
+     (first chunk to hypotheses on the host), one chunk profiled
+     (``stream_chunk``);
+ 13. wfsa: generic acceptors on the card at B=64, T=1000, N=30: the full
+     automaton against fcc_score and viterbi_decode (K10 + K11), chains
+     against fac_score, fp32 and fp64; a looped 200-word lexicon scored,
+     decoded and streamed (equal to the one-shot calls), its posteriors at
+     B=8 with their peak memory; wfsa_score, wfsa_posteriors and
+     wfsa_viterbi twice each with the same bits (no atomics);
+ 14. the kernel table (every kernel launched on its path), the nvidia-smi
      line, and last the result line.
 
 Precision: float32 matrix products and convolutions run in full float32
@@ -1669,6 +1691,7 @@ PROFILES = {
     # plain PyTorch: no kernel of the port
     "train_prefetch": (),
     "serve_nbest": (),
+    "stream_chunk": (),
 }
 PROFILE_TRIES = 3
 
@@ -1803,6 +1826,28 @@ def profile_target(name, dev):
             torch.autograd.grad(out, (tr, em))
 
         return criterion, runs
+    if name == "stream_chunk":
+        # one streaming chunk of 100 frames at the serving width from a fresh
+        # state: the scores with their read-out, and the best path
+        import torch_asg_tpu_torch as pt
+
+        chunk = torch.as_tensor(rng.normal(size=(100, B, N)).astype(np.float32), device=dev)
+        trans = torch.as_tensor((rng.normal(size=(N, N)) * 0.5).astype(np.float32),
+                                device=dev)
+        targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
+                                  device=dev)
+        lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
+        pre = pt.streaming_targets(trans, targets, N, lo)
+        st, vst = pt.streaming_init(B, N, S, device=dev), pt.streaming_viterbi_init(B, N,
+                                                                                     device=dev)
+
+        def chunk_update():
+            with torch.no_grad():
+                pt.streaming_scores(pt.streaming_update(trans, st, chunk, stream_targets=pre),
+                                    lo)
+                pt.streaming_viterbi_update(trans, vst, chunk)
+
+        return chunk_update, 5
     # a serving request's inputs, as ``serve`` and ``serve_posterior`` draw them
     model = letter_model(rng, dev).eval()
     trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
@@ -2560,6 +2605,435 @@ def serve_nbest(rng, dev):
                               "card_equals_cpu": True}})
 
 
+# Streaming phases: each stream's chunk length is drawn per chunk from
+# STREAM_CHUNK frames (cut at the stream's L_in).  fp32 streaming scores are
+# held against K1 (and the WFSA scores against the scan tier) at serve's
+# fp32 bound STREAM_TOL (rtol, atol); fp64 ones against the fp64 scan tier
+# at rtol STREAM_F64_RTOL.
+STREAM_CHUNK = (50, 150)
+STREAM_TOL = (1e-4, 1e-3)
+STREAM_F64_RTOL = 1e-9
+LEXICON_WORDS, LEXICON_LETTERS, POSTERIOR_B = 200, (2, 10), 8
+
+
+def port_kernel_wrappers():
+    """The wrappers of the port's 14 kernels, each counting its launches."""
+    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+    from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
+    from torch_asg_tpu_torch.ops.kernels.bigvocab_kernels import fcc_dual_streams
+
+    return (ak.asg_scores_fused, ak._fwd_store_kernel, ak._bwd_kernel, fcc_dual_streams,
+            vk.viterbi_forward_pallas, vk.viterbi_backtrace_pallas, vk.align_forward_pallas,
+            vk.align_backtrace_pallas) + lattice_counters()
+
+
+def port_launches(reset=False):
+    """{wrapper: launches} over the 14 kernels; with ``reset`` set to 0 first."""
+    out = {}
+    for w in port_kernel_wrappers():
+        if reset:
+            w.launches = 0
+        out[w.__name__] = w.launches
+    return out
+
+
+def stream_chunks(rng, em, li):
+    """The emissions (T, B, N) as a stream of ragged chunks: at each chunk
+    stream b draws its length from STREAM_CHUNK, cut at what it has left of
+    its L_in, and reads its own next frames.  [(chunk, chunk_lengths)]."""
+    t_total, nb, n = em.shape
+    li_h = li.cpu().numpy().astype(np.int64)
+    consumed = np.zeros(nb, np.int64)
+    chunks = []
+    while (consumed < li_h).any():
+        cl = np.minimum(rng.integers(STREAM_CHUNK[0], STREAM_CHUNK[1] + 1, size=nb),
+                        li_h - consumed)
+        t_c = int(cl.max())
+        idx = np.minimum(consumed[None, :] + np.arange(t_c)[:, None], t_total - 1)
+        idx = torch.as_tensor(idx, device=em.device)[:, :, None].expand(t_c, nb, n)
+        chunks.append((em.gather(0, idx), torch.as_tensor(cl.astype(np.int32),
+                                                          device=em.device)))
+        consumed += cl
+    return chunks
+
+
+def cuda_ms(fn):
+    """(fn(), its time on the card in ms by CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_stream(chunks, trans, pre, lo, dev, dtype, timed=False, mid=None):
+    """Feed every chunk to the five streaming surfaces (scores with their
+    read-out, Viterbi, alignment, beam, n-best) on ``dev`` at ``dtype``.
+    Returns (read-outs at the end, read-outs after chunk ``mid`` or None,
+    {surface: [ms per chunk]} when ``timed``)."""
+    import torch_asg_tpu_torch as pt
+
+    nb = chunks[0][0].shape[1]
+    trans = trans.to(dev, dtype)
+    pre = pt.StreamTargets(*(None if x is None else x.to(dev) for x in pre))
+    lo = lo.to(dev)
+    states = {"scores": pt.streaming_init(nb, N, S, dtype, device=dev),
+              "viterbi": pt.streaming_viterbi_init(nb, N, dtype, device=dev),
+              "align": pt.streaming_align_init(nb, S, dtype, device=dev),
+              "beam": pt.streaming_beam_init(nb, BEAM, dtype, device=dev),
+              "nbest": pt.streaming_nbest_init(nb, N, NBEST_K, dtype, device=dev)}
+    steps = {
+        "scores": lambda st, c, cl: (pt.streaming_update(trans, st, c, chunk_lengths=cl,
+                                                         stream_targets=pre), None),
+        "viterbi": lambda st, c, cl: pt.streaming_viterbi_update(trans, st, c, cl),
+        "align": lambda st, c, cl: pt.streaming_align_update(trans, st, c, chunk_lengths=cl,
+                                                             stream_targets=pre),
+        "beam": lambda st, c, cl: pt.streaming_beam_update(trans, st, c, cl),
+        "nbest": lambda st, c, cl: pt.streaming_nbest_update(trans, st, c, cl),
+    }
+    outs = {name: [] for name in steps}
+    times = {name: [] for name in steps}
+    snapshot = None
+    for i, (chunk, cl) in enumerate(chunks):
+        chunk, cl = chunk.to(dev, dtype), cl.to(dev)
+        for name, step in steps.items():
+            def call():
+                st, out = step(states[name], chunk, cl)
+                if name == "scores":
+                    pt.streaming_scores(st, lo)  # the per-chunk read-out
+                return st, out
+
+            (states[name], out), ms = cuda_ms(call) if timed else (call(), None)
+            times[name].append(ms)
+            if out is not None:
+                outs[name].append(out)
+        if i == mid:
+            snapshot = stream_readouts(states, outs, pre, lo)
+    return stream_readouts(states, outs, pre, lo), snapshot, times
+
+
+def stream_readouts(states, outs, pre, lo):
+    """Every surface's read-out of the frames consumed so far."""
+    import torch_asg_tpu_torch as pt
+
+    def cat(name):
+        return [torch.cat(x) for x in zip(*outs[name])]
+
+    full, aligned = pt.streaming_scores(states["scores"], lo)
+    beam = cat("beam")
+    return {
+        "full": full, "aligned": aligned,
+        "viterbi": pt.streaming_viterbi_backtrace(states["viterbi"], *cat("viterbi")),
+        "align": pt.streaming_align_backtrace(states["align"], *cat("align"),
+                                              stream_targets=pre),
+        "beam": pt.streaming_beam_backtrace(states["beam"], *beam),
+        "beam_nbest": pt.streaming_beam_nbest_backtrace(states["beam"], *beam, NBEST_K),
+        "nbest": pt.streaming_nbest_backtrace(states["nbest"], *cat("nbest")),
+        "valid": cat("viterbi")[1],
+    }
+
+
+def compact(x, valid, t_total):
+    """A streamed output (frames, B[, R]) in each element's own frame order:
+    the frames it consumed first, -1 after, as (t_total, B[, R])."""
+    order = torch.argsort((~valid).to(torch.int8), dim=0, stable=True)
+    count = valid.sum(dim=0)
+    if x.dim() == 3:
+        order, count = order[:, :, None].expand_as(x), count[:, None]
+    rows = torch.arange(x.shape[0], device=x.device).view(-1, *([1] * (x.dim() - 1)))
+    out = torch.where(rows < count, torch.gather(x, 0, order), -1)
+    if out.shape[0] < t_total:
+        pad = torch.full((t_total - out.shape[0],) + tuple(out.shape[1:]), -1,
+                         dtype=out.dtype, device=out.device)
+        out = torch.cat([out, pad])
+    return out[:t_total]
+
+
+def check_stream(name, got, trans, em, targets, li, lo, tol):
+    """Each read-out of ``got`` against the port's one-shot call on the same
+    prefix (lengths ``li``) on the card; paths, positions and labels equal,
+    scores within ``tol`` (rtol, atol), the aligned score where L_out >= 1
+    (the streaming read-out is -inf at L_out = 0).  {read-out: max |err|}."""
+    from torch_asg_tpu_torch import (asg_scores, beam_decode, beam_nbest, viterbi_align,
+                                     viterbi_decode, viterbi_nbest)
+
+    valid, t_total = got["valid"], em.shape[0]
+    with torch.no_grad():
+        ref_full, ref_aligned = asg_scores(trans, em, targets, li, lo)  # K1
+        refs = {"viterbi": viterbi_decode(trans, em, li),  # K10 + K11
+                "align": viterbi_align(trans, em, targets, li, lo),  # K12 + K13
+                "beam": beam_decode(trans, em, li, beam_size=BEAM),
+                "beam_nbest": beam_nbest(trans, em, NBEST_K, li, beam_size=BEAM),
+                "nbest": viterbi_nbest(trans, em, NBEST_K, li)}
+    has = lo >= 1
+    check(bool(torch.isneginf(got["aligned"][~has]).all()),
+          f"{name}: an empty transcript must score -inf")
+    errs = {}
+    for key, want, sel in (("full", ref_full, slice(None)), ("aligned", ref_aligned, has)):
+        torch.testing.assert_close(got[key][sel], want[sel], rtol=tol[0], atol=tol[1],
+                                   msg=lambda m: f"{name} {key}: {m}")
+        errs[key] = max_err(got[key][sel], want[sel])
+    for key, ref in refs.items():
+        res = got[key]
+        paths = ("positions", "labels") if key == "align" else ("paths",)
+        for field in paths:
+            check(torch.equal(compact(getattr(res, field), valid, t_total),
+                              getattr(ref, field)),
+                  f"{name} {key}.{field} differ from the one-shot call's")
+        torch.testing.assert_close(res.scores, ref.scores, rtol=tol[0], atol=tol[1],
+                                   msg=lambda m: f"{name} {key} scores: {m}")
+        errs[key] = max_err(res.scores, ref.scores)
+    return errs
+
+
+def serve_stream(rng, dev):
+    """The full-width letter model encodes 64 utterances once; the emissions
+    reach the streaming API as ragged chunks (``stream_chunks``), and after
+    every chunk the stream updates its scores (and reads them) and its
+    Viterbi, alignment, beam (BEAM) and n-best (NBEST_K) states.  Read-outs
+    after the middle chunk and at the end are held against the port's one-shot
+    calls on the same prefixes on the card (asg_scores through K1,
+    viterbi_decode through K10 + K11, viterbi_align through K12 + K13,
+    beam_decode, beam_nbest, viterbi_nbest); a float64 stream against the
+    float64 scan tier at STREAM_F64_RTOL; the float64 stream on the card
+    equal to the same stream on the CPU.  The streaming updates launch no
+    kernel of the port.  Timed: each surface's update per chunk (CUDA
+    events), the whole-stream request (first chunk to hypotheses on the
+    host), and one chunk profiled in a new process (``stream_chunk``)."""
+    import torch_asg_tpu_torch as pt
+    from torch_asg_tpu_torch.convert import transition_from_numpy
+    from torch_asg_tpu_torch.runtime import collapse_path
+
+    model = letter_model(rng, dev).eval()
+    trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
+                                  dtype=torch.float32)
+    feat_lengths = torch.as_tensor(rng.integers(1000, 2001, size=B), device=dev)
+    feats = torch.as_tensor(rng.normal(size=(B, 2000, FEATURES)).astype(np.float32),
+                            device=dev)
+    lo_h = rng.integers(10, S + 1, size=B)
+    lo_h[0] = 0  # an empty transcript
+    lo = torch.as_tensor(lo_h.astype(np.int32), device=dev)
+    targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
+                              device=dev)
+    with torch.no_grad():
+        em = model(feats)
+        li = model.output_length(feat_lengths).to(torch.int32)
+    chunks = stream_chunks(rng, em, li)
+    mid = len(chunks) // 2
+    pre = pt.streaming_targets(trans, targets, N, lo)
+
+    with torch.no_grad():
+        run_stream(chunks, trans, pre, lo, dev, torch.float32)  # warm-up
+        port_launches(reset=True)
+        end, at_mid, times = run_stream(chunks, trans, pre, lo, dev, torch.float32,
+                                        timed=True, mid=mid)
+        stream_launches = port_launches()
+        check(not any(stream_launches.values()),
+              f"the streaming updates launched kernels of the port: {stream_launches}")
+        li_mid = sum(cl for _, cl in chunks[:mid + 1]).to(torch.int32)
+        errs = {"end": check_stream("fp32 end", end, trans, em, targets, li, lo, STREAM_TOL),
+                "mid": check_stream("fp32 mid", at_mid, trans, em, targets, li_mid, lo,
+                                    STREAM_TOL)}
+
+        # float64: the card against the fp64 scan tier, and against the CPU
+        em64, tr64 = em.double(), trans.double()
+        pre64 = pt.streaming_targets(tr64, targets, N, lo)
+        end64 = run_stream(chunks, tr64, pre64, lo, dev, torch.float64)[0]
+        ref_full, ref_aligned = pt.asg_scores(tr64, em64, targets, li, lo, impl="scan")
+        has = lo >= 1
+        torch.testing.assert_close(end64["full"], ref_full, rtol=STREAM_F64_RTOL, atol=0)
+        torch.testing.assert_close(end64["aligned"][has], ref_aligned[has],
+                                   rtol=STREAM_F64_RTOL, atol=0)
+        errs["fp64_vs_scan"] = {"full": max_err(end64["full"], ref_full),
+                                "aligned": max_err(end64["aligned"][has], ref_aligned[has])}
+        cpu = torch.device("cpu")
+        end_cpu = run_stream([(c.cpu(), cl.cpu()) for c, cl in chunks], tr64.cpu(),
+                             pre64, lo.cpu(), cpu, torch.float64)[0]
+        for key in ("viterbi", "align", "beam", "beam_nbest", "nbest"):
+            for field, got in end64[key]._asdict().items():
+                check(torch.equal(got.cpu(), getattr(end_cpu[key], field)),
+                      f"fp64 stream {key}.{field} on the card differs from the CPU's")
+
+    def request():
+        """Scores and the best path after every chunk, then the hypotheses."""
+        with torch.no_grad():
+            st = pt.streaming_init(B, N, S, device=dev)
+            vst = pt.streaming_viterbi_init(B, N, device=dev)
+            bps, vals = [], []
+            for chunk, cl in chunks:
+                st = pt.streaming_update(trans, st, chunk, chunk_lengths=cl,
+                                         stream_targets=pre)
+                pt.streaming_scores(st, lo)
+                vst, (bp, v) = pt.streaming_viterbi_update(trans, vst, chunk, cl)
+                bps.append(bp)
+                vals.append(v)
+            valid = torch.cat(vals)
+            paths = pt.streaming_viterbi_backtrace(vst, torch.cat(bps), valid).paths
+            paths, valid = paths.cpu().numpy(), valid.cpu().numpy()
+        return [collapse_path(paths[valid[:, b], b], ALPHABET, MAX_REPS, use_native=True)
+                for b in range(B)]
+
+    request()  # warm-up
+    latencies = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps = request()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    check(all(len(h) > 0 for h in hyps), "empty hypothesis")
+    profiled = profile_call("stream_chunk")
+    lengths = [int(cl.max()) for _, cl in chunks]
+    emit({"phase": "serve_stream", "card": torch.cuda.get_device_name(0), "batch": B,
+          "frames": T, "labels": N, "slots": S, "chunks": len(chunks),
+          "chunk_frames": STREAM_CHUNK, "chunk_tensor_frames": lengths,
+          "beam_size": BEAM, "k": NBEST_K, "mid_chunk": mid,
+          "update_ms_median": {k: statistics.median(v) for k, v in times.items()},
+          "update_us_per_frame_median": {
+              k: statistics.median(1e3 * ms / t for ms, t in zip(v, lengths))
+              for k, v in times.items()},
+          "request_ms": latencies, "median_request_ms": statistics.median(latencies),
+          "stream_chunk_profile": profiled, "stream_kernel_launches": stream_launches,
+          "tolerance_fp32": f"rtol {STREAM_TOL[0]}, atol {STREAM_TOL[1]} (serve's)",
+          "tolerance_fp64": f"rtol {STREAM_F64_RTOL}", "max_abs_err": errs,
+          "paths_equal_one_shot": True, "fp64_card_equals_cpu": True})
+
+
+def lexicon_words(rng):
+    """LEXICON_WORDS words of LEXICON_LETTERS letters each, drawn from ``rng``."""
+    return [rng.integers(0, ALPHABET, size=int(n)).astype(np.int32)
+            for n in rng.integers(LEXICON_LETTERS[0], LEXICON_LETTERS[1] + 1,
+                                  size=LEXICON_WORDS)]
+
+
+def wfsa(rng, dev):
+    """Generic acceptor scoring on the card at B=64, T=1000, N=30 (seeded
+    emissions, ragged lengths): the full automaton against fcc_score and
+    (its best path) viterbi_decode (K10 + K11), the chain against fac_score
+    for four utterances, fp32 within STREAM_TOL and fp64 within
+    STREAM_F64_RTOL; a looped lexicon of LEXICON_WORDS words scored and
+    decoded, its streaming surfaces over ragged chunks equal to the one-shot
+    calls, posteriors at B=POSTERIOR_B (``torch.cuda.max_memory_allocated``
+    over the call, and its rise above the call's start); wfsa_score,
+    wfsa_posteriors and wfsa_viterbi twice each with the same bits.  The
+    acceptor calls launch no kernel of the port."""
+    import torch_asg_tpu_torch as pt
+    from torch_asg_tpu_torch.ops.fac import make_aligned
+    from torch_asg_tpu_torch.ops.wfsa import _plan
+
+    em = torch.as_tensor(rng.normal(size=(T, B, N)).astype(np.float32), device=dev)
+    li_h = rng.integers(500, T + 1, size=B).astype(np.int32)
+    li_h[0] = T
+    li = torch.as_tensor(li_h, device=dev)
+    trans = torch.as_tensor((rng.normal(size=(N, N)) * 0.5).astype(np.float32), device=dev)
+    targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
+                              device=dev)
+    lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
+    errs, ms = {}, {}
+    with torch.no_grad():
+        for dtype, (rtol, atol) in ((torch.float32, STREAM_TOL),
+                                    (torch.float64, (STREAM_F64_RTOL, 0.0))):
+            x, tr = em.to(dtype), trans.to(dtype)
+            tag = str(dtype).split(".")[1]
+            full = pt.full_wfsa(tr)
+            got, ms[f"full_score_{tag}"] = cuda_ms(lambda: pt.wfsa_score(full, x, li))
+            want = pt.fcc_score(tr, x, li)
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+            errs[f"full_vs_fcc_{tag}"] = max_err(got, want)
+            lat = make_aligned(tr, x, targets, li, lo)
+            want = pt.fac_score(tr, x, targets, li, lo)
+            got = torch.stack([pt.wfsa_score(
+                pt.chain_wfsa(targets[b, :lo[b]], lat.self_trans[b, :lo[b]],
+                              lat.next_trans[b, :lo[b]]), x[:, b:b + 1], li[b:b + 1])[0]
+                for b in range(4)])
+            torch.testing.assert_close(got, want[:4], rtol=rtol, atol=atol)
+            errs[f"chain_vs_fac_{tag}"] = max_err(got, want[:4])
+        port_launches(reset=True)
+        vit = pt.wfsa_viterbi(pt.full_wfsa(trans), em, li)
+        acceptor_launches = port_launches()
+        ref = pt.viterbi_decode(trans, em, li)  # K10 + K11
+        check(torch.equal(vit.labels, ref.paths) and torch.equal(vit.states, ref.paths),
+              "the full automaton's best path differs from viterbi_decode's")
+        torch.testing.assert_close(vit.scores, ref.scores, rtol=STREAM_TOL[0],
+                                   atol=STREAM_TOL[1])
+        errs["full_viterbi_vs_viterbi_decode"] = max_err(vit.scores, ref.scores)
+
+        # the looped lexicon
+        port_launches(reset=True)
+        lex = pt.lexicon_wfsa(trans, lexicon_words(rng), loop=True)
+        plan = _plan(lex.dst, lex.num_states)
+        runs = {}
+        for name, fn in (("wfsa_score", lambda: pt.wfsa_score(lex, em, li)),
+                         ("wfsa_viterbi", lambda: pt.wfsa_viterbi(lex, em, li)),
+                         ("wfsa_posteriors",
+                          lambda: pt.wfsa_posteriors(lex, em[:, :POSTERIOR_B],
+                                                     li[:POSTERIOR_B]))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            first = cuda_ms(fn)[0]
+            peak = torch.cuda.max_memory_allocated()
+            second, ms[f"lexicon_{name}"] = cuda_ms(fn)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(*((r,) if isinstance(r, torch.Tensor) else r
+                             for r in (first, second))))
+            check(same, f"{name} gave other bits on its second run")
+            runs[name] = (second, peak, peak - base)
+        score, vpath = runs["wfsa_score"][0], runs["wfsa_viterbi"][0]
+        check(bool(torch.isfinite(score).all()) and bool((vpath.scores <= score + 1e-3).all()),
+              "lexicon scores must be finite and at least the best path's")
+        post = runs["wfsa_posteriors"][0]
+        sums = post.sum(dim=2)
+        inside = torch.arange(T, device=dev)[:, None] < li[None, :POSTERIOR_B]
+        check(bool(((sums - 1).abs() < 1e-3)[inside].all()) and bool((sums[~inside] == 0).all()),
+              "lexicon posteriors must sum to 1 inside each utterance and 0 past it")
+
+        chunks = stream_chunks(rng, em, li)
+        st = pt.streaming_wfsa_init(lex, B, device=dev)
+        vst = pt.streaming_wfsa_viterbi_init(lex, B, device=dev)
+        backs, vals, upd_ms, vupd_ms = [], [], [], []
+        for chunk, cl in chunks:
+            st, t_ms = cuda_ms(lambda: pt.streaming_wfsa_update(lex, st, chunk, cl))
+            (vst, (bk, v)), v_ms = cuda_ms(
+                lambda: pt.streaming_wfsa_viterbi_update(lex, vst, chunk, cl))
+            backs.append(bk)
+            vals.append(v)
+            upd_ms.append(t_ms)
+            vupd_ms.append(v_ms)
+        valid = torch.cat(vals)
+        got = pt.streaming_wfsa_scores(lex, st)
+        torch.testing.assert_close(got, score, rtol=STREAM_TOL[0], atol=STREAM_TOL[1])
+        errs["lexicon_stream_vs_one_shot"] = max_err(got, score)
+        vgot = pt.streaming_wfsa_viterbi_backtrace(lex, vst, torch.cat(backs), valid)
+        for field in ("states", "labels"):
+            check(torch.equal(compact(getattr(vgot, field), valid, T), getattr(vpath, field)),
+                  f"the streamed lexicon {field} differ from wfsa_viterbi's")
+        check(torch.equal(vgot.scores, vpath.scores), "streamed lexicon best-path scores")
+        lex_launches = port_launches()
+    for counts in (acceptor_launches, lex_launches):
+        check(not any(counts.values()), f"the acceptor calls launched port kernels: {counts}")
+    lengths = [int(cl.max()) for _, cl in chunks]
+    emit({"phase": "wfsa", "card": torch.cuda.get_device_name(0), "batch": B, "frames": T,
+          "labels": N, "lexicon": {"words": LEXICON_WORDS, "states": lex.num_states,
+                                   "arcs": lex.num_arcs,
+                                   "in_degree_buckets": [list(s) for s in plan.shapes]},
+          "call_ms": ms, "chunks": len(chunks),
+          "stream_update_ms_median": {"streaming_wfsa_update": statistics.median(upd_ms),
+                                      "streaming_wfsa_viterbi_update":
+                                          statistics.median(vupd_ms)},
+          "stream_update_us_per_frame_median": {
+              "streaming_wfsa_update": statistics.median(
+                  1e3 * m / t for m, t in zip(upd_ms, lengths)),
+              "streaming_wfsa_viterbi_update": statistics.median(
+                  1e3 * m / t for m, t in zip(vupd_ms, lengths))},
+          "max_memory_allocated_bytes": {k: v[1] for k, v in runs.items()},
+          "peak_above_call_start_bytes": {k: v[2] for k, v in runs.items()},
+          "posterior_batch": POSTERIOR_B, "bit_identical_twice": True,
+          "tolerance_fp32": f"rtol {STREAM_TOL[0]}, atol {STREAM_TOL[1]}",
+          "tolerance_fp64": f"rtol {STREAM_F64_RTOL}", "max_abs_err": errs,
+          "viterbi_paths_equal_viterbi_decode": True, "stream_equals_one_shot": True})
+
+
 def spill_bytes(log, marker):
     """{kernel: spill store + load bytes} from an ``nvcc -Xptxas -v`` log, for
     every kernel whose mangled name contains ``marker``."""
@@ -2696,6 +3170,8 @@ def main(argv):
     launches.update(train_pallas(rng_pallas, dev, utts, labels))
     serve_posterior(rng_pallas, dev)
     serve_nbest(np.random.default_rng([SEED, 15]), dev)
+    serve_stream(np.random.default_rng([SEED, 16]), dev)
+    wfsa(np.random.default_rng([SEED, 17]), dev)
 
     src = "torch_asg_tpu_torch/ops/kernels/csrc/"
     meta = (

@@ -25,6 +25,8 @@ import torch_asg_tpu_torch.ops.kernels.viterbi_kernels, torch_asg_tpu_torch.ops.
 import torch_asg_tpu_torch.ops.kernels.fcc_kernels, torch_asg_tpu_torch.ops.kernels.fac_kernels
 import torch_asg_tpu_torch.ops.posteriors
 import torch_asg_tpu_torch.runtime.bucketing, torch_asg_tpu_torch.runtime.prefetch
+import torch_asg_tpu_torch.ops.streaming, torch_asg_tpu_torch.ops.wfsa
+import torch_asg_tpu_torch.compat, torch_asg_tpu_torch.torch_compat
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'torch_asg_tpu'))
 print(bad)
@@ -42,6 +44,18 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_exports_every_name_of_the_jax_package():
+    """Each name of the JAX package's ``__all__`` is in the port's, and
+    resolves."""
+    import torch_asg_tpu
+    import torch_asg_tpu_torch
+
+    missing = sorted(set(torch_asg_tpu.__all__) - set(torch_asg_tpu_torch.__all__))
+    assert not missing, missing
+    for name in torch_asg_tpu_torch.__all__:
+        assert getattr(torch_asg_tpu_torch, name) is not None
 
 
 def test_runtime_import_builds_nothing(tmp_path):

@@ -420,3 +420,62 @@ def test_bucket_batcher_criterion_padding_invariance(rng):
                          torch.tensor([feats.shape[0]], dtype=torch.int32),
                          torch.tensor([len(labels)], dtype=torch.int32), reduction="none")
         np.testing.assert_allclose(bucketed[i].item(), tight[0].item(), rtol=1e-12)
+
+
+def test_bucketed_streaming_beam_end_to_end(rng):
+    """Ragged traffic -> BucketBatcher -> fixed-size streaming chunks that
+    cross utterance ends -> streaming beam decode -> backtrace, equal to the
+    port's one-shot beam_decode on the bucketed batch, to the JAX package's,
+    and to a tight one-shot decode of each utterance."""
+    import jax.numpy as jnp
+
+    from torch_asg_tpu import beam_decode as jax_beam_decode
+    from torch_asg_tpu_torch import (beam_decode, streaming_beam_backtrace,
+                                     streaming_beam_init, streaming_beam_update)
+
+    num_labels, k, chunk = 6, 3, 7  # chunk=7 never divides the time buckets
+    bb = rt.BucketBatcher(batch_size=3, time_buckets=[8, 16, 32], target_buckets=[4, 8])
+    utts = []
+    for _ in range(10):
+        t = int(rng.integers(2, 33))
+        feats = np.asarray(rng.normal(size=(t, num_labels)), np.float32)
+        utts.append((feats, rng.integers(0, num_labels, size=int(rng.integers(1, 5)))))
+    trans_np = rng.normal(size=(num_labels, num_labels))
+    trans = torch.from_numpy(trans_np)
+
+    decoded = {}
+    for batch in bb.batches(iter(utts)):
+        emissions = torch.from_numpy(batch["features"]).double()
+        lengths = torch.from_numpy(batch["feature_lengths"]).to(torch.int32)
+        t_bucket, num_batches = emissions.shape[:2]
+        st = streaming_beam_init(num_batches, k, dtype=torch.float64, device="cpu")
+        labs, bps, vals = [], [], []
+        for off in range(0, t_bucket, chunk):
+            t_c = min(chunk, t_bucket - off)
+            cl = (lengths - off).clamp(0, t_c)
+            st, (lab, bp, v) = streaming_beam_update(trans, st, emissions[off:off + t_c],
+                                                     chunk_lengths=cl)
+            labs.append(lab)
+            bps.append(bp)
+            vals.append(v)
+        got = streaming_beam_backtrace(st, torch.cat(labs), torch.cat(bps), torch.cat(vals))
+        want = beam_decode(trans, emissions, lengths, beam_size=k)
+        assert torch.equal(got.scores, want.scores) and torch.equal(got.paths, want.paths)
+        jwant = jax_beam_decode(jnp.asarray(trans_np), jnp.asarray(emissions.numpy()),
+                                jnp.asarray(lengths.numpy()), beam_size=k)
+        np.testing.assert_allclose(got.scores.numpy(), np.asarray(jwant.scores), rtol=1e-12)
+        np.testing.assert_array_equal(got.paths.numpy(), np.asarray(jwant.paths))
+        for i in range(num_batches):
+            if not batch["pad_mask"][i]:
+                continue
+            length = int(lengths[i])
+            key = batch["features"][:length, i].tobytes()
+            decoded[key] = (got.scores[i].item(), got.paths[:length, i].numpy())
+
+    assert len(decoded) == len(utts)
+    for feats, _ in utts:
+        score, path = decoded[feats.tobytes()]
+        tight = beam_decode(trans, torch.from_numpy(feats[:, None, :]).double(),
+                            torch.tensor([feats.shape[0]], dtype=torch.int32), beam_size=k)
+        np.testing.assert_allclose(score, tight.scores[0].item(), rtol=1e-12)
+        np.testing.assert_array_equal(path, tight.paths[:, 0].numpy())

@@ -42,6 +42,25 @@ def strict_chain_precision(precision: str = "highest"):
         _PRECISION_OVERRIDE = prev
 
 
+@contextlib.contextmanager
+def ieee_fp32_products():
+    """Run the float32 matrix products inside the context in full float32
+    on CUDA (no TF32, whatever the caller's global setting), and restore
+    the setting after."""
+    matmul = torch.backends.cuda.matmul
+    # the setting the caller used: PyTorch refuses to read the legacy flag
+    # once the newer ``fp32_precision`` has set it otherwise
+    try:
+        name, value, prev = "allow_tf32", False, matmul.allow_tf32
+    except RuntimeError:
+        name, value, prev = "fp32_precision", "ieee", matmul.fp32_precision
+    setattr(matmul, name, value)
+    try:
+        yield
+    finally:
+        setattr(matmul, name, prev)
+
+
 def logsumexp(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
     """-inf-safe logsumexp along ``dim``: all--inf rows give -inf."""
     m = torch.amax(x, dim=dim, keepdim=True)
