@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, wordpiece-training,
 forced-alignment, per-lattice training, posterior-decoding, n-best/beam,
-streaming and acceptor-scoring paths on one CUDA card, with the native host
-library, and check and time each hand-written kernel against its plain
-PyTorch version.
+streaming, acceptor-scoring and multi-GPU paths on the CUDA cards (one rank
+per card; every other phase on card 0), with the native host library, and
+check and time each hand-written kernel against its plain PyTorch version.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit:
@@ -154,7 +154,29 @@ launches:
      decoded and streamed (equal to the one-shot calls), its posteriors at
      B=8 with their peak memory; wfsa_score, wfsa_posteriors and
      wfsa_viterbi twice each with the same bits (no atomics);
- 14. the kernel table (every kernel launched on its path), the nvidia-smi
+ 14. parallel: one rank per card (world = the card count, NCCL, rank r on
+     cuda:r; ``parallel.launch.spawn_ranks``, which fails the run on any
+     rank's error, exit or timeout).  Each rank: one data-parallel train
+     step of the full-width letter model (B=64, the ``train`` batch) through
+     ``asg_loss_dp`` ('auto': K1 with stores, K2), its loss and every
+     gradient against the single-process ``make_train_step`` within the
+     ``train`` bounds, both step times; ``viterbi_decode_dp`` (K10, K11),
+     ``beam_decode_dp`` (beam 16) and ``viterbi_align_dp`` (K12, K13, one
+     empty transcript) bit for bit against the single-process calls;
+     ``asg_loss_vp`` and ``fcc_score_vp`` at the wordpiece width (T=100,
+     B=8, N=10,000, S=10) against ``asg_loss`` ('auto': the matmul tier, K9)
+     in fp32 within the ``train_wordpiece`` bounds and against the scan tier
+     in fp64 within 1e-9, with the call time and peak memory;
+     ``asg_loss_seq`` (B=64, T=1000, N=30, S=50, fp64) against the scan tier
+     within 1e-9; and on rank 0 the chunk transfer matrices of 4 time
+     chunks folded in one process, against the scan tier.  Every rank's
+     K1-with-stores, K2 and K10-K13 counts must rise.  Then, in this
+     process: checkpoint resume of the letter train state (saved after
+     step 2, restored into a fresh state: step 3 bit-identical), the three
+     ``examples/*_torch.py`` at their defaults, and one serving request
+     timed by ``utils.profiling.time_fn_chained`` beside its CUDA-event
+     median;
+ 15. the kernel table (every kernel launched on its path), the nvidia-smi
      line, and last the result line.
 
 Precision: float32 matrix products and convolutions run in full float32
@@ -1752,7 +1774,7 @@ def profile_target(name, dev):
         from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
 
         trans, inputs, targets, li, lo = lattice_case(rng, dev, torch.float32, B, T, N, S,
-                                                      (500, T), (10, S))
+                                                      (T // 2, T), (10, S))
         lat = make_aligned(trans, inputs, targets, li, lo)
         if name == "k12_warp":
             return (lambda: vk.align_forward_pallas(lat, li, route="warp")), RUNS
@@ -3034,6 +3056,354 @@ def wfsa(rng, dev):
           "viterbi_paths_equal_viterbi_decode": True, "stream_equals_one_shot": True})
 
 
+# --- phase 14: parallel/ on every card, checkpoints, examples, profiling ------
+
+PARALLEL_TIMEOUT_S = 600
+DP_LOSS_RTOL = 1e-5  # the dp step's fp32 loss against the single-process step's
+FP64_RTOL = 1e-9  # vp and seq in float64 against the scan tier
+SEQ_CHUNKS = 4
+
+
+def parallel_rank(rank, world, device_type="cuda"):
+    """One rank of the ``parallel`` phase (one per card, NCCL): the letter
+    model's data-parallel train step and the three dp decoders against the
+    single-process calls, ``asg_loss_vp`` and ``fcc_score_vp`` at the
+    wordpiece width, ``asg_loss_seq``, and on rank 0 the chunk transfer
+    matrices folded in one process.  Every rank draws the same data from one
+    seed and takes its own blocks.  Returns its numbers; any failed check
+    raises, which fails the spawn."""
+    import copy
+
+    import torch.distributed as dist
+
+    import torch_asg_tpu_torch as pt
+    from torch_asg_tpu_torch.models import create_train_state, make_train_step
+    from torch_asg_tpu_torch.ops.kernels.asg_kernels import _bwd_kernel, _fwd_store_kernel
+    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (align_backtrace_pallas,
+                                                                 align_forward_pallas,
+                                                                 viterbi_backtrace_pallas,
+                                                                 viterbi_forward_pallas)
+    from torch_asg_tpu_torch.parallel import (asg_loss_dp, asg_loss_seq, asg_loss_vp,
+                                              beam_decode_dp, fcc_score_vp, make_mesh,
+                                              viterbi_align_dp, viterbi_decode_dp)
+    from torch_asg_tpu_torch.parallel.sequence_parallel import (chunk_boundaries,
+                                                                loss_from_boundaries)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+           else torch.device(device_type))
+    rng = np.random.default_rng([SEED, 18])  # the same data on every rank
+    mesh = make_mesh(device=device_type)
+    rows = slice(rank * B // world, (rank + 1) * B // world)
+    out = {"rank": rank, "world": world, "device": str(dev)}
+    counters = (_fwd_store_kernel, _bwd_kernel, viterbi_forward_pallas,
+                viterbi_backtrace_pallas, align_forward_pallas, align_backtrace_pallas)
+    launches = dict.fromkeys((c.__name__ for c in counters), 0)
+
+    def counted(fn):
+        """fn(), with the port's kernel launches inside it added to ``launches``."""
+        for c in counters:
+            c.launches = 0
+        result = fn()
+        for c in counters:
+            launches[c.__name__] += c.launches
+        return result
+
+    # 1. one data-parallel train step against the single-process step
+    model = letter_model(rng, dev)
+    utts, labels = train_batch(rng)
+    batch = prepare_batch(utts, labels, dev)
+    block = {k: v[rows] for k, v in batch.items()}
+    ref_model = copy.deepcopy(model)
+    ref_state = create_train_state(ref_model)
+    ref_step = make_train_step(ref_model, ref_state.optimizer)
+    state = create_train_state(model)
+
+    def dp_step():
+        state.optimizer.zero_grad(set_to_none=True)
+        em = model(block["features"])
+        li = model.output_length(block["feature_lengths"]).to(torch.int32)
+        loss = asg_loss_dp(mesh, state.transition, em, block["targets"], li,
+                           block["target_lengths"])
+        loss.backward()
+        for p in model.parameters():  # the encoder is replicated: all-reduce its grads
+            dist.all_reduce(p.grad)
+        state.optimizer.step()
+        return loss.detach()
+
+    ref_state, ref_loss = ref_step(ref_state, batch)
+    dp_loss = counted(dp_step)
+    check(abs(float(dp_loss) - float(ref_loss)) <= DP_LOSS_RTOL * abs(float(ref_loss)),
+          f"dp loss {float(dp_loss)} against {float(ref_loss)}")
+    errs = {"loss": abs(float(dp_loss) - float(ref_loss))}
+    named = [*model.named_parameters(), ("transition", state.transition)]
+    for (name, p), q in zip(named, [*ref_model.parameters(), ref_state.transition]):
+        assert_near(f"dp grad {name}", p.grad, q.grad, *GRAD_TOL)
+        errs[name] = max_err(p.grad, q.grad)
+    out["dp_max_abs_err"] = errs
+    out["dp_step_ms"] = counted(lambda: time_ms(dp_step, runs=5, warmup=1))
+    out["single_step_ms"] = time_ms(lambda: ref_step(ref_state, batch), runs=5, warmup=1)
+
+    # 2. the decoders on that batch, bit for bit against the single-process calls
+    trans = torch.as_tensor(rng.normal(size=(N, N)) * 0.5, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        em = ref_model(batch["features"])
+    li = ref_model.output_length(batch["feature_lengths"]).to(torch.int32)
+    targets, lo = batch["targets"], batch["target_lengths"].clone()
+    lo[0] = 0  # an empty transcript: no alignment, score -inf
+    want = (pt.viterbi_decode(trans, em, li), pt.beam_decode(trans, em, li, beam_size=16),
+            pt.viterbi_align(trans, em, targets, li, lo))
+    got = counted(lambda: (viterbi_decode_dp(mesh, trans, em[:, rows], li[rows]),
+                           beam_decode_dp(mesh, trans, em[:, rows], li[rows], beam_size=16),
+                           viterbi_align_dp(mesh, trans, em[:, rows], targets[rows],
+                                            li[rows], lo[rows])))
+    for name, g, w in zip(("viterbi_decode_dp", "beam_decode_dp", "viterbi_align_dp"),
+                          got, want):
+        for field, a in g._asdict().items():
+            b = getattr(w, field)
+            check(torch.equal(a, b[rows] if a.dim() == 1 else b[:, rows]),
+                  f"{name}.{field} differs from the single-process call")
+    check(rank != 0 or got[2].scores[0].item() == float("-inf"),
+          "the empty transcript must score -inf")
+    out["launches"] = launches
+
+    # 3. vocabulary parallel at the wordpiece width
+    vmesh = make_mesh(axis_names=("model",), device=device_type)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = WP_N // world
+    lab = slice(rank * n, (rank + 1) * n)
+    wp = {"trans": torch.randn((WP_N, WP_N), generator=gen, device=dev) * 0.5,
+          "inputs": torch.randn((WP_T, WP_B, WP_N), generator=gen, device=dev),
+          "targets": torch.randint(0, WP_N, (WP_B, WP_S), generator=gen, device=dev),
+          "li": torch.randint(WP_T // 2, WP_T + 1, (WP_B,), generator=gen, device=dev),
+          "lo": torch.randint(WP_S // 2, WP_S + 1, (WP_B,), generator=gen, device=dev)}
+    wp["li"][0] = WP_T
+    vp = {}
+    for dtype, impl, tol in ((torch.float32, "auto", GRAD_TOL),
+                             (torch.float64, "scan", (FP64_RTOL, FP64_RTOL))):
+        name = str(dtype).split(".")[1]
+        tr = wp["trans"].to(dtype, copy=True).requires_grad_(True)
+        x = wp["inputs"].to(dtype, copy=True).requires_grad_(True)
+        ref = pt.asg_loss(tr, x, wp["targets"], wp["li"], wp["lo"], reduction="none",
+                          impl=impl)
+        ref.sum().backward()
+        with torch.no_grad():
+            ref_full = pt.asg_scores(tr, x, wp["targets"], wp["li"], wp["lo"], impl=impl)[0]
+        tr_b = tr.detach()[lab].clone().requires_grad_(True)
+        x_b = x.detach()[:, :, lab].clone().requires_grad_(True)
+
+        def vp_call():
+            tr_b.grad = x_b.grad = None
+            loss = asg_loss_vp(vmesh, tr_b, x_b, wp["targets"], wp["li"], wp["lo"],
+                               reduction="none")
+            loss.sum().backward()
+            return loss
+
+        if device_type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        loss, call_ms = cuda_ms(vp_call) if device_type == "cuda" else (vp_call(), None)
+        full = fcc_score_vp(vmesh, tr_b.detach(), x_b.detach(), wp["li"])
+        errs = {}
+        for label, g, w in (("loss", loss.detach(), ref.detach()), ("fcc_score", full, ref_full),
+                            ("transition_rows", tr_b.grad, tr.grad[lab]),
+                            ("emissions", x_b.grad, x.grad[:, :, lab])):
+            assert_near(f"vp {name} {label}", g, w, *tol)
+            errs[label] = max_err(g, w)
+        vp[name] = {"against": impl, "tolerance": tol, "max_abs_err": errs,
+                    "call_ms": call_ms}
+        if device_type == "cuda":
+            vp[name]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+            vp[name]["above_start_bytes"] = torch.cuda.max_memory_allocated() - base
+        del tr, x, ref, tr_b, x_b, loss
+    out["vp"] = vp
+    del wp
+
+    # 4. sequence parallel, fp64, against the scan tier
+    smesh = make_mesh(axis_names=("seq",), device=device_type)
+    trans64, em64, tgt64, li64, lo64 = lattice_case(rng, dev, torch.float64, B, T, N, S,
+                                                    (T // 2, T), (10, S))
+    tr = trans64.clone().requires_grad_(True)
+    x = em64.clone().requires_grad_(True)
+    ref = pt.asg_loss(tr, x, tgt64, li64, lo64, reduction="sum", impl="scan")
+    ref.backward()
+    c_len = T // world
+    frames = slice(rank * c_len, (rank + 1) * c_len)
+    tr_s = trans64.clone().requires_grad_(True)
+    x_s = em64[frames].clone().requires_grad_(True)
+
+    def seq_call():
+        loss = asg_loss_seq(smesh, tr_s, x_s, tgt64, li64, lo64, reduction="sum")
+        loss.backward()
+        return loss
+
+    loss, seq_ms = cuda_ms(seq_call) if device_type == "cuda" else (seq_call(), None)
+    errs = {}
+    for label, g, w in (("loss", loss.detach(), ref.detach()), ("transition", tr_s.grad, tr.grad),
+                        ("emissions", x_s.grad, x.grad[frames])):
+        assert_near(f"seq {label}", g, w, FP64_RTOL, FP64_RTOL)
+        errs[label] = max_err(g, w)
+    out["seq"] = {"max_abs_err": errs, "call_ms": seq_ms, "frames_per_rank": c_len}
+
+    # 5. the transfer-matrix math in one process: SEQ_CHUNKS chunks folded,
+    # the all-gather replaced by stacking
+    if rank == 0:
+        tr_c = trans64.clone().requires_grad_(True)
+        x_c = em64.clone().requires_grad_(True)
+        per = T // SEQ_CHUNKS
+        bounds = [chunk_boundaries(tr_c, x_c[p * per:(p + 1) * per], tgt64, li64, lo64,
+                                   p * per, p == 0) for p in range(SEQ_CHUNKS)]
+        loss = loss_from_boundaries([b[0] for b in bounds], [b[1] for b in bounds],
+                                    lo64).sum()
+        loss.backward()
+        errs = {}
+        for label, g, w in (("loss", loss.detach(), ref.detach()),
+                            ("transition", tr_c.grad, tr.grad), ("emissions", x_c.grad, x.grad)):
+            assert_near(f"transfer-matrix fold {label}", g, w, FP64_RTOL, FP64_RTOL)
+            errs[label] = max_err(g, w)
+        out["chunk_fold"] = {"chunks": SEQ_CHUNKS, "max_abs_err": errs}
+    return out
+
+
+def checkpoint_resume(rng, dev):
+    """The full-width letter train state saved after step 2 and restored into
+    a fresh state (other weights, no optimizer state): step 3 must equal the
+    uninterrupted run's bit for bit.  cuDNN runs deterministic algorithms
+    here (some of its weight-gradient algorithms add with atomics)."""
+    import tempfile
+
+    from torch_asg_tpu_torch.models import create_train_state, make_train_step
+
+    cfg_rng = np.random.default_rng([SEED, 19])
+    batch = prepare_batch(*train_batch(cfg_rng), dev)
+    weights = letter_model(cfg_rng, dev).state_dict()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for stop in (3, 2):
+            model = letter_model(np.random.default_rng(0), dev)
+            model.load_state_dict(weights)
+            state = create_train_state(model)
+            step = make_train_step(model, state.optimizer)
+            for _ in range(stop):
+                state, loss = step(state, batch)
+            runs.append((state, step, loss))
+        (straight, _, loss_straight), (part, _, _) = runs
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "ckpt.pt"
+            torch.save({"model": part.model.state_dict(), "transition": part.transition.detach(),
+                        "optimizer": part.optimizer.state_dict(), "step": part.step}, path)
+            model = letter_model(np.random.default_rng(1), dev)  # other weights
+            fresh = create_train_state(model)
+            ckpt = torch.load(path, map_location=dev, weights_only=True)
+            size = path.stat().st_size
+        model.load_state_dict(ckpt["model"])
+        with torch.no_grad():
+            fresh.transition.copy_(ckpt["transition"])
+        fresh.optimizer.load_state_dict(ckpt["optimizer"])
+        fresh.step = ckpt["step"]
+        fresh, loss_resumed = make_train_step(model, fresh.optimizer)(fresh, batch)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    check(fresh.step == straight.step == 3, "step counters")
+    check(torch.equal(loss_resumed, loss_straight),
+          f"resumed loss {float(loss_resumed)} against {float(loss_straight)}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*straight.model.parameters(), straight.transition],
+        [*fresh.model.parameters(), fresh.transition]))
+    check(same, "the resumed step's parameters differ from the uninterrupted run's")
+    return {"bit_identical": True, "loss_step3": float(loss_straight),
+            "checkpoint_bytes": size}
+
+
+def run_examples():
+    """The three ``examples/*_torch.py`` at their default arguments on the
+    card, in this process, their output captured: each must return 0 and
+    pass its own assertions.  Returns each one's seconds and last line."""
+    import contextlib
+    import importlib
+    import io
+
+    examples = Path(__file__).resolve().parent / "examples"
+    sys.path.insert(0, str(examples))
+    try:
+        results = {}
+        for name in ("train_asg_torch", "stream_decode_torch", "nbest_rescore_torch"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = importlib.import_module(name).main([])
+            torch.cuda.synchronize()
+            check(rc == 0, f"examples/{name}.py returned {rc}")
+            lines = buf.getvalue().strip().splitlines()
+            results[name] = {"seconds": time.perf_counter() - t0, "last_line": lines[-1]}
+    finally:
+        sys.path.remove(str(examples))
+    return results
+
+
+def chained_request(rng, dev):
+    """One serving request (encoder -> viterbi_decode -> asg_scores) timed by
+    ``utils.profiling.time_fn_chained`` (each request's features depend on the
+    previous request's scores; one synchronise and one scalar fetch at the
+    end, the fetch's own cost subtracted), beside its CUDA-event median."""
+    import torch_asg_tpu_torch as pt
+    from torch_asg_tpu_torch.utils.profiling import fetch_overhead_s, time_fn_chained
+
+    model = letter_model(rng, dev).eval()
+    trans = torch.as_tensor(rng.normal(size=(N, N)) * 0.5, dtype=torch.float32, device=dev)
+    feats = torch.as_tensor(rng.normal(size=(B, 2000, FEATURES)).astype(np.float32),
+                            device=dev)
+    feat_lengths = torch.as_tensor(rng.integers(1000, 2001, size=B), device=dev)
+    targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
+                              device=dev)
+    lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
+
+    def request(x):
+        with torch.no_grad():
+            em = model(x)
+            li = model.output_length(feat_lengths).to(torch.int32)
+            dec = pt.viterbi_decode(trans, em, li)
+            full, _ = pt.asg_scores(trans, em, targets, li, lo)
+        return full, dec.scores
+
+    fetch_s = fetch_overhead_s(device=dev)
+    chained_s = time_fn_chained(request, lambda x0, out: x0 + 0.0 * out[0].sum(), feats,
+                                iters=10, fetch_s=fetch_s)
+    return {"chained_ms": chained_s * 1e3, "cuda_event_median_ms": time_ms(
+        lambda: request(feats), runs=10), "fetch_overhead_ms": fetch_s * 1e3}
+
+
+def parallel(rng, dev):
+    """Phase ``parallel``: one rank per card (world = the card count, NCCL,
+    rank r on cuda:r) runs ``parallel_rank``; the parent joins every rank
+    (``parallel.launch.spawn_ranks``, which fails on any rank's error, exit or
+    timeout) and checks that the dp path launched K1 with stores, K2 and
+    K10-K13 in every rank; then the checkpoint resume, the three examples and
+    the chained serving request, in this process."""
+    from torch_asg_tpu_torch.parallel.launch import spawn_ranks
+
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()  # the ranks share this process's card
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(parallel_rank, world, device="cuda", timeout_s=PARALLEL_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        check(all(v > 0 for v in r["launches"].values()),
+              f"rank {r['rank']}: a kernel of the dp path never launched: {r['launches']}")
+    line = {"phase": "parallel", "card": torch.cuda.get_device_name(0), "world": world,
+            "backend": "nccl", "spawn_seconds": spawn_s,
+            "dp_grad_tolerance": "rtol 1e-3, atol 1e-4 x max|single-process gradient|",
+            "dp_loss_rtol": DP_LOSS_RTOL, "fp64_rtol": FP64_RTOL, "ranks": ranks}
+    line["checkpoint"] = checkpoint_resume(rng, dev)
+    line["examples"] = run_examples()
+    line["serving_request"] = chained_request(rng, dev)
+    emit(line)
+
+
 def spill_bytes(log, marker):
     """{kernel: spill store + load bytes} from an ``nvcc -Xptxas -v`` log, for
     every kernel whose mangled name contains ``marker``."""
@@ -3172,6 +3542,7 @@ def main(argv):
     serve_nbest(np.random.default_rng([SEED, 15]), dev)
     serve_stream(np.random.default_rng([SEED, 16]), dev)
     wfsa(np.random.default_rng([SEED, 17]), dev)
+    parallel(np.random.default_rng([SEED, 20]), dev)
 
     src = "torch_asg_tpu_torch/ops/kernels/csrc/"
     meta = (

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it loads no JAX, no Flax and nothing of
-the JAX package, and builds nothing; and ``chip_smoke.py`` refuses to run
-without a card."""
+"""The port stands alone: importing it (every module, and the three
+``examples/*_torch.py``) loads no JAX, no Flax and nothing of the JAX
+package, and builds nothing; and ``chip_smoke.py`` refuses to run without
+a card."""
 
 import os
 import shutil
@@ -27,6 +28,14 @@ import torch_asg_tpu_torch.ops.posteriors
 import torch_asg_tpu_torch.runtime.bucketing, torch_asg_tpu_torch.runtime.prefetch
 import torch_asg_tpu_torch.ops.streaming, torch_asg_tpu_torch.ops.wfsa
 import torch_asg_tpu_torch.compat, torch_asg_tpu_torch.torch_compat
+import torch_asg_tpu_torch.parallel, torch_asg_tpu_torch.parallel.launch
+import torch_asg_tpu_torch.parallel.collectives, torch_asg_tpu_torch.parallel.mesh
+import torch_asg_tpu_torch.parallel.distributed, torch_asg_tpu_torch.parallel.data_parallel
+import torch_asg_tpu_torch.parallel.vocab_parallel
+import torch_asg_tpu_torch.parallel.sequence_parallel
+import torch_asg_tpu_torch.utils.profiling
+sys.path.insert(0, "examples")
+import train_asg_torch, stream_decode_torch, nbest_rescore_torch
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'torch_asg_tpu'))
 print(bad)
@@ -56,6 +65,19 @@ def test_port_exports_every_name_of_the_jax_package():
     assert not missing, missing
     for name in torch_asg_tpu_torch.__all__:
         assert getattr(torch_asg_tpu_torch, name) is not None
+
+
+@pytest.mark.parametrize("package", ["parallel", "models"])
+def test_port_subpackages_export_every_name_of_the_jax_package(package):
+    """The same for the ``parallel`` and ``models`` packages."""
+    import importlib
+
+    jax_mod = importlib.import_module(f"torch_asg_tpu.{package}")
+    port_mod = importlib.import_module(f"torch_asg_tpu_torch.{package}")
+    missing = sorted(set(jax_mod.__all__) - set(port_mod.__all__))
+    assert not missing, missing
+    for name in port_mod.__all__:
+        assert getattr(port_mod, name) is not None
 
 
 def test_runtime_import_builds_nothing(tmp_path):

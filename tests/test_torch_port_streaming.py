@@ -4,8 +4,9 @@ Each test of ``tests/test_streaming.py`` is mirrored: the same inputs, drawn
 from a seed with NumPy, stream through the port on CPU tensors at fp64, and
 every read-out must equal the JAX package's one-shot function on the
 consumed prefix (scores at rtol 1e-12; paths, positions and labels exactly)
-as well as the port's own one-shot function.  Not mirrored: the data-mesh
-test (the port's ``parallel`` package does not exist yet) and the ``jit``
+as well as the port's own one-shot function.  The data-mesh test runs in
+spawned gloo ranks on the CPU (2 and 4 ranks, one spawn each with its own
+timeout), each streaming its block of the batch.  Not mirrored: the ``jit``
 test (PyTorch runs eagerly).  The per-chunk outputs (backpointers, advance
 bits, beam slots, best arcs) must equal the JAX package's update outputs
 bit for bit.
@@ -23,6 +24,7 @@ import torch_asg_tpu as jx
 import torch_asg_tpu_torch as pt
 from torch_asg_tpu.ops import streaming as jst
 from torch_asg_tpu_torch.ops.semiring import ieee_fp32_products
+from torch_asg_tpu_torch.parallel.launch import spawn_ranks
 
 B, N, S = 3, 6, 4
 F64 = torch.float64
@@ -779,3 +781,43 @@ def test_streaming_launches_no_kernel(rng, monkeypatch):
     _stream_beam(transition, inputs, [3, 3], 2)
     _stream_align(transition, inputs, [3, 3], targets, target_lengths,
                   np.full((B,), 6, np.int32))
+
+
+def stream_block(rank, world, transition, inputs, targets, target_lengths):
+    """One rank streams its block of the batch in chunks of 4 frames; its
+    state's alpha blocks as numpy."""
+    torch.set_num_threads(1)
+    from torch_asg_tpu_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh(device=CPU)
+    t_total, big_b = inputs.shape[:2]
+    inp, tgt, _, tl = shard_batch(mesh, "data", _t(inputs), _t(targets),
+                                  torch.full((big_b,), t_total), _t(target_lengths))
+    tr = _t(transition)
+    st = pt.streaming_init(inp.shape[1], N, S, dtype=F64, device=CPU)
+    for off in range(0, t_total, 4):
+        st = pt.streaming_update(tr, st, inp[off:off + 4], tgt, target_lengths=tl)
+    return st.alpha_full.numpy(), st.alpha_aligned.numpy()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_streaming_under_data_parallel_mesh(rng, world):
+    """The streaming state is (B, ...)-leading, so it splits over a data
+    mesh like any batch: each rank's updates of its block compose to the
+    single-process stream (online multi-stream serving)."""
+    t_total, big_b = 8, 2 * world
+    transition = rng.normal(size=(N, N))
+    inputs = rng.normal(size=(t_total, big_b, N))
+    targets = rng.integers(0, N, size=(big_b, S)).astype(np.int32)
+    target_lengths = np.full((big_b,), S, np.int32)
+    blocks = spawn_ranks(stream_block, world,
+                         (transition, inputs, targets, target_lengths), device=CPU,
+                         timeout_s=300)
+    st = jst.streaming_init(big_b, N, S, dtype=jnp.float64)
+    for off in range(0, t_total, 4):
+        st = jst.streaming_update(_j(transition), st, _j(inputs[off:off + 4]),
+                                  _j(targets), target_lengths=_j(target_lengths))
+    np.testing.assert_allclose(np.concatenate([b[0] for b in blocks]),
+                               np.asarray(st.alpha_full), rtol=1e-12)
+    np.testing.assert_allclose(np.concatenate([b[1] for b in blocks]),
+                               np.asarray(st.alpha_aligned), rtol=1e-12)

@@ -5,8 +5,14 @@ against the JAX package's NumPy arms; three ``make_train_step`` steps of a
 small Wav2Letter (channels 16, depth 1) at fp64 against the JAX package's
 jitted ``make_train_step`` with ``optax.adamw(3e-4)``, from the same Flax
 weights; and, on the port alone, the learning and dropout checks of
-``tests/test_train.py``.
+``tests/test_train.py``.  The twins of its sharding and checkpoint tests:
+``shard_train_state`` in spawned gloo ranks on the CPU (2 and 4 ranks, a
+(P/2) x 2 'data' x 'model' mesh, one spawn each with its own timeout)
+against the JAX package's partitioning metadata, and a ``torch.save`` /
+``torch.load`` round trip that resumes bit for bit.
 """
+
+import copy
 
 import flax
 import jax
@@ -19,11 +25,14 @@ import torch
 import torch_asg_tpu_torch as pt
 from torch_asg_tpu.models import Wav2Letter as FlaxWav2Letter
 from torch_asg_tpu.models import make_train_step as jax_make_train_step
+from torch_asg_tpu.models.train import encoder_partition_specs as jax_partition_specs
 from torch_asg_tpu.models.train import TrainState as JaxTrainState
 from torch_asg_tpu.runtime import host as jhost
 from torch_asg_tpu_torch.convert import wav2letter_from_flax
 from torch_asg_tpu_torch.models import (Wav2Letter, create_train_state, loss_fn,
-                                        make_train_step)
+                                        make_train_step, param_shardings,
+                                        shard_train_state)
+from torch_asg_tpu_torch.parallel.launch import spawn_ranks
 from torch_asg_tpu_torch.runtime import cmvn, encode_labels_np, encode_targets, pack_frames
 
 FEAT = 16
@@ -89,9 +98,9 @@ def _batch(rng, b=3, t=14, s=4):
     }
 
 
-def _flax_params():
+def _flax_params(key=0):
     model = FlaxWav2Letter(**CFG)
-    params = model.init(jax.random.key(0), jnp.zeros((1, 16, FEAT), jnp.float64))
+    params = model.init(jax.random.key(key), jnp.zeros((1, 16, FEAT), jnp.float64))
     return model, jax.tree_util.tree_map(
         lambda x: np.asarray(x, np.float64), flax.core.meta.unbox(params["params"]))
 
@@ -247,3 +256,181 @@ def test_pallas_train_steps_match_jax():
         np.testing.assert_allclose(got[name], w.numpy(), rtol=0, atol=1e-12, err_msg=name)
     np.testing.assert_allclose(state.transition.detach().numpy(),
                                np.asarray(jstate.params["transition"]), rtol=0, atol=1e-12)
+
+
+# --- sharding over a mesh, and checkpoints ------------------------------------
+
+SPAWN_TIMEOUT_S = 300
+OPTIMIZERS = {"adamw": None, "adafactor": lambda p: torch.optim.Adafactor(p, lr=1e-3)}
+
+
+def shard_checks(rank, world, params):
+    """On one rank: for each optimizer, one step (so the optimizer has its
+    state), then ``shard_train_state`` onto a (world/2) x 2 mesh, and one
+    more step of the sharded state and of an unsharded copy from the same
+    gradients; the placements and both results as numpy."""
+    torch.set_num_threads(1)
+    from torch.distributed.tensor import distribute_tensor
+
+    from torch_asg_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(np.random.default_rng(8)).items()}
+    out = {}
+    for name, make in OPTIMIZERS.items():
+        model = _port_model(params)
+        state = create_train_state(model, make)
+        state, _ = make_train_step(model, state.optimizer, impl="scan")(state, batch)
+        ref = copy.deepcopy(state)
+        names = [n for n, _ in model.named_parameters()] + ["transition"]
+        gen = torch.Generator().manual_seed(9)
+        grads = [torch.randn(p.shape, generator=gen, dtype=p.dtype)
+                 for p in [*model.parameters(), state.transition]]
+        sharded = shard_train_state(mesh, model, state)
+        params_after = [*model.parameters(), sharded.transition]
+        out[name] = {
+            "placements": {n: p.placements for n, p in zip(names, params_after)},
+            "state": {n: {k: (tuple(v.shape), v.placements)
+                          for k, v in sharded.optimizer.state[p].items()}
+                      for n, p in zip(names, params_after)},
+            "finite": all(bool(torch.isfinite(v.full_tensor()).all())
+                          for st in sharded.optimizer.state.values() for v in st.values()
+                          if v.dtype.is_floating_point),
+            "shardings": param_shardings(mesh, model),
+        }
+        for p, g in zip(params_after, grads):
+            p.grad = distribute_tensor(g, mesh, p.placements)
+        sharded.optimizer.step()
+        for p, g in zip([*ref.model.parameters(), ref.transition], grads):
+            p.grad = g
+        ref.optimizer.step()
+        out[name]["stepped"] = [p.detach().full_tensor().numpy() for p in params_after]
+        out[name]["ref"] = [p.detach().numpy() for p in [*ref.model.parameters(),
+                                                          ref.transition]]
+    return out
+
+
+@pytest.fixture(scope="module", params=(2, 4), ids=lambda w: f"world{w}")
+def shard_ranks(request):
+    _, params = _flax_params()
+    return request.param, spawn_ranks(shard_checks, request.param, (params,),
+                                      device="cpu", timeout_s=SPAWN_TIMEOUT_S)
+
+
+def _port_name(jax_path):
+    """('ConvBlock_1', 'Conv_0', 'kernel') -> 'blocks.1.conv.weight';
+    ('Dense_0', 'bias') -> 'proj.bias'."""
+    block, leaf = jax_path[0], {"kernel": "weight", "bias": "bias"}[jax_path[-1]]
+    if block.startswith("ConvBlock_"):
+        return f"blocks.{block.split('_')[1]}.conv.{leaf}"
+    return f"proj.{leaf}"
+
+
+def test_partition_specs_follow_the_flax_metadata():
+    """Each parameter splits over 'model' exactly where the JAX package's
+    partitioning metadata does: a Flax conv kernel (K, Cin, Cout) splits its
+    last dim and its bias its only one, which are dim 0 of the torch weight
+    (Cout, Cin, K) and bias; the head projection replicates."""
+    from torch.distributed.tensor import Shard
+
+    from torch_asg_tpu_torch.models import encoder_partition_specs
+
+    jspecs = jax_partition_specs(FlaxWav2Letter(**CFG), FEAT)
+    flat = jax.tree_util.tree_leaves_with_path(
+        jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec) or x is None)
+    got = encoder_partition_specs(Wav2Letter(in_features=FEAT, device="cpu", **CFG))
+    assert len(flat) == len(got)
+    for path, spec in flat:
+        name = _port_name(tuple(k.key for k in path))
+        jax_model_dims = [i for i, a in enumerate(spec or ()) if a == "model"]
+        if jax_model_dims:
+            assert jax_model_dims == [len(spec) - 1]  # output channels
+            assert got[name] == {"model": Shard(0)}, name
+        else:
+            assert got[name] == {}, name
+
+
+def test_optimizer_moments_follow_param_shardings(shard_ranks):
+    """AdamW's moments take their parameter's placements (not replicated:
+    per-rank optimizer memory shrinks with the parameters); the step counter
+    replicates; and a step of the sharded state equals the unsharded step
+    bit for bit."""
+    from torch.distributed.tensor import Replicate
+
+    world, ranks = shard_ranks
+    for r in ranks:
+        got = r["adamw"]
+        shardings = got["shardings"]
+        want = {**shardings["encoder"], "transition": shardings["transition"]}
+        assert got["placements"] == want
+        assert any(any(not isinstance(x, Replicate) for x in pl) for pl in want.values())
+        for name, st in got["state"].items():
+            assert st["exp_avg"][1] == want[name] and st["exp_avg_sq"][1] == want[name]
+            assert st["step"] == ((), (Replicate(), Replicate()))
+        for a, b in zip(got["stepped"], got["ref"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_shard_train_state_handles_factored_optimizer(shard_ranks):
+    """Adafactor's row and column variances have reduced shapes: they
+    replicate instead of taking a split that would not fit them, and every
+    state entry stays finite; the full-shape variance of a bias takes the
+    bias's placement."""
+    from torch.distributed.tensor import Replicate
+
+    world, ranks = shard_ranks
+    rep = (Replicate(), Replicate())
+    for r in ranks:
+        got = r["adafactor"]
+        assert got["finite"]
+        shapes = {n: p for n, p in got["placements"].items()}
+        for name, st in got["state"].items():
+            if "row_var" in st:
+                assert st["row_var"][1] == rep and st["col_var"][1] == rep, name
+            else:
+                assert st["variance"][1] == shapes[name], name
+            assert st["step"][1] == rep
+
+
+def test_checkpoint_roundtrip_resumes_identically(tmp_path):
+    """torch.save of the state_dicts (model, transition, Adam) and the step
+    -> torch.load into a FRESH state -> one more step equals an
+    uninterrupted two-step run bit for bit."""
+    _, params = _flax_params()
+    batch = {k: torch.from_numpy(v) for k, v in _batch(np.random.default_rng(10)).items()}
+
+    def fresh(p):
+        model = _port_model(p)
+        state = create_train_state(model, lambda ps: torch.optim.Adam(ps, lr=1e-2))
+        return state, make_train_step(model, state.optimizer)
+
+    state, step = fresh(params)
+    state, _ = step(state, batch)
+    state, loss_straight = step(state, batch)
+
+    s1, step1 = fresh(params)
+    s1, _ = step1(s1, batch)
+    path = tmp_path / "ckpt.pt"
+    torch.save({"model": s1.model.state_dict(), "transition": s1.transition.detach(),
+                "optimizer": s1.optimizer.state_dict(), "step": s1.step}, path)
+
+    s2, step2 = fresh(_flax_params(key=7)[1])  # other weights, no optimizer state
+    ckpt = torch.load(path, weights_only=True)
+    s2.model.load_state_dict(ckpt["model"])
+    with torch.no_grad():
+        s2.transition.copy_(ckpt["transition"])
+    s2.optimizer.load_state_dict(ckpt["optimizer"])
+    s2.step = ckpt["step"]
+    s2, loss_resumed = step2(s2, batch)
+
+    assert s2.step == state.step == 2
+    assert torch.equal(loss_resumed, loss_straight)
+    for a, b in zip([*state.model.parameters(), state.transition],
+                    [*s2.model.parameters(), s2.transition]):
+        assert torch.equal(a, b)
+    for pa, pb in zip([*state.model.parameters(), state.transition],
+                      [*s2.model.parameters(), s2.transition]):
+        sa, sb = state.optimizer.state[pa], s2.optimizer.state[pb]
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+    # the criterion's own learned parameter moved and survived the trip
+    assert bool((s2.transition != 0).any())

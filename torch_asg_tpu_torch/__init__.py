@@ -19,8 +19,12 @@ by chunk, plain PyTorch), generic weighted-acceptor scoring (``WFSA``,
 ``wfsa_viterbi``, ``wfsa_posteriors``, deterministic on every device), the
 reference-signature shims ``compat`` and ``torch_compat``, and the host runtime in ``runtime`` (a native data path,
 bucketing, and a prefetcher that copies batches to the card on a side
-stream).  Entry points run where their tensors lie: CUDA tensors launch the
-kernels, CPU tensors run each kernel's plain PyTorch version.
+stream).  ``parallel`` runs the criterion and the decoders over several
+cards on ``torch.distributed`` (batch, vocabulary and sequence parallel,
+one process a rank), ``models.shard_train_state`` places a train state on
+a ``DeviceMesh``, and ``utils.profiling`` traces and times.  Entry points
+run where their tensors lie: CUDA tensors launch the kernels, CPU tensors
+run each kernel's plain PyTorch version.
 """
 
 from .asg import ASGLoss, asg_loss, asg_scores

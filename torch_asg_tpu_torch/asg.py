@@ -64,8 +64,12 @@ _EXP_SPREAD_LIMIT = 60.0
 _FUSED_MAX_WIDTH = 512
 
 
-def _prep(inputs, targets, input_lengths, target_lengths):
-    t_total, num_batches, _ = inputs.shape
+def _prep(inputs, targets, input_lengths, target_lengths, t_total=None):
+    """The criterion's front-end normalisation.  ``t_total`` is the global
+    frame count when ``inputs`` holds a block of the frames (default: all
+    of them)."""
+    num_batches = inputs.shape[1]
+    t_total = inputs.shape[0] if t_total is None else t_total
     s_total = targets.shape[1]
     dev = inputs.device
     # half-precision emissions are upcast at the criterion boundary: the

@@ -1,7 +1,9 @@
-"""Acoustic models that emit (T, B, N) label scores, and their train step."""
+"""Acoustic models that emit (T, B, N) label scores, their train step, and
+the placement of a train state on a DeviceMesh."""
 
-from .train import (TrainState, create_train_state, default_optimizer, loss_fn,
-                    make_train_step)
+from .train import (TrainState, create_train_state, default_optimizer,
+                    encoder_partition_specs, loss_fn, make_train_step, param_shardings,
+                    shard_train_state)
 from .wav2letter import ConvBlock, Wav2Letter
 
 __all__ = [
@@ -12,4 +14,7 @@ __all__ = [
     "default_optimizer",
     "loss_fn",
     "make_train_step",
+    "encoder_partition_specs",
+    "param_shardings",
+    "shard_train_state",
 ]

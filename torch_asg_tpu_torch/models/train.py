@@ -11,15 +11,24 @@ When the model uses dropout, a step draws its masks from one
 ``torch.Generator`` that advances with every mask drawn, so masks differ
 from step to step (the JAX package folds the step count into its key
 instead; the two give different bits).
+
+``shard_train_state`` places the state on a ``DeviceMesh`` as DTensors,
+after the Flax model's partitioning metadata: convolutions split their
+output channels over the 'model' axis, the rest replicates.  A checkpoint
+is the ``state_dict`` of the model, the transition and the optimizer, with
+the step, through ``torch.save`` and ``torch.load``.
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from ..asg import asg_loss
 from .wav2letter import Wav2Letter
@@ -84,3 +93,79 @@ def make_train_step(model: Wav2Letter, optimizer: torch.optim.Optimizer,
         return state, loss.detach()
 
     return train_step
+
+
+# --- sharding over a DeviceMesh ---------------------------------------------
+
+
+# The mesh axis the convolutions' output channels split over (the Flax
+# model's ``tp_axis``).
+TP_AXIS = "model"
+
+
+def encoder_partition_specs(model: Wav2Letter) -> dict:
+    """{parameter name: {mesh axis: placement}} for the encoder.
+
+    As the Flax model's partitioning metadata says: every convolution's
+    output channels split over ``TP_AXIS`` (its weight (Cout, Cin, K) and its
+    bias along dim 0); the head projection replicates ({})."""
+    specs = {}
+    for name, module in model.named_modules():
+        for pname, _ in module.named_parameters(prefix=name, recurse=False):
+            specs[pname] = {TP_AXIS: Shard(0)} if isinstance(module, nn.Conv1d) else {}
+    return specs
+
+
+def _placements(mesh: DeviceMesh, spec: dict) -> tuple:
+    names = mesh.mesh_dim_names or ()
+    unknown = set(spec) - set(names)
+    if unknown:
+        raise ValueError(f"mesh has no axis {sorted(unknown)}; its axes are {tuple(names)}")
+    return tuple(spec.get(n, Replicate()) for n in names)
+
+
+def param_shardings(mesh: DeviceMesh, model: Wav2Letter) -> dict:
+    """{'encoder': {name: placements}, 'transition': placements}: one
+    placement per mesh dimension.  Convolutions split their output channels
+    over ``TP_AXIS``; everything else (the transition too) replicates."""
+    enc = {n: _placements(mesh, s) for n, s in encoder_partition_specs(model).items()}
+    return {"encoder": enc, "transition": _placements(mesh, {})}
+
+
+def shard_train_state(mesh: DeviceMesh, model: Wav2Letter, state: TrainState) -> TrainState:
+    """Place the parameters AND the optimizer state on the mesh as DTensors.
+
+    Each parameter becomes a ``DTensor`` with ``param_shardings``'s
+    placements, in the model itself (a module holds its parameters) and in
+    the optimizer's groups.  Optimizer state tensors shaped like their
+    parameter (AdamW's moments) take its placements, so per-rank optimizer
+    memory shrinks with the parameters; the rest replicate: step counters,
+    and factored state such as ``torch.optim.Adafactor``'s row and column
+    variances, whose reduced shapes a parameter's split would not fit.
+    Returns the state with the new transition; call on every rank."""
+    shardings = param_shardings(mesh, model)
+    rep = shardings["transition"]
+    new, placed = {}, {}
+
+    def place(p, placements):
+        q = nn.Parameter(distribute_tensor(p.detach(), mesh, placements),
+                         requires_grad=p.requires_grad)
+        new[p], placed[p] = q, placements
+        return q
+
+    for name, module in list(model.named_modules()):
+        for pname, p in list(module.named_parameters(recurse=False)):
+            full = f"{name}.{pname}" if name else pname
+            setattr(module, pname, place(p, shardings["encoder"][full]))
+    transition = place(state.transition, rep)
+    opt = state.optimizer
+    for group in opt.param_groups:
+        group["params"] = [new[p] for p in group["params"]]
+    moved = {}
+    for p, st in opt.state.items():
+        moved[new[p]] = {
+            k: distribute_tensor(v, mesh, placed[p] if v.shape == p.shape else rep)
+            if isinstance(v, torch.Tensor) else v
+            for k, v in st.items()}
+    opt.state = defaultdict(dict, moved)
+    return TrainState(model, transition, opt, state.step)
