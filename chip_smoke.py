@@ -160,7 +160,13 @@ launches:
      step of the full-width letter model (B=64, the ``train`` batch) through
      ``asg_loss_dp`` ('auto': K1 with stores, K2), its loss and every
      gradient against the single-process ``make_train_step`` within the
-     ``train`` bounds, both step times; ``viterbi_decode_dp`` (K10, K11),
+     ``train`` bounds, both step times; the tensor-parallel step
+     (``make_train_step`` on a ``shard_train_state`` state, conv output
+     channels over 'model', the batch over 'data'; a (1, 1) mesh on one
+     card, (world/2, 2) on an even count) against a fresh single-process
+     step, its loss within 1e-5 relative and every gradient and stepped
+     parameter within the ``train`` bounds, with its K1-with-stores and K2
+     launches, its time and its peak memory; ``viterbi_decode_dp`` (K10, K11),
      ``beam_decode_dp`` (beam 16) and ``viterbi_align_dp`` (K12, K13, one
      empty transcript) bit for bit against the single-process calls;
      ``asg_loss_vp`` and ``fcc_score_vp`` at the wordpiece width (T=100,
@@ -170,7 +176,8 @@ launches:
      ``asg_loss_seq`` (B=64, T=1000, N=30, S=50, fp64) against the scan tier
      within 1e-9; and on rank 0 the chunk transfer matrices of 4 time
      chunks folded in one process, against the scan tier.  Every rank's
-     K1-with-stores, K2 and K10-K13 counts must rise.  Then, in this
+     K1-with-stores, K2 and K10-K13 counts must rise, and its tp step's
+     K1-with-stores and K2 counts.  Then, in this
      process: checkpoint resume of the letter train state (saved after
      step 2, restored into a fresh state: step 3 bit-identical), the three
      ``examples/*_torch.py`` at their defaults, and one serving request
@@ -3066,7 +3073,8 @@ SEQ_CHUNKS = 4
 
 def parallel_rank(rank, world, device_type="cuda"):
     """One rank of the ``parallel`` phase (one per card, NCCL): the letter
-    model's data-parallel train step and the three dp decoders against the
+    model's data-parallel train step, its tensor-parallel train step
+    (``tp_step_check``) and the three dp decoders against the
     single-process calls, ``asg_loss_vp`` and ``fcc_score_vp`` at the
     wordpiece width, ``asg_loss_seq``, and on rank 0 the chunk transfer
     matrices folded in one process.  Every rank draws the same data from one
@@ -3101,13 +3109,14 @@ def parallel_rank(rank, world, device_type="cuda"):
                 viterbi_backtrace_pallas, align_forward_pallas, align_backtrace_pallas)
     launches = dict.fromkeys((c.__name__ for c in counters), 0)
 
-    def counted(fn):
-        """fn(), with the port's kernel launches inside it added to ``launches``."""
+    def counted(fn, into=launches):
+        """fn(), with the port's kernel launches inside it added to ``into``."""
         for c in counters:
             c.launches = 0
         result = fn()
         for c in counters:
-            launches[c.__name__] += c.launches
+            if c.launches:
+                into[c.__name__] = into.get(c.__name__, 0) + c.launches
         return result
 
     # 1. one data-parallel train step against the single-process step
@@ -3115,6 +3124,7 @@ def parallel_rank(rank, world, device_type="cuda"):
     utts, labels = train_batch(rng)
     batch = prepare_batch(utts, labels, dev)
     block = {k: v[rows] for k, v in batch.items()}
+    initial = copy.deepcopy(model)
     ref_model = copy.deepcopy(model)
     ref_state = create_train_state(ref_model)
     ref_step = make_train_step(ref_model, ref_state.optimizer)
@@ -3144,6 +3154,7 @@ def parallel_rank(rank, world, device_type="cuda"):
     out["dp_max_abs_err"] = errs
     out["dp_step_ms"] = counted(lambda: time_ms(dp_step, runs=5, warmup=1))
     out["single_step_ms"] = time_ms(lambda: ref_step(ref_state, batch), runs=5, warmup=1)
+    out["tp"] = tp_step_check(initial, batch, world, device_type, counted)
 
     # 2. the decoders on that batch, bit for bit against the single-process calls
     trans = torch.as_tensor(rng.normal(size=(N, N)) * 0.5, dtype=torch.float32, device=dev)
@@ -3264,6 +3275,65 @@ def parallel_rank(rank, world, device_type="cuda"):
             assert_near(f"transfer-matrix fold {label}", g, w, FP64_RTOL, FP64_RTOL)
             errs[label] = max_err(g, w)
         out["chunk_fold"] = {"chunks": SEQ_CHUNKS, "max_abs_err": errs}
+    return out
+
+
+def tp_step_check(initial, batch, world, device_type, counted):
+    """The tensor-parallel train step: ``make_train_step`` on a
+    ``shard_train_state`` state of the letter model ``initial`` on a ('data',
+    'model') mesh, (1, 1) on one card and (world/2, 2) on an even count, the
+    rank passing its 'data' block of ``batch``; its loss, every gradient and
+    every stepped parameter against one single-process step on the whole
+    batch from the same weights, its K1-with-stores and K2 launches, its
+    median time (5 steps) and its peak memory."""
+    from torch_asg_tpu_torch.models import (create_train_state, make_train_step,
+                                            shard_train_state)
+    from torch_asg_tpu_torch.parallel import make_mesh
+
+    size = 2 if world % 2 == 0 else 1
+    mesh = make_mesh((world // size, size), ("data", "model"), device=device_type)
+    per = B // mesh.size(0)
+    rows = slice(mesh.get_local_rank("data") * per, (mesh.get_local_rank("data") + 1) * per)
+    block = {k: v[rows] for k, v in batch.items()}
+    ref_model, model = copy.deepcopy(initial), copy.deepcopy(initial)
+    ref_state = create_train_state(ref_model)
+    ref_state, ref_loss = make_train_step(ref_model, ref_state.optimizer)(ref_state, batch)
+    state = shard_train_state(mesh, model, create_train_state(model))
+    step = make_train_step(model, state.optimizer)
+    launches = {}
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    state, loss = counted(lambda: step(state, block), into=launches)
+    out = {"mesh": {"data": mesh.size(0), "model": mesh.size(1)}, "rows": per}
+    if cuda:
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        out["above_start_bytes"] = torch.cuda.max_memory_allocated() - base
+    check(abs(float(loss) - float(ref_loss)) <= DP_LOSS_RTOL * abs(float(ref_loss)),
+          f"tp loss {float(loss)} against {float(ref_loss)}")
+    grads, params, free = {"loss": abs(float(loss) - float(ref_loss))}, {}, {}
+    named = [*model.named_parameters(), ("transition", state.transition)]
+    lr = ref_state.optimizer.param_groups[0]["lr"]
+    for (name, p), q in zip(named, [*ref_model.parameters(), ref_state.transition]):
+        g, w = p.grad.full_tensor(), p.detach().full_tensor()
+        assert_near(f"tp grad {name}", g, q.grad, *GRAD_TOL)
+        # AdamW's first step moves an entry by lr g / (|g| + eps): where the two
+        # gradients differ by more than a hundredth of the gradient, their sign
+        # or its scale against eps is not held, and the entries may lie up to
+        # 2 lr apart (none on one card, where the gradients are bit-identical)
+        free[name] = q.grad.abs() < 100 * (g - q.grad).abs()
+        held = ~free[name]
+        assert_near(f"tp stepped {name}", w[held], q.detach()[held], *GRAD_TOL)
+        check(bool(((w - q.detach()).abs()[free[name]] <= 2 * lr).all()),
+              f"tp stepped {name}: an entry moved more than 2 lr from the single-process one")
+        grads[name], params[name] = max_err(g, q.grad), max_err(w, q.detach())
+    out["max_abs_err"] = {"grads": grads, "stepped_params": params}
+    out["entries_within_2_lr"] = sum(int(f.sum()) for f in free.values())
+    out["step_ms"] = counted(lambda: time_ms(lambda: step(state, block), runs=5, warmup=1),
+                             into=launches)
+    out["launches"] = launches
     return out
 
 
@@ -3394,9 +3464,16 @@ def parallel(rng, dev):
     for r in ranks:
         check(all(v > 0 for v in r["launches"].values()),
               f"rank {r['rank']}: a kernel of the dp path never launched: {r['launches']}")
-    line = {"phase": "parallel", "card": torch.cuda.get_device_name(0), "world": world,
+        tp = r["tp"]["launches"]
+        check(tp.get("_fwd_store_kernel", 0) > 0 and tp.get("_bwd_kernel", 0) > 0,
+              f"rank {r['rank']}: the tp step did not launch K1 with stores and K2: {tp}")
+    line = {"phase": "parallel", "card": torch.cuda.get_device_name(0),
+            "nvidia_smi": nvidia_smi(), "world": world,
             "backend": "nccl", "spawn_seconds": spawn_s,
             "dp_grad_tolerance": "rtol 1e-3, atol 1e-4 x max|single-process gradient|",
+            "tp_tolerance": "loss rtol 1e-5; gradients and stepped parameters rtol 1e-3, "
+                            "atol 1e-4 x max|single-process value|; within 2 lr where "
+                            "|single-process gradient| < 100 |gradient difference|",
             "dp_loss_rtol": DP_LOSS_RTOL, "fp64_rtol": FP64_RTOL, "ranks": ranks}
     line["checkpoint"] = checkpoint_resume(rng, dev)
     line["examples"] = run_examples()
@@ -3421,6 +3498,13 @@ def spill_bytes(log, marker):
     return out
 
 
+def nvidia_smi():
+    """The first card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
@@ -3430,9 +3514,7 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,

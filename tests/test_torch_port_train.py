@@ -268,9 +268,10 @@ def shard_checks(rank, world, params):
     """On one rank: for each optimizer, one step (so the optimizer has its
     state), then ``shard_train_state`` onto a (world/2) x 2 mesh, and one
     more step of the sharded state and of an unsharded copy from the same
-    gradients; the placements and both results as numpy."""
+    gradients; the placements and both results as numpy, or the error that
+    refused the optimizer."""
     torch.set_num_threads(1)
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     from torch_asg_tpu_torch.parallel import make_mesh
 
@@ -286,16 +287,18 @@ def shard_checks(rank, world, params):
         gen = torch.Generator().manual_seed(9)
         grads = [torch.randn(p.shape, generator=gen, dtype=p.dtype)
                  for p in [*model.parameters(), state.transition]]
-        sharded = shard_train_state(mesh, model, state)
+        try:
+            sharded = shard_train_state(mesh, model, state)
+        except ValueError as e:
+            out[name] = {"error": str(e), "still_plain": not any(
+                isinstance(p, DTensor) for p in [*model.parameters(), state.transition])}
+            continue
         params_after = [*model.parameters(), sharded.transition]
         out[name] = {
             "placements": {n: p.placements for n, p in zip(names, params_after)},
             "state": {n: {k: (tuple(v.shape), v.placements)
                           for k, v in sharded.optimizer.state[p].items()}
                       for n, p in zip(names, params_after)},
-            "finite": all(bool(torch.isfinite(v.full_tensor()).all())
-                          for st in sharded.optimizer.state.values() for v in st.values()
-                          if v.dtype.is_floating_point),
             "shardings": param_shardings(mesh, model),
         }
         for p, g in zip(params_after, grads):
@@ -372,24 +375,19 @@ def test_optimizer_moments_follow_param_shardings(shard_ranks):
 
 
 def test_shard_train_state_handles_factored_optimizer(shard_ranks):
-    """Adafactor's row and column variances have reduced shapes: they
-    replicate instead of taking a split that would not fit them, and every
-    state entry stays finite; the full-shape variance of a bias takes the
-    bias's placement."""
-    from torch.distributed.tensor import Replicate
-
+    """Adafactor on a state split over 'model' is refused with a ValueError
+    that names it and the reason (its step size and update clipping take
+    whole-parameter norms through ``.item()``, which reads one rank's block
+    of a split DTensor: its sharded step was off by 1e-4), before anything
+    is placed.  Its exact steps on a (D, 1) mesh are in
+    ``tests/test_torch_port_tp_train.py``."""
     world, ranks = shard_ranks
-    rep = (Replicate(), Replicate())
     for r in ranks:
         got = r["adafactor"]
-        assert got["finite"]
-        shapes = {n: p for n, p in got["placements"].items()}
-        for name, st in got["state"].items():
-            if "row_var" in st:
-                assert st["row_var"][1] == rep and st["col_var"][1] == rep, name
-            else:
-                assert st["variance"][1] == shapes[name], name
-            assert st["step"][1] == rep
+        assert got["error"].startswith(
+            "torch.optim.Adafactor cannot step a state split over mesh axis 'model' = 2")
+        assert "whole-parameter norms through .item()" in got["error"]
+        assert got["still_plain"]
 
 
 def test_checkpoint_roundtrip_resumes_identically(tmp_path):

@@ -12,11 +12,34 @@ When the model uses dropout, a step draws its masks from one
 from step to step (the JAX package folds the step count into its key
 instead; the two give different bits).
 
-``shard_train_state`` places the state on a ``DeviceMesh`` as DTensors,
-after the Flax model's partitioning metadata: convolutions split their
-output channels over the 'model' axis, the rest replicates.  A checkpoint
-is the ``state_dict`` of the model, the transition and the optimizer, with
-the step, through ``torch.save`` and ``torch.load``.
+``shard_train_state`` places the state on a ('data', 'model')
+``DeviceMesh`` as DTensors, after the Flax model's partitioning metadata:
+convolutions split their output channels over 'model', the rest
+replicates.  ``make_train_step`` on such a state is the tensor-parallel
+step, run by every rank of the mesh (one process a rank, as in
+``parallel/``), each on its own blocks (``models/wav2letter.py``):
+
+* **Batch.** Each rank passes its block of the global batch along 'data':
+  rows [d B/D, (d+1) B/D) for its 'data' coordinate d; every 'model' rank
+  of one data group passes the same block (``parallel/``'s per-rank rule
+  for a ``P('data', ...)`` batch).
+* **Loss.** The step returns the mean over the global batch, the same on
+  every rank (``asg_loss_dp``).
+* **Parameters.** After the step, ``p.full_tensor()`` of every parameter
+  is the single-process step's; each convolution's weight and bias stay
+  ``Shard(0)`` over 'model', the head and the transition ``Replicate()``.
+  The encoder's gradients are summed over 'data' once after
+  ``backward()``; the transition's is already whole (``asg_loss_dp``).
+* **Meshes.** (1, M), (D, 1) and (D, M).  A batch not divisible by D and
+  output channels not divisible by M raise "not divisible" errors; a
+  DTensor weight on a mesh without 'model' raises.  No weight is gathered
+  or replicated for the forward.  ``torch.optim.Adafactor`` is refused
+  where 'model' splits a parameter: its step size and update clipping
+  take whole-parameter norms through ``.item()``, which reads only this
+  rank's block of a split DTensor.
+
+A checkpoint is the ``state_dict`` of the model, the transition and the
+optimizer, with the step, through ``torch.save`` and ``torch.load``.
 """
 
 from __future__ import annotations
@@ -26,12 +49,15 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from ..asg import asg_loss
-from .wav2letter import Wav2Letter
+from ..parallel.collectives import mesh_axis
+from ..parallel.data_parallel import asg_loss_dp
+from .wav2letter import DP_AXIS, TP_AXIS, Wav2Letter
 
 
 @dataclass
@@ -62,22 +88,36 @@ def create_train_state(
     return TrainState(model, transition, make([*model.parameters(), transition]))
 
 
+def state_mesh(state: TrainState) -> Optional[DeviceMesh]:
+    """The mesh of a state placed by ``shard_train_state``; None if plain."""
+    t = state.transition
+    return t.device_mesh if isinstance(t, DTensor) else None
+
+
 def loss_fn(model: Wav2Letter, state: TrainState, batch, impl: str = "auto",
             train: bool = False, generator: Optional[torch.Generator] = None):
     """Mean ASG loss of a batch: ``features`` (B, T, F), ``feature_lengths``
-    (B,), ``targets`` (B, S), ``target_lengths`` (B,)."""
+    (B,), ``targets`` (B, S), ``target_lengths`` (B,).  On a sharded state,
+    the batch is this rank's block and the mean is the global batch's."""
     emissions = model(batch["features"], train=train, generator=generator)
     input_lengths = model.output_length(batch["feature_lengths"]).to(torch.int32)
-    return asg_loss(state.transition, emissions, batch["targets"], input_lengths,
-                    batch["target_lengths"], reduction="mean", impl=impl)
+    mesh = state_mesh(state)
+    if mesh is None:
+        return asg_loss(state.transition, emissions, batch["targets"], input_lengths,
+                        batch["target_lengths"], reduction="mean", impl=impl)
+    return asg_loss_dp(mesh, state.transition.to_local(), emissions, batch["targets"],
+                       input_lengths, batch["target_lengths"], axis=DP_AXIS,
+                       reduction="mean", impl=impl)
 
 
 def make_train_step(model: Wav2Letter, optimizer: torch.optim.Optimizer,
                     impl: str = "auto",
                     generator: Optional[torch.Generator] = None):
     """(state, batch) -> (state, loss): one forward, ``backward()`` and
-    ``optimizer.step()``.  With ``model.dropout > 0`` dropout is on, drawing
-    from ``generator`` (default: one on the model's device seeded with 0)."""
+    ``optimizer.step()``; tensor-parallel on a state placed by
+    ``shard_train_state`` (module docstring).  With ``model.dropout > 0``
+    dropout is on, drawing from ``generator`` (default: one on the model's
+    device seeded with 0)."""
     use_dropout = model.dropout > 0.0
     if use_dropout and generator is None:
         generator = torch.Generator(device=next(model.parameters()).device)
@@ -88,6 +128,12 @@ def make_train_step(model: Wav2Letter, optimizer: torch.optim.Optimizer,
         loss = loss_fn(model, state, batch, impl, train=use_dropout,
                        generator=generator if use_dropout else None)
         loss.backward()
+        mesh = state_mesh(state)
+        if mesh is not None:
+            # each rank's encoder gradient is its batch block's part
+            data = mesh_axis(mesh, DP_AXIS)
+            for p in model.parameters():
+                dist.all_reduce(p.grad.to_local(), group=data.group)
         optimizer.step()
         state.step += 1
         return state, loss.detach()
@@ -96,11 +142,6 @@ def make_train_step(model: Wav2Letter, optimizer: torch.optim.Optimizer,
 
 
 # --- sharding over a DeviceMesh ---------------------------------------------
-
-
-# The mesh axis the convolutions' output channels split over (the Flax
-# model's ``tp_axis``).
-TP_AXIS = "model"
 
 
 def encoder_partition_specs(model: Wav2Letter) -> dict:
@@ -141,10 +182,24 @@ def shard_train_state(mesh: DeviceMesh, model: Wav2Letter, state: TrainState) ->
     parameter (AdamW's moments) take its placements, so per-rank optimizer
     memory shrinks with the parameters; the rest replicate: step counters,
     and factored state such as ``torch.optim.Adafactor``'s row and column
-    variances, whose reduced shapes a parameter's split would not fit.
-    Returns the state with the new transition; call on every rank."""
+    variances.  Raises, before placing anything, when a convolution's
+    output channels do not divide over ``TP_AXIS``, and for
+    ``torch.optim.Adafactor`` when ``TP_AXIS`` has more than one rank
+    (module docstring).  Returns the state with the new transition; call
+    on every rank."""
     shardings = param_shardings(mesh, model)
     rep = shardings["transition"]
+    ranks = mesh.size(mesh.mesh_dim_names.index(TP_AXIS))
+    if ranks > 1 and isinstance(state.optimizer, torch.optim.Adafactor):
+        raise ValueError(
+            f"torch.optim.Adafactor cannot step a state split over mesh axis "
+            f"{TP_AXIS!r} = {ranks}: its step size and update clipping take "
+            f"whole-parameter norms through .item(), which reads only this rank's "
+            f"block of a split DTensor")
+    for name, module in model.named_modules():
+        if isinstance(module, nn.Conv1d) and module.out_channels % ranks:
+            raise ValueError(f"layer {name}: output channels {module.out_channels} "
+                             f"not divisible by mesh axis {TP_AXIS!r} = {ranks}")
     new, placed = {}, {}
 
     def place(p, placements):

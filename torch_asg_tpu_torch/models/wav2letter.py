@@ -16,6 +16,20 @@ Padding is the Flax "SAME" rule: output length ceil(L / stride), with
 left and the rest on the right.  That split is asymmetric when ``total`` is
 odd, which ``nn.Conv1d`` cannot express, so each block pads with ``F.pad``
 before a ``padding=0`` convolution.
+
+Tensor parallelism: when ``models.train.shard_train_state`` has placed the
+parameters on a ('data', 'model') ``DeviceMesh``, each convolution's weight
+and bias are DTensors split along their output channels over 'model' and
+the head is replicated.  Each rank then runs its own block, written with
+the collectives of ``parallel/``, not DTensor's dispatch (which would
+gather every weight): it convolves the replicated input with its
+(Cout/M, Cin, K) block, applies the ReLU and gathers the channels, so the
+next block's Cin contraction is local (the Flax model's output-channel
+split).  The input's gradient is all-reduced over 'model', since each
+rank's channels give a part of it.  Dropout follows the gather: the mask is
+the rows of this rank's 'data' block of the mask drawn for the whole batch,
+so every 'model' rank of a data group draws the same one, and the step
+draws what the single-process step draws.
 """
 
 from __future__ import annotations
@@ -23,8 +37,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..ops.kernels.common import DEFAULT_DEVICE
+from ..parallel.collectives import gather_channels, mesh_axis, replicated_input
+
+# The mesh axes of a sharded model: the convolutions' output channels split
+# over TP_AXIS (the Flax model's ``tp_axis``), the batch over DP_AXIS.
+TP_AXIS = "model"
+DP_AXIS = "data"
 
 
 def same_padding(length: int, kernel: int, stride: int) -> tuple:
@@ -34,11 +55,33 @@ def same_padding(length: int, kernel: int, stride: int) -> tuple:
     return total // 2, total - total // 2
 
 
-def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator=None, block=(1, 0)) -> torch.Tensor:
     """Inverted dropout: zero each element with probability ``rate`` and
-    scale the rest by 1 / (1 - rate); masks come from ``generator``."""
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
-    return x * keep / (1.0 - rate)
+    scale the rest by 1 / (1 - rate); masks come from ``generator``.
+    ``block`` = (D, d): ``x`` is block d of a batch split into D equal
+    blocks along dim 0, and its mask is those rows of the whole batch's."""
+    size, index = block
+    rows = x.shape[0]
+    keep = x.new_empty((size * rows, *x.shape[1:])).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep[index * rows:(index + 1) * rows] / (1.0 - rate)
+
+
+def local_block(p: DTensor, placements: tuple) -> torch.Tensor:
+    """This rank's block of a parameter placed by ``shard_train_state``;
+    raises unless it has ``placements``."""
+    if tuple(p.placements) != placements:
+        raise ValueError(f"a parameter placed {tuple(p.placements)} on mesh axes "
+                         f"{p.device_mesh.mesh_dim_names}; the tensor-parallel forward "
+                         f"needs {placements}")
+    return p.to_local()
+
+
+def data_block(mesh) -> tuple:
+    """(D, d): the 'data' axis's size and this rank's coordinate on it."""
+    if DP_AXIS not in (mesh.mesh_dim_names or ()):
+        return 1, 0
+    ax = mesh_axis(mesh, DP_AXIS)
+    return ax.size, ax.index
 
 
 class ConvBlock(nn.Module):
@@ -53,11 +96,24 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator=None) -> torch.Tensor:
-        """x: (B, C, T) -> (B, features, ceil(T / stride))."""
-        pads = same_padding(x.shape[-1], self.conv.kernel_size[0], self.conv.stride[0])
-        x = F.relu(self.conv(F.pad(x, pads)))
+        """x: (B, C, T) -> (B, features, ceil(T / stride)); tensor-parallel
+        when the weight is a DTensor split over ``TP_AXIS`` (module
+        docstring)."""
+        conv, block = self.conv, (1, 0)
+        pads = same_padding(x.shape[-1], conv.kernel_size[0], conv.stride[0])
+        if isinstance(conv.weight, DTensor):
+            mesh = conv.weight.device_mesh
+            model = mesh_axis(mesh, TP_AXIS)
+            split = tuple(Shard(0) if n == TP_AXIS else Replicate() for n in mesh.mesh_dim_names)
+            x = F.conv1d(F.pad(replicated_input(x, model), pads),
+                         local_block(conv.weight, split), local_block(conv.bias, split),
+                         conv.stride)
+            x = gather_channels(F.relu(x), model)
+            block = data_block(mesh)
+        else:
+            x = F.relu(conv(F.pad(x, pads)))
         if train and self.dropout > 0.0:
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, generator, block)
         return x
 
 
@@ -95,7 +151,13 @@ class Wav2Letter(nn.Module):
         x = features.transpose(1, 2)  # (B, F, T)
         for block in self.blocks:
             x = block(x, train, generator)
-        x = self.proj(x.transpose(1, 2))  # (B, T', N)
+        x = x.transpose(1, 2)
+        weight, bias = self.proj.weight, self.proj.bias
+        if isinstance(weight, DTensor):  # replicated: every rank's is the whole
+            whole = (Replicate(),) * weight.device_mesh.ndim
+            x = F.linear(x, local_block(weight, whole), local_block(bias, whole))
+        else:
+            x = self.proj(x)  # (B, T', N)
         return x.transpose(0, 1)  # (T', B, N) for the criterion
 
     def output_length(self, input_length):

@@ -15,7 +15,9 @@ collectives from ``shard_map``'s transposes; here they are written out:
   large.)
 * ``gather_blocks``: all-gather forward, stacked on a new leading axis; the
   backward hands each rank its own slice of the gradient, which is the same
-  on every rank, without summing it over the ranks.
+  on every rank, without summing it over the ranks.  ``gather_channels``
+  concatenates those blocks along dim 1 (the tensor-parallel encoder's
+  output channels).
 """
 
 from __future__ import annotations
@@ -119,3 +121,10 @@ def sum_over_ranks(x: torch.Tensor, ax: Axis) -> torch.Tensor:
 def gather_blocks(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """(P, *x.shape): every rank's ``x`` along the axis, in rank order."""
     return _GatherBlocks.apply(x, ax.group, ax.size, ax.index)
+
+
+def gather_channels(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """(B, P * C, ...): every rank's (B, C, ...) block of channels along the
+    axis, concatenated along dim 1 in rank order (``gather_blocks``'s
+    gradient: each rank gets back the gradient of its own channels)."""
+    return torch.cat(tuple(gather_blocks(x, ax)), dim=1)
