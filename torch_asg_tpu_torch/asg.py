@@ -48,6 +48,7 @@ from .ops.kernels.fac_kernels import fac_score_pallas
 from .ops.kernels.fcc_kernels import fcc_score_pallas
 from .ops.semiring import strict_chain_precision
 from .utils.lengths import default_lengths
+from .utils.profiling import span
 
 REDUCTIONS = ("mean", "sum", "none")
 IMPLS = ("scan", "pallas", "fused", "matmul", "auto")
@@ -106,7 +107,8 @@ def _spread_guard(transition: torch.Tensor, impl: str, temperature: float, valid
     'auto' with a finite spread past the bound routes to the log-domain
     'scan' tier; an explicit exp-domain tier raises under ``validate=True``
     and reroutes under ``validate='reroute'``; a falsy ``validate`` skips the
-    check.  Cost: one (N, N) reduction and one host sync per call.
+    check.  Cost: one (N, N) reduction and one host sync per call (the
+    span ``asg.host_sync``).
     """
     if not validate:
         return impl
@@ -121,7 +123,8 @@ def _spread_guard(transition: torch.Tensor, impl: str, temperature: float, valid
     finite = torch.isfinite(transition)
     hi = torch.where(finite, transition, float("-inf")).amax()
     lo = torch.where(finite, transition, float("inf")).amin()
-    hi, lo = torch.stack([hi, lo]).tolist()
+    with span("asg.host_sync"):
+        hi, lo = torch.stack([hi, lo]).tolist()
     spread = hi - lo if lo <= hi else 0.0
     if spread > limit:
         if impl == "auto" or validate == "reroute":
@@ -184,24 +187,26 @@ def _resolve_impl(impl: str, num_labels: int = 0, s_total: int = 0):
 
 def _scores(transition, inputs, targets, input_lengths, target_lengths,
             impl, temperature, validate, precision):
-    inputs, targets, input_lengths, target_lengths = _prep(
-        inputs, targets, input_lengths, target_lengths
-    )
-    dt = torch.promote_types(inputs.dtype, transition.dtype)
-    inputs = inputs.to(dt)
-    transition = transition.to(device=inputs.device, dtype=dt)
-    if temperature <= 0.0:
-        raise ValueError(f"temperature must be > 0, got {temperature}")
-    impl = _spread_guard(transition, impl, temperature, validate)
-    scores_fn = _resolve_impl(impl, inputs.shape[2], targets.shape[1])
-    if temperature != 1.0:
-        inv = 1.0 / temperature
-        transition = transition * inv
-        inputs = inputs * inv
-    if precision is None:
-        return scores_fn(transition, inputs, targets, input_lengths, target_lengths)
-    with strict_chain_precision(precision):
-        return scores_fn(transition, inputs, targets, input_lengths, target_lengths)
+    """(full, aligned) of every tier, in the span ``asg.criterion``."""
+    with span("asg.criterion"):
+        inputs, targets, input_lengths, target_lengths = _prep(
+            inputs, targets, input_lengths, target_lengths
+        )
+        dt = torch.promote_types(inputs.dtype, transition.dtype)
+        inputs = inputs.to(dt)
+        transition = transition.to(device=inputs.device, dtype=dt)
+        if temperature <= 0.0:
+            raise ValueError(f"temperature must be > 0, got {temperature}")
+        impl = _spread_guard(transition, impl, temperature, validate)
+        scores_fn = _resolve_impl(impl, inputs.shape[2], targets.shape[1])
+        if temperature != 1.0:
+            inv = 1.0 / temperature
+            transition = transition * inv
+            inputs = inputs * inv
+        if precision is None:
+            return scores_fn(transition, inputs, targets, input_lengths, target_lengths)
+        with strict_chain_precision(precision):
+            return scores_fn(transition, inputs, targets, input_lengths, target_lengths)
 
 
 def asg_loss(

@@ -30,6 +30,9 @@ rank's channels give a part of it.  Dropout follows the gather: the mask is
 the rows of this rank's 'data' block of the mask drawn for the whole batch,
 so every 'model' rank of a data group draws the same one, and the step
 draws what the single-process step draws.
+
+Under a profiler each stage of blocks (front end, mid stack, wide block) is
+a span of its own, forward and backward, on either branch.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..ops.kernels.common import DEFAULT_DEVICE
 from ..parallel.collectives import gather_channels, mesh_axis, replicated_input
+from ..utils.profiling import span, spanned
 
 # The mesh axes of a sharded model: the convolutions' output channels split
 # over TP_AXIS (the Flax model's ``tp_axis``), the batch over DP_AXIS.
@@ -147,18 +151,28 @@ class Wav2Letter(nn.Module):
     def forward(self, features: torch.Tensor, train: bool = False,
                 generator=None) -> torch.Tensor:
         """features (B, T, F) -> emissions (T', B, N); ``train`` turns
-        dropout on, with masks drawn from ``generator``."""
-        x = features.transpose(1, 2)  # (B, F, T)
-        for block in self.blocks:
-            x = block(x, train, generator)
-        x = x.transpose(1, 2)
-        weight, bias = self.proj.weight, self.proj.bias
-        if isinstance(weight, DTensor):  # replicated: every rank's is the whole
-            whole = (Replicate(),) * weight.device_mesh.ndim
-            x = F.linear(x, local_block(weight, whole), local_block(bias, whole))
-        else:
-            x = self.proj(x)  # (B, T', N)
-        return x.transpose(0, 1)  # (T', B, N) for the criterion
+        dropout on, with masks drawn from ``generator``.  Under a profiler
+        the call is the span ``asg.encoder`` and each stage
+        ``asg.encoder.<stage>``, forward and backward (``utils/profiling.py``)."""
+        b = list(self.blocks)  # the strided front end, the mid stack, the wide block
+        stages = [(n, s) for n, s in (("frontend", b[:1]), ("mid", b[1:-1]), ("wide", b[-1:]))
+                  if s]
+        with span("asg.encoder"):
+            x = features.transpose(1, 2)  # (B, F, T)
+            for name, blocks in stages:
+                def run(x, blocks=blocks):
+                    for block in blocks:
+                        x = block(x, train, generator)
+                    return x
+                x = spanned(f"asg.encoder.{name}", run, x)
+            x = x.transpose(1, 2)
+            weight, bias = self.proj.weight, self.proj.bias
+            if isinstance(weight, DTensor):  # replicated: every rank's is the whole
+                whole = (Replicate(),) * weight.device_mesh.ndim
+                x = F.linear(x, local_block(weight, whole), local_block(bias, whole))
+            else:
+                x = self.proj(x)  # (B, T', N)
+            return x.transpose(0, 1)  # (T', B, N) for the criterion
 
     def output_length(self, input_length):
         """Frames emitted for a given feature length (SAME padding)."""

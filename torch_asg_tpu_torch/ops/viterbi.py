@@ -53,6 +53,7 @@ from .kernels.viterbi_kernels import (ALIGN_KERNEL_MAX_WIDTH,
                                       viterbi_backtrace_pallas,
                                       viterbi_forward_pallas)
 from ..utils.lengths import default_lengths, mask_emissions
+from ..utils.profiling import span
 
 # Beyond this many labels, the per-step (B, N, N) max-plus tensor is built in
 # destination chunks to bound live memory.
@@ -134,44 +135,46 @@ def viterbi_decode(
     """Best label path per batch element.
 
     transition: (N, N), [i, j] = score of j -> i; inputs: (T, B, N).
-    impl: 'pallas' | 'xla' | 'auto' (see the module docstring).
+    impl: 'pallas' | 'xla' | 'auto' (see the module docstring).  Under a
+    profiler the call is the span ``asg.decode``.
     """
-    t_total, num_batches, num_labels = inputs.shape
-    transition, inputs, input_lengths = _decode_inputs(transition, inputs, input_lengths)
+    with span("asg.decode"):
+        t_total, num_batches, num_labels = inputs.shape
+        transition, inputs, input_lengths = _decode_inputs(transition, inputs, input_lengths)
 
-    if impl == "auto":
-        impl = (
-            "pallas"
-            if inputs.is_cuda and num_labels <= VITERBI_KERNEL_MAX_LABELS
-            else "xla"
-        )
-    if impl == "pallas":
-        if num_labels > VITERBI_KERNEL_MAX_LABELS:
-            raise ValueError(
-                f"impl='pallas' runs one thread per label in one block and "
-                f"supports num_labels <= {VITERBI_KERNEL_MAX_LABELS}; got "
-                f"{num_labels}.  Use impl='xla' (chunked candidate tensor) "
-                f"for wordpiece-scale vocabularies."
+        if impl == "auto":
+            impl = (
+                "pallas"
+                if inputs.is_cuda and num_labels <= VITERBI_KERNEL_MAX_LABELS
+                else "xla"
             )
-        d_end, bp = viterbi_forward_pallas(transition, inputs.contiguous(),
-                                           input_lengths)
-        scores, final_labels = argmax_first(d_end, dim=1)
-        paths = viterbi_backtrace_pallas(final_labels, bp, input_lengths)
-        return ViterbiResult(scores, paths)
-    if impl != "xla":
-        raise ValueError(
-            f"unknown impl {impl!r}; expected 'auto', 'pallas', or 'xla'"
-        )
-    inputs_m = mask_emissions(inputs, input_lengths)
-    d = inputs_m[0]
-    d_end = d
-    backptr = []
-    for t in range(1, t_total):
-        best, bp = _maxplus_argmax(transition, d)
-        d = inputs_m[t] + best
-        d_end = torch.where((input_lengths - 1 == t)[:, None], d, d_end)
-        backptr.append(bp)
-    return _backtrace_1best(d_end, backptr, input_lengths, t_total)
+        if impl == "pallas":
+            if num_labels > VITERBI_KERNEL_MAX_LABELS:
+                raise ValueError(
+                    f"impl='pallas' runs one thread per label in one block and "
+                    f"supports num_labels <= {VITERBI_KERNEL_MAX_LABELS}; got "
+                    f"{num_labels}.  Use impl='xla' (chunked candidate tensor) "
+                    f"for wordpiece-scale vocabularies."
+                )
+            d_end, bp = viterbi_forward_pallas(transition, inputs.contiguous(),
+                                               input_lengths)
+            scores, final_labels = argmax_first(d_end, dim=1)
+            paths = viterbi_backtrace_pallas(final_labels, bp, input_lengths)
+            return ViterbiResult(scores, paths)
+        if impl != "xla":
+            raise ValueError(
+                f"unknown impl {impl!r}; expected 'auto', 'pallas', or 'xla'"
+            )
+        inputs_m = mask_emissions(inputs, input_lengths)
+        d = inputs_m[0]
+        d_end = d
+        backptr = []
+        for t in range(1, t_total):
+            best, bp = _maxplus_argmax(transition, d)
+            d = inputs_m[t] + best
+            d_end = torch.where((input_lengths - 1 == t)[:, None], d, d_end)
+            backptr.append(bp)
+        return _backtrace_1best(d_end, backptr, input_lengths, t_total)
 
 
 def alignment_segments(alignment: AlignmentResult, s_total: int) -> SegmentsResult:

@@ -33,6 +33,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "asg_host.cpp"
 BUILD = _HERE / "build"
@@ -257,26 +259,30 @@ def collapse_path(path, alphabet_size: int = 0, max_reps: int = 2,
     extended alphabet (labels ``alphabet_size .. alphabet_size + max_reps - 1``
     stand for 1 .. max_reps repeats of the previous label).  With
     ``alphabet_size == 0`` it is a plain merge and ``max_reps`` is ignored.
-    ``path`` may be a NumPy array or a tensor on any device."""
-    if hasattr(path, "detach"):
-        path = path.detach().cpu().numpy()
-    path = np.ascontiguousarray(np.asarray(path, np.int32))
-    lib = _native(use_native)
-    if lib is not None:
-        # at worst every frame expands to max_reps + 1 labels
-        out = np.empty(path.shape[0] * (max(max_reps, 0) + 1) + 1, np.int32)
-        n = lib.asg_collapse_path(_ptr(path, ctypes.c_int32), path.shape[0],
-                                  alphabet_size, max_reps, _ptr(out, ctypes.c_int32))
-        return out[:n].copy()
-    out = []
-    prev = -1
-    for lab in path.tolist():
-        if lab < 0 or lab == prev:
-            continue
-        prev = lab
-        if alphabet_size > 0 and alphabet_size <= lab < alphabet_size + max_reps:
-            if out:
-                out.extend([out[-1]] * (lab - alphabet_size + 1))
-        else:
-            out.append(lab)
-    return np.asarray(out, np.int32)
+    ``path`` may be a NumPy array or a tensor on any device.  Under a
+    profiler the call is the span ``asg.collapse``, and a tensor's copy to
+    the host ``asg.host_sync`` within it."""
+    with span("asg.collapse"):
+        if hasattr(path, "detach"):
+            with span("asg.host_sync"):
+                path = path.detach().cpu().numpy()
+        path = np.ascontiguousarray(np.asarray(path, np.int32))
+        lib = _native(use_native)
+        if lib is not None:
+            # at worst every frame expands to max_reps + 1 labels
+            out = np.empty(path.shape[0] * (max(max_reps, 0) + 1) + 1, np.int32)
+            n = lib.asg_collapse_path(_ptr(path, ctypes.c_int32), path.shape[0],
+                                      alphabet_size, max_reps, _ptr(out, ctypes.c_int32))
+            return out[:n].copy()
+        out = []
+        prev = -1
+        for lab in path.tolist():
+            if lab < 0 or lab == prev:
+                continue
+            prev = lab
+            if alphabet_size > 0 and alphabet_size <= lab < alphabet_size + max_reps:
+                if out:
+                    out.extend([out[-1]] * (lab - alphabet_size + 1))
+            else:
+                out.append(lab)
+        return np.asarray(out, np.int32)

@@ -1,5 +1,27 @@
-"""Profiling and timing utilities: a thin wrapper over ``torch.profiler``
-and a timer whose every call waits on the one before it.
+"""Profiling and timing utilities: the program's spans, a thin wrapper over
+``torch.profiler``, and a timer whose every call waits on the one before it.
+
+Spans are ``torch.profiler`` host events, opened only while a profiler is
+collecting (``span``, ``spanned``).  They land in the profiler's timeline
+beside the device rows, so each kernel is tied to the spans open on the
+thread that launched it; they stay in the profiler's memory until whoever
+holds the profile exports it (``trace`` writes a Chrome trace).  The
+program opens these:
+
+==================================  ==========================================
+``asg.encoder``                     ``Wav2Letter.forward``, the whole body
+``asg.encoder.frontend``            the strided front end (``blocks[0]``)
+``asg.encoder.mid``                 the stride-1 mid stack (``blocks[1:-1]``)
+``asg.encoder.wide``                the last block (channels -> head_channels)
+``asg.encoder.<stage>.backward``    that stage's backward, on the thread that
+                                    runs it (the autograd engine's on the card)
+``asg.criterion``                   ``asg.py::_scores``, every tier
+``asg.host_sync``                   where the host waits on the device: the
+                                    spread guard's ``.tolist()``,
+                                    ``collapse_path``'s ``.cpu()`` of a tensor
+``asg.decode``                      ``viterbi_decode``
+``asg.collapse``                    one ``collapse_path`` call
+==================================  ==========================================
 
 On the card, a host clock around a launch measures the enqueue, not the
 work: ``time_fn_chained`` feeds each call's output into the next call's
@@ -16,8 +38,93 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from ..ops.kernels.common import DEFAULT_DEVICE
+
+# what ``span`` returns while no profiler collects: one context for every call
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` span called ``name`` while a profiler is
+    collecting; otherwise one shared no-op context.  The span is the
+    profiler's own record function, without ``torch.profiler.record_function``'s
+    Python wrapper and dispatcher calls, which cost several times as much a
+    span; a traced serving request opens 64 collapse spans."""
+    if torch.autograd._profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _NO_SPAN
+
+
+class _BackwardSpan:
+    """A span opened and closed by the autograd engine as it runs a
+    stretch of the backward pass."""
+
+    def __init__(self, name: str):
+        self.name, self.record = name, None
+
+    def open(self) -> None:
+        self.record = _RecordFunctionFast(self.name)
+        self.record.__enter__()
+
+    def close(self, *_) -> None:
+        if self.record is not None:
+            self.record.__exit__(None, None, None)
+            self.record = None
+
+
+class _OnBackward(torch.autograd.Function):
+    """Identity whose backward, run when the gradient reaches it, calls
+    ``action`` (a span's open or close)."""
+
+    @staticmethod
+    def forward(ctx, x, action):
+        ctx.action = action
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.action()
+        return grad, None
+
+
+def _last_node(root):
+    """The node of ``root``'s graph that the engine runs last: the one
+    made first in the forward, the leaves' accumulators aside.  Called
+    where the stretch's input needs no gradient, so every node reachable
+    from ``root`` is the stretch's."""
+    seen, todo, nodes = set(), [root], []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ != "AccumulateGrad":
+            nodes.append(node)
+            todo.extend(n for n, _ in node.next_functions)
+    return min(nodes, key=lambda n: n._sequence_nr())
+
+
+def spanned(name: str, fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` in the span ``name``.  While a profiler is collecting and
+    autograd records, its backward runs in the span ``name + ".backward"``:
+    identity functions at the stretch's ends open and close it, or, where
+    ``x`` needs no gradient, a hook on the stretch's last node closes it
+    (no gradient is added for ``x``).  Without a profiler nothing is added
+    to the graph; gradients are the same bits either way."""
+    with span(name):
+        if not (torch.autograd._profiler_enabled() and torch.is_grad_enabled()):
+            return fn(x)
+        mark = _BackwardSpan(name + ".backward")
+        if x.requires_grad:
+            x = _OnBackward.apply(x, mark.close)
+        y = fn(x)
+        if not y.requires_grad:
+            return y
+        if not x.requires_grad:
+            _last_node(y.grad_fn).register_hook(mark.close)
+        return _OnBackward.apply(y, mark.open)
 
 
 @contextlib.contextmanager
