@@ -53,6 +53,14 @@ launches:
      recursion, and at each block size it is built for (fp32 and fp64,
      timed); K5 and K8 twice with the same bits on each route; one warp-
      route call of each of K3-K8 profiled by kernel (``lattice_warp``);
+     conv: the stride-1 blocks' hand-written channels-last convolution
+     (``csrc/conv.cu``) through its autograd function, forward with bias and
+     ReLU, input, weight and bias gradients, each against float64
+     ``F.conv1d`` beside cuDNN's float32 error (``check_conv``: the letter
+     cells' 250 -> 250 and 250 -> 2000 blocks, the default widths, B = 1,
+     T' = 1, 6, 7 and 1001), its kernels built without spills, and each pass
+     timed alone against cuDNN on the channels-first and the channels-last
+     layout at the cells' and the default widths;
   4. grads: the fused tier's gradients (K1 with stores -> K2 ->
      scatter_to_full) and the per-lattice tier's (K3, K6, K7 -> K5, K8 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
@@ -407,6 +415,35 @@ def check_auto_route(scores, store, bwd, vit=0):
     check(got == want,
           f"every K1, K2, K10 and K11 launch must take the route 'auto' takes: {got}")
     return got
+
+
+def conv_launches(reset=False):
+    """The stride-1 blocks' hand-written convolution launches by pass,
+    {"conv_fwd": n, "conv_dgrad": n, "conv_wgrad": n}; with ``reset`` the
+    counts are set to 0 first."""
+    from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
+
+    wrappers = (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad)
+    if reset:
+        for w in wrappers:
+            w.launches = 0
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def check_conv_launches(model, calls, backward):
+    """Since the last reset, each stride-1 block of ``model`` (every block but
+    the strided front end) ran its forward ``calls`` times on the
+    hand-written convolution, and, with ``backward``, its input and weight
+    gradients as often (the mid stack's first block too: the front end's
+    weight needs its input's gradient).  A block that fell back to
+    ``F.conv1d`` launches none.  Returns the launches a call."""
+    blocks = len(model.blocks) - 1
+    want = {"conv_fwd": calls * blocks, "conv_dgrad": calls * blocks * backward,
+            "conv_wgrad": calls * blocks * backward}
+    got = conv_launches()
+    check(got == want,
+          f"every stride-1 block must run the hand-written convolution: {got}, want {want}")
+    return {k: v // calls for k, v in got.items()}
 
 
 # K10's warp-route width edges, fp32 and fp64, on integer emissions that
@@ -1257,6 +1294,176 @@ def check_grads_vs_scan(rng, dev):
           "launches": launched})
 
 
+# (case, B, T', Cin, Cout, K) of check_conv: the letter cells' mid and wide
+# blocks, the repo's default widths, one utterance, frames below, at and
+# above the width, and an odd frame count.
+CONV_CASES = (
+    ("mid", 64, 1000, 250, 250, 7),
+    ("wide", 64, 1000, 250, 2000, 7),
+    ("default_mid", 64, 1000, 256, 256, 7),
+    ("default_wide", 64, 1000, 256, 512, 7),
+    ("b1", 1, 1000, 250, 250, 7),
+    ("t1", 4, 1, 250, 250, 7),
+    ("t6", 4, 6, 250, 250, 7),
+    ("t7", 4, 7, 250, 250, 7),
+    ("t1001", 8, 1001, 250, 2000, 7),
+)
+CONV_TIMED = ("mid", "wide", "default_mid", "default_wide")
+# largest |error| over the largest |float64 value| a float32 pass may show
+CONV_REL_TOL = 1e-4
+CONV_CHAIN = 5
+
+
+def conv_inputs(rng, dev, b, t, cin, cout, k):
+    """Post-ReLU inputs, He-normal weights, a small bias and an upstream
+    gradient, float32, channels last."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+    x = torch.randn(b, t, cin, generator=gen, device=dev).relu_()
+    w = torch.randn(cout, cin, k, generator=gen, device=dev) * (2.0 / (cin * k)) ** 0.5
+    bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+    up = torch.randn(b, t, cout, generator=gen, device=dev)
+    return x, w, bias, up
+
+
+def conv_ncl(x, w, bias):
+    """relu(conv1d + bias) of channels-last ``x`` through ``F.conv1d`` on the
+    channels-first view (cuDNN in float32)."""
+    out = torch.nn.functional.conv1d(x.transpose(1, 2), w, bias, padding=w.shape[-1] // 2)
+    return torch.relu(out).transpose(1, 2)
+
+
+def conv_errors(impl, x, w, bias, up):
+    """{pass: largest |error| / largest |float64 value|} of ``impl``'s forward
+    and its three gradients, against float64 ``F.conv1d`` whose gradient
+    takes ``impl``'s own ReLU mask (so a value rounding to either side of 0
+    does not count)."""
+    leaves = [a.detach().clone().requires_grad_() for a in (x, w, bias)]
+    out = impl(*leaves)
+    got = (out.detach(), *torch.autograd.grad(out, leaves, up))
+    ref_leaves = [a.detach().double().requires_grad_() for a in (x, w, bias)]
+    pre = torch.nn.functional.conv1d(ref_leaves[0].transpose(1, 2), ref_leaves[1],
+                                     ref_leaves[2], padding=w.shape[-1] // 2).transpose(1, 2)
+    mask = out.detach() > 0
+    want = (pre.detach().relu(), *torch.autograd.grad(pre, ref_leaves, up.double() * mask))
+    return {name: float((g.double() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+            for name, g, r in zip(("fwd", "dgrad", "wgrad", "bias_grad"), got, want)}
+
+
+def conv_pass_ms(x, w, bias, up):
+    """{pass: {arm: ms}}: the hand-written kernels, their plain versions,
+    cuDNN on the channels-first layout (the model's path before them) and
+    cuDNN on channels-last (conv2d with H = 1), each pass alone."""
+    from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
+
+    k = w.shape[-1]
+    pad, ops = k // 2, torch.ops.aten
+    with torch.no_grad():
+        g = (up * (ck.conv_fwd(x, w, bias) > 0)).contiguous()
+        x_ncl, g_ncl = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
+        cl = torch.channels_last
+        x_cl = x.transpose(1, 2).unsqueeze(2).contiguous(memory_format=cl)
+        g_cl = g.transpose(1, 2).unsqueeze(2).contiguous(memory_format=cl)
+        w_cl = w.unsqueeze(2).contiguous(memory_format=cl)
+        check(x_cl.data_ptr() == x.data_ptr(), "conv2d's channels-last input is a copy")
+
+        def ncl(mask):
+            return lambda: ops.convolution_backward(g_ncl, x_ncl, w, None, [1], [pad], [1],
+                                                    False, [0], 1, mask)
+
+        def nhwc(mask):
+            return lambda: ops.convolution_backward(g_cl, x_cl, w_cl, None, [1, 1], [0, pad],
+                                                    [1, 1], False, [0, 0], 1, mask)
+
+        arms = {
+            "fwd": {"hand": lambda: ck.conv_fwd(x, w, bias),
+                    "plain": lambda: ck.conv_fwd_plain(x, w, bias),
+                    "cudnn_ncl": lambda: ops.convolution(x_ncl, w, bias, [1], [pad], [1],
+                                                         False, [0], 1),
+                    "cudnn_nhwc": lambda: ops.convolution(x_cl, w_cl, bias, [1, 1], [0, pad],
+                                                          [1, 1], False, [0, 0], 1)},
+            "dgrad": {"hand": lambda: ck.conv_dgrad(g, w),
+                      "plain": lambda: ck.conv_dgrad_plain(g, w),
+                      "cudnn_ncl": ncl([True, False, False]),
+                      "cudnn_nhwc": nhwc([True, False, False])},
+            "wgrad": {"hand": lambda: ck.conv_wgrad(g, x, k),
+                      "plain": lambda: ck.conv_wgrad_plain(g, x, k),
+                      "cudnn_ncl": ncl([False, True, False]),
+                      "cudnn_nhwc": nhwc([False, True, False])},
+        }
+        # CONV_CHAIN calls a timing, so the card, not the host's launches,
+        # sets the pace (as in a training step)
+        return {p: {arm: time_ms(lambda fn=fn: [fn() for _ in range(CONV_CHAIN)], runs=10)
+                         / CONV_CHAIN for arm, fn in fns.items()}
+                for p, fns in arms.items()}
+
+
+def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED):
+    """The stride-1 blocks' hand-written convolution (``csrc/conv.cu``) on
+    the card: for each case, the forward with bias and ReLU, and the input,
+    weight and bias gradients through its autograd function, each against
+    float64 ``F.conv1d`` (largest error over the largest value, beside
+    cuDNN's in float32); at the timed cases each pass alone against its plain
+    version and cuDNN on the channels-first and the channels-last layout,
+    with TFLOP/s.  Returns the kernels line's entry: the errors, and the
+    first timed case's three passes (``ms``), their float32 bound, the plain
+    versions' time and the faster cuDNN layout's (``library_ms``)."""
+    from torch_asg_tpu_torch.ops.kernels import _build
+    from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        log = _build.build_all(("conv",))["conv"].with_suffix(".log").read_text()
+        spills = spill_bytes(log, "conv_")
+        emit({"phase": "conv_build", "ptxas": [line.strip() for line in log.splitlines()
+                                               if "Used" in line or "spill" in line]})
+        check(len(spills) == 3 and not any(spills.values()),
+              f"the convolution kernels must not spill: {spills}")
+    before = (ck.conv_fwd.launches, ck.conv_dgrad.launches, ck.conv_wgrad.launches)
+    rows = []
+    for name, b, t, cin, cout, k in cases:
+        x, w, bias, up = conv_inputs(rng, dev, b, t, cin, cout, k)
+        errs = conv_errors(ck.conv_relu, x, w, bias, up)
+        cudnn = conv_errors(conv_ncl, x, w, bias, up)
+        with torch.no_grad():
+            check(torch.equal(ck.conv_relu(x, w, bias), ck.conv_relu(x, w, bias)),
+                  f"conv {name}: two forwards differ")
+        check(all(e <= CONV_REL_TOL for e in errs.values()),
+              f"conv {name}: {errs} (cuDNN {cudnn}) beyond {CONV_REL_TOL}")
+        row = {"phase": "conv", "case": name, "shape": [b, t, cin, cout, k],
+               "rel_err": errs, "cudnn_rel_err": cudnn}
+        if name in timed:
+            flop = 2 * b * t * cin * cout * k
+            ms = conv_pass_ms(x, w, bias, up)
+            row["ms"] = ms
+            row["tflops"] = {p: {arm: flop / (v * 1e-3) / 1e12 for arm, v in arms.items()}
+                             for p, arms in ms.items()}
+        emit(row)
+        rows.append(row)
+        del x, w, bias, up
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    after = (ck.conv_fwd.launches, ck.conv_dgrad.launches, ck.conv_wgrad.launches)
+    if dev.type == "cuda":
+        check(all(a > b for a, b in zip(after, before)), "a convolution kernel never launched")
+    out = {"name": "conv_unfold_kernel, conv_wgrad_kernel (stride-1 blocks)",
+           "max_rel_err": max(e for r in rows for e in r["rel_err"].values()),
+           "cudnn_max_rel_err": max(e for r in rows for e in r["cudnn_rel_err"].values())}
+    first = next((r for r in rows if "ms" in r), None)
+    if first is not None:
+        b, t, cin, cout, k = first["shape"]
+        ms = first["ms"]
+        out.update({
+            "case": first["case"], "shape": first["shape"],
+            "ms": sum(v["hand"] for v in ms.values()),
+            "ms_by_pass": {p: v["hand"] for p, v in ms.items()},
+            "plain_ms": sum(v["plain"] for v in ms.values()),
+            "bound_ms": len(ms) * 2 * b * t * cin * cout * k / FP32_OPS_PER_S * 1e3,
+            "bound_by": "operations",
+            "library_ms": sum(min(v["cudnn_ncl"], v["cudnn_nhwc"]) for v in ms.values())})
+    return out
+
+
 def flax_layout_params(rng, cfg):
     """Random Wav2Letter weights in the Flax layout, zero biases.  Kernels are
     normal with variance 2 / fan_in, so activations keep their scale through
@@ -1325,6 +1532,7 @@ def serve(rng, dev, counters):
     for c in counters:
         c.launches = 0
     route_launches(reset=True)
+    conv_launches(reset=True)
     latencies, outs = [], []
     for req in requests:
         out, stage_ms = answer(*req)
@@ -1335,6 +1543,7 @@ def serve(rng, dev, counters):
         check(n > 0, f"serving path never launched {name}")
     routes_seen = check_auto_route(launches["asg_scores_fused"], 0, 0,
                                    launches["viterbi_forward_pallas"])
+    conv_per_request = check_conv_launches(model, len(requests), backward=False)
     # where a request's time goes: the first request again, synchronised
     # after each stage (outside the counted run), with each collapse arm
     stage_names = ("encoder", "viterbi_decode", "paths_to_host_and_collapse", "asg_scores",
@@ -1381,6 +1590,7 @@ def serve(rng, dev, counters):
           "requests": 3, "batch": B, "frames": T,
           "latency_ms": latencies, "median_latency_ms": statistics.median(latencies),
           "launches": launches, "route_launches": routes_seen,
+          "conv_launches_per_request": conv_per_request,
           "stage_ms_first_request": stages,
           "stage_ms_first_request_numpy_collapse": stages_numpy,
           "native_hypotheses_equal_numpy": True, "asg_scores_ms": scores_ms,
@@ -1389,7 +1599,7 @@ def serve(rng, dev, counters):
                                             float((aligned - ref_aligned).abs().max())),
           "mean_loss": float(loss.mean()),
           "hypothesis_lengths_first_request": [len(h) for h in outs[0][5][:8]]})
-    return launches
+    return {**launches, "conv_per_request": conv_per_request}
 
 
 def train_batch(rng, longest=None):
@@ -1501,6 +1711,7 @@ def train(rng, dev):
     for c in counters:
         c.launches = 0
     route_launches(reset=True)
+    conv_launches(reset=True)
     losses, latencies = [], []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1517,6 +1728,7 @@ def train(rng, dev):
     check(launches["asg_scores_fused"] == 0,
           f"the score-only K1 must not launch in a training step: {launches}")
     routes_seen = check_auto_route(0, 5, 5)
+    conv_per_step = check_conv_launches(model, 5, backward=True)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch))
@@ -1565,7 +1777,7 @@ def train(rng, dev):
           "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
           "frames_per_s": frames / (median_ms * 1e-3), "losses": losses,
           "loss_after": loss_after, "launches": launches,
-          "route_launches": routes_seen,
+          "route_launches": routes_seen, "conv_launches_per_step": conv_per_step,
           "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
           "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
           "criterion_fwd_bwd_ms": criterion_ms, "spread_guard_ms": guard_ms,
@@ -1573,7 +1785,8 @@ def train(rng, dev):
           "criterion_profile": profiled, "host_prep_ms": host_prep_ms,
           "cmvn_tolerance": CMVN_TOL, "max_abs_err_native_features": features_err})
     train_prefetch(np.random.default_rng([SEED, 13]), dev, state, step)
-    return {k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")}, (utts, labels)
+    return ({**{k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")},
+             "conv_per_step": conv_per_step}, (utts, labels))
 
 
 PREFETCH_BATCHES = 12
@@ -3087,6 +3300,7 @@ def parallel_rank(rank, world, device_type="cuda"):
     import torch_asg_tpu_torch as pt
     from torch_asg_tpu_torch.models import create_train_state, make_train_step
     from torch_asg_tpu_torch.ops.kernels.asg_kernels import _bwd_kernel, _fwd_store_kernel
+    from torch_asg_tpu_torch.ops.kernels.conv_kernels import conv_dgrad, conv_fwd, conv_wgrad
     from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (align_backtrace_pallas,
                                                                  align_forward_pallas,
                                                                  viterbi_backtrace_pallas,
@@ -3105,8 +3319,9 @@ def parallel_rank(rank, world, device_type="cuda"):
     mesh = make_mesh(device=device_type)
     rows = slice(rank * B // world, (rank + 1) * B // world)
     out = {"rank": rank, "world": world, "device": str(dev)}
-    counters = (_fwd_store_kernel, _bwd_kernel, viterbi_forward_pallas,
-                viterbi_backtrace_pallas, align_forward_pallas, align_backtrace_pallas)
+    counters = (_fwd_store_kernel, _bwd_kernel, conv_fwd, conv_dgrad, conv_wgrad,
+                viterbi_forward_pallas, viterbi_backtrace_pallas, align_forward_pallas,
+                align_backtrace_pallas)
     launches = dict.fromkeys((c.__name__ for c in counters), 0)
 
     def counted(fn, into=launches):
@@ -3278,13 +3493,34 @@ def parallel_rank(rank, world, device_type="cuda"):
     return out
 
 
+def single_step_on_conv1d(model, batch):
+    """One single-process ``make_train_step`` step of ``model`` on ``batch``
+    with every block on ``F.conv1d``, the convolution the tensor-parallel
+    branch runs (``wav2letter.conv_route`` held to it for the step): the
+    front end's weight gradient sums away most of its terms, so two float32
+    summation orders part by more than ``GRAD_TOL`` on a fifth of its
+    entries, and the comparison holds the sharding alone only where both
+    steps convolve alike.  Returns (state, loss)."""
+    from torch_asg_tpu_torch.models import create_train_state, make_train_step
+    from torch_asg_tpu_torch.models import wav2letter
+
+    route = wav2letter.conv_route
+    wav2letter.conv_route = lambda *args: "sharded" if args[-1] else "conv1d"
+    try:
+        state = create_train_state(model)
+        return make_train_step(model, state.optimizer)(state, batch)
+    finally:
+        wav2letter.conv_route = route
+
+
 def tp_step_check(initial, batch, world, device_type, counted):
     """The tensor-parallel train step: ``make_train_step`` on a
     ``shard_train_state`` state of the letter model ``initial`` on a ('data',
     'model') mesh, (1, 1) on one card and (world/2, 2) on an even count, the
     rank passing its 'data' block of ``batch``; its loss, every gradient and
     every stepped parameter against one single-process step on the whole
-    batch from the same weights, its K1-with-stores and K2 launches, its
+    batch from the same weights and on the same convolution
+    (``single_step_on_conv1d``), its K1-with-stores and K2 launches, its
     median time (5 steps) and its peak memory."""
     from torch_asg_tpu_torch.models import (create_train_state, make_train_step,
                                             shard_train_state)
@@ -3296,8 +3532,7 @@ def tp_step_check(initial, batch, world, device_type, counted):
     rows = slice(mesh.get_local_rank("data") * per, (mesh.get_local_rank("data") + 1) * per)
     block = {k: v[rows] for k, v in batch.items()}
     ref_model, model = copy.deepcopy(initial), copy.deepcopy(initial)
-    ref_state = create_train_state(ref_model)
-    ref_state, ref_loss = make_train_step(ref_model, ref_state.optimizer)(ref_state, batch)
+    ref_state, ref_loss = single_step_on_conv1d(ref_model, batch)
     state = shard_train_state(mesh, model, create_train_state(model))
     step = make_train_step(model, state.optimizer)
     launches = {}
@@ -3322,7 +3557,8 @@ def tp_step_check(initial, batch, world, device_type, counted):
         # AdamW's first step moves an entry by lr g / (|g| + eps): where the two
         # gradients differ by more than a hundredth of the gradient, their sign
         # or its scale against eps is not held, and the entries may lie up to
-        # 2 lr apart (none on one card, where the gradients are bit-identical)
+        # 2 lr apart (a few on one card too, where both steps convolve alike
+        # but their gradients need not share every bit)
         free[name] = q.grad.abs() < 100 * (g - q.grad).abs()
         held = ~free[name]
         assert_near(f"tp stepped {name}", w[held], q.detach()[held], *GRAD_TOL)
@@ -3451,9 +3687,10 @@ def parallel(rng, dev):
     """Phase ``parallel``: one rank per card (world = the card count, NCCL,
     rank r on cuda:r) runs ``parallel_rank``; the parent joins every rank
     (``parallel.launch.spawn_ranks``, which fails on any rank's error, exit or
-    timeout) and checks that the dp path launched K1 with stores, K2 and
-    K10-K13 in every rank; then the checkpoint resume, the three examples and
-    the chained serving request, in this process."""
+    timeout) and checks that the dp path launched K1 with stores, K2, the
+    stride-1 convolution and K10-K13 in every rank, and that the tp step's
+    sharded blocks kept ``F.conv1d``; then the checkpoint resume, the three
+    examples and the chained serving request, in this process."""
     from torch_asg_tpu_torch.parallel.launch import spawn_ranks
 
     world = torch.cuda.device_count()
@@ -3467,6 +3704,8 @@ def parallel(rng, dev):
         tp = r["tp"]["launches"]
         check(tp.get("_fwd_store_kernel", 0) > 0 and tp.get("_bwd_kernel", 0) > 0,
               f"rank {r['rank']}: the tp step did not launch K1 with stores and K2: {tp}")
+        check(not any(k.startswith("conv_") for k in tp),
+              f"rank {r['rank']}: the tp step's sharded blocks ran the convolution kernel: {tp}")
     line = {"phase": "parallel", "card": torch.cuda.get_device_name(0),
             "nvidia_smi": nvidia_smi(), "world": world,
             "backend": "nccl", "spawn_seconds": spawn_s,
@@ -3596,6 +3835,7 @@ def main(argv):
     k1 = check_k1(rng, dev)
     k10, k11 = check_viterbi(rng, dev)
     k1s, k2 = check_k1s_k2(rng, dev)
+    conv = check_conv(np.random.default_rng([SEED, 21]), dev)
     k9 = check_k9(rng, dev)
     k12, k13 = check_align_kernels(rng, dev)
     # the per-lattice phases draw from streams of their own, so the earlier
@@ -3659,6 +3899,14 @@ def main(argv):
     } for k, wrapper, source, replaces in meta]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel never launched on its path: {[k['name'] for k in kernels]}")
+    # the stride-1 convolution: its launches a training step and a request
+    # (each pass apart; checked exactly in train and serve), its errors
+    # relative to the largest float64 value
+    kernels.append({
+        "route": "cuda", "source": src + "conv.cu",
+        "replaces": "none: the JAX package's convolutions are XLA's",
+        "launches": {"per_train_step": launches["conv_per_step"],
+                     "per_request": launches["conv_per_request"]}, **conv})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,8 +3,14 @@
 A 1-D convolutional encoder over acoustic features that emits per-frame
 label scores shaped (T', B, N), which is what the ASG criterion and the
 Viterbi decoder consume.  The public layout is the JAX package's:
-features (B, T, F) in, emissions (T', B, N) out; inside, the convolutions
-run channels-first as ``nn.Conv1d`` wants.
+features (B, T, F) in, emissions (T', B, N) out.  Inside, every block takes
+and gives channels-last activations (B, T, C), and ``conv_route`` picks
+how it convolves them: on the card, a float32 block of stride 1 and odd
+width runs the hand-written channels-last convolution
+(``ops/kernels/conv_kernels.py``: SAME padding by predicate, bias and ReLU
+fused), so the stride-1 stack makes no padded or transposed copy and the
+head reads the last block's output as it lies; every other block runs
+``F.conv1d`` on the channels-first view, as ``nn.Conv1d`` wants.
 
 Dropout, when ``dropout > 0``, fires only in calls with ``train=True``, as
 the Flax model's ``deterministic=not train`` does (the module's own
@@ -14,8 +20,8 @@ train/eval mode does not switch it), and draws its masks from the
 Padding is the Flax "SAME" rule: output length ceil(L / stride), with
 ``total = max((ceil(L/s) - 1) * s + k - L, 0)`` padded ``total // 2`` on the
 left and the rest on the right.  That split is asymmetric when ``total`` is
-odd, which ``nn.Conv1d`` cannot express, so each block pads with ``F.pad``
-before a ``padding=0`` convolution.
+odd, which ``nn.Conv1d`` cannot express, so each ``F.conv1d`` block pads
+with ``F.pad`` before a ``padding=0`` convolution.
 
 Tensor parallelism: when ``models.train.shard_train_state`` has placed the
 parameters on a ('data', 'model') ``DeviceMesh``, each convolution's weight
@@ -43,6 +49,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..ops.kernels.common import DEFAULT_DEVICE
+from ..ops.kernels.conv_kernels import conv_relu
 from ..parallel.collectives import gather_channels, mesh_axis, replicated_input
 from ..utils.profiling import span, spanned
 
@@ -88,6 +95,21 @@ def data_block(mesh) -> tuple:
     return ax.size, ax.index
 
 
+def conv_route(device: torch.device, dtype: torch.dtype, stride: int, kernel: int,
+               sharded: bool) -> str:
+    """How a block convolves: ``'sharded'`` where its weight is a DTensor (the
+    tensor-parallel ``F.conv1d`` of the module docstring); ``'kernel'`` on a
+    CUDA device in float32 at stride 1 and odd width, whose SAME pads are
+    equal on both sides (``conv_kernels.conv_relu``); else ``'conv1d'``
+    (``F.conv1d`` on the channels-first view: cuDNN for the strided front
+    end on the card, and every block on the CPU)."""
+    if sharded:
+        return "sharded"
+    if device.type == "cuda" and dtype == torch.float32 and stride == 1 and kernel % 2 == 1:
+        return "kernel"
+    return "conv1d"
+
+
 class ConvBlock(nn.Module):
     """SAME-padded Conv1d + ReLU (+ dropout when training)."""
 
@@ -100,25 +122,33 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator=None) -> torch.Tensor:
-        """x: (B, C, T) -> (B, features, ceil(T / stride)); tensor-parallel
-        when the weight is a DTensor split over ``TP_AXIS`` (module
-        docstring)."""
+        """x: (B, T, C) -> (B, ceil(T / stride), features), channels last,
+        by ``conv_route``'s path; tensor-parallel when the weight is a
+        DTensor split over ``TP_AXIS`` (module docstring).  Dropout draws its
+        mask in the channels-first layout on every path."""
         conv, block = self.conv, (1, 0)
-        pads = same_padding(x.shape[-1], conv.kernel_size[0], conv.stride[0])
-        if isinstance(conv.weight, DTensor):
-            mesh = conv.weight.device_mesh
-            model = mesh_axis(mesh, TP_AXIS)
-            split = tuple(Shard(0) if n == TP_AXIS else Replicate() for n in mesh.mesh_dim_names)
-            x = F.conv1d(F.pad(replicated_input(x, model), pads),
-                         local_block(conv.weight, split), local_block(conv.bias, split),
-                         conv.stride)
-            x = gather_channels(F.relu(x), model)
-            block = data_block(mesh)
+        route = conv_route(x.device, conv.weight.dtype, conv.stride[0], conv.kernel_size[0],
+                           isinstance(conv.weight, DTensor))
+        if route == "kernel":
+            x = conv_relu(x.contiguous(), conv.weight, conv.bias).transpose(1, 2)
         else:
-            x = F.relu(conv(F.pad(x, pads)))
+            x = x.transpose(1, 2)  # (B, C, T)
+            pads = same_padding(x.shape[-1], conv.kernel_size[0], conv.stride[0])
+            if route == "sharded":
+                mesh = conv.weight.device_mesh
+                model = mesh_axis(mesh, TP_AXIS)
+                split = tuple(Shard(0) if n == TP_AXIS else Replicate()
+                              for n in mesh.mesh_dim_names)
+                x = F.conv1d(F.pad(replicated_input(x, model), pads),
+                             local_block(conv.weight, split), local_block(conv.bias, split),
+                             conv.stride)
+                x = gather_channels(F.relu(x), model)
+                block = data_block(mesh)
+            else:
+                x = F.relu(conv(F.pad(x, pads)))
         if train and self.dropout > 0.0:
             x = dropout(x, self.dropout, generator, block)
-        return x
+        return x.transpose(1, 2)
 
 
 class Wav2Letter(nn.Module):
@@ -158,14 +188,13 @@ class Wav2Letter(nn.Module):
         stages = [(n, s) for n, s in (("frontend", b[:1]), ("mid", b[1:-1]), ("wide", b[-1:]))
                   if s]
         with span("asg.encoder"):
-            x = features.transpose(1, 2)  # (B, F, T)
+            x = features  # (B, T, F): every block takes and gives channels last
             for name, blocks in stages:
                 def run(x, blocks=blocks):
                     for block in blocks:
                         x = block(x, train, generator)
                     return x
                 x = spanned(f"asg.encoder.{name}", run, x)
-            x = x.transpose(1, 2)
             weight, bias = self.proj.weight, self.proj.bias
             if isinstance(weight, DTensor):  # replicated: every rank's is the whole
                 whole = (Replicate(),) * weight.device_mesh.ndim

@@ -1,0 +1,263 @@
+"""The encoder's stride-1 convolutions on channels-last float32 activations.
+
+A Wav2Letter block of stride 1 and odd width K (SAME padding: (K - 1) / 2
+frames on each side) computes ``relu(conv1d(x) + bias)``.  Here that is an
+implicit GEMM over (B, T, C) activations, whose row (b, t) unfolds to the
+K * C contiguous floats of frames t - pad .. t + pad (``unfold``):
+
+* forward: ``out = relu(unfold(x) @ W + bias)``, W[k * Cin + c, n] =
+  weight[n, c, k] (``forward_matrix``); the bias and ReLU are the kernel's
+  epilogue and the padding its predicate, so no padded copy is made;
+* dgrad: ``dx = unfold(g) @ Wd``, Wd[k * Cout + n, c] = weight[n, c, K-1-k]
+  (``dgrad_matrix``): the transposed convolution of a symmetric pad is the
+  same product on the flipped weight;
+* wgrad: ``dW = g^T @ unfold(x)``, laid back out as (Cout, Cin, K).
+
+``g`` is the incoming gradient with the ReLU's mask applied (``out > 0``).
+``conv_relu`` is the block's forward under autograd: its backward keeps
+only the block's input and output, both alive anyway as the neighbouring
+blocks' output and input.  The parameters keep their ``nn.Conv1d`` shapes;
+the weight is laid out inside each call (1.75 MB at 250 -> 250, K = 7).
+
+On CUDA tensors ``conv_fwd``, ``conv_dgrad`` and ``conv_wgrad`` launch the
+kernels of ``csrc/conv.cu`` (float32 only); on CPU tensors they run the
+plain versions beside them, the same products with whole-matrix ``@``.
+The model reaches them through ``models/wav2letter.py::conv_route``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .common import c_function, check_tensor, ptr, raise_on_error, stream_ptr, use_kernel, wants_grad
+from ...utils.profiling import span
+
+# The most rows of m one weight-gradient accumulator sums alone before its
+# slice's partial product is added to the others (in slice order).
+WGRAD_SLICE_ROWS = 8192
+# Least share of the last wave of resident blocks the weight gradient's
+# slicing fills, where a count of slices reaches it.
+WGRAD_FILL = 0.95
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@functools.cache
+def tiling() -> tuple:
+    """(tile, depth, blocks an SM) as ``csrc/conv.cu`` reports them: a block
+    computes a tile x tile square of the product over reduction stages of
+    ``depth``, and that many blocks are resident on a streaming
+    multiprocessor."""
+    from ._build import load
+
+    fn = load("conv").conv_tiling
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+    out = (ctypes.c_int * 3)()
+    fn(out)
+    return tuple(out)
+
+
+def unfold(x: torch.Tensor, kernel: int) -> torch.Tensor:
+    """(B * T, K * C): row (b, t) is frames t - pad .. t + pad of ``x`` (B, T,
+    C), pad = K // 2, zeros outside [0, T)."""
+    b, t, c = x.shape
+    pad = kernel // 2
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad))
+    return xp.unfold(1, kernel, 1).transpose(2, 3).reshape(b * t, kernel * c)
+
+
+def forward_matrix(weight: torch.Tensor) -> torch.Tensor:
+    """(K * Cin, Cout): row k * Cin + c is weight[:, c, k]."""
+    cout, cin, k = weight.shape
+    return weight.permute(2, 1, 0).reshape(k * cin, cout)
+
+
+def dgrad_matrix(weight: torch.Tensor) -> torch.Tensor:
+    """(K * Cout, Cin): row k * Cout + n is weight[n, :, K - 1 - k]."""
+    cout, cin, k = weight.shape
+    return weight.flip(2).permute(2, 0, 1).reshape(k * cout, cin)
+
+
+def _panel(matrix: torch.Tensor) -> torch.Tensor:
+    """``matrix`` zero-padded to whole stages of rows and whole tiles of
+    columns, as the kernel reads it (16-byte copies, no predicate)."""
+    rows, cols = matrix.shape
+    tile, depth, _ = tiling()
+    out = matrix.new_zeros((_round_up(rows, depth), _round_up(cols, tile)))
+    out[:rows, :cols] = matrix
+    return out
+
+
+def conv_fwd_plain(x, weight, bias):
+    """Plain version of the forward: (B, T, Cout)."""
+    b, t, _ = x.shape
+    out = unfold(x, weight.shape[-1]) @ forward_matrix(weight)
+    if bias is not None:
+        out = out + bias
+    return torch.relu(out).view(b, t, -1)
+
+
+def conv_dgrad_plain(g, weight):
+    """Plain version of the input gradient: (B, T, Cin) from the masked
+    gradient ``g`` (B, T, Cout)."""
+    b, t, _ = g.shape
+    return (unfold(g, weight.shape[-1]) @ dgrad_matrix(weight)).view(b, t, -1)
+
+
+def conv_wgrad_plain(g, x, kernel):
+    """Plain version of the weight gradient: (Cout, Cin, K) from the masked
+    gradient ``g`` (B, T, Cout) and the input ``x`` (B, T, Cin)."""
+    cout, cin = g.shape[-1], x.shape[-1]
+    dw = g.reshape(-1, cout).T @ unfold(x, kernel)
+    return dw.view(cout, kernel, cin).permute(0, 2, 1).contiguous()
+
+
+def _check(name, t, channels=None):
+    """Raise unless ``t`` is a contiguous float32 (B, T, C) CUDA tensor the
+    kernels can index with 32-bit offsets."""
+    if t.dim() != 3:
+        raise ValueError(f"{name}: expected (B, T, C), got shape {tuple(t.shape)}")
+    check_tensor(name, t, torch.float32,
+                 (*t.shape[:2], t.shape[2] if channels is None else channels), t.device)
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {t.numel()} elements; the kernels index below 2**31")
+
+
+def _check_weight(weight, cin):
+    if weight.dim() != 3 or weight.shape[1] != cin or weight.shape[2] % 2 == 0:
+        raise ValueError(f"weight: expected (Cout, {cin}, K) with K odd, got {tuple(weight.shape)}")
+    if weight.dtype != torch.float32:
+        raise TypeError(f"weight: expected torch.float32, got {weight.dtype}")
+
+
+def _unfold_product(x, matrix, bias, relu):
+    """Launch ``conv_fwd_f32``: (B, T, N) = relu?(unfold(x) @ matrix + bias?)."""
+    b, t, c = x.shape
+    kd, n = matrix.shape
+    panel = _panel(matrix)
+    out = x.new_empty((b, t, n))
+    if out.numel() >= 2 ** 31:
+        raise ValueError(f"out: {out.numel()} elements; the kernels index below 2**31")
+    fn = c_function("conv", "conv_fwd", torch.float32, 4, 9)
+    with torch.cuda.device(x.device):
+        err = fn(ptr(x), ptr(panel), ctypes.c_void_p(None) if bias is None else ptr(bias),
+                 ptr(out), b * t, n, panel.shape[1], t, c, kd, panel.shape[0], kd // c // 2,
+                 int(relu), stream_ptr(x.device))
+    raise_on_error(fn.__name__, err)
+    return out
+
+
+def conv_fwd(x, weight, bias):
+    """``relu(conv1d(x) + bias)`` of a stride-1 SAME block on channels-last
+    ``x`` (B, T, Cin) -> (B, T, Cout); ``bias`` (Cout,) or None.  Counts
+    kernel launches in ``conv_fwd.launches``."""
+    if not use_kernel(x, weight):
+        return conv_fwd_plain(x, weight, bias)
+    _check("x", x)
+    _check_weight(weight, x.shape[2])
+    if bias is not None:
+        check_tensor("bias", bias, torch.float32, (weight.shape[0],), x.device)
+    out = _unfold_product(x, forward_matrix(weight), bias, True)
+    conv_fwd.launches += 1
+    return out
+
+
+def conv_dgrad(g, weight):
+    """The input gradient (B, T, Cin) of a stride-1 SAME block from the
+    masked gradient ``g`` (B, T, Cout).  Counts launches in
+    ``conv_dgrad.launches``."""
+    if not use_kernel(g, weight):
+        return conv_dgrad_plain(g, weight)
+    _check("g", g, weight.shape[0])
+    _check_weight(weight, weight.shape[1])
+    out = _unfold_product(g, dgrad_matrix(weight), None, False)
+    conv_dgrad.launches += 1
+    return out
+
+
+def wgrad_splits(tiles: int, m_total: int, slots: int) -> int:
+    """Slices of the m = B * T rows for the weight gradient of ``tiles``
+    output tiles on ``slots`` resident blocks: the fewest, from the least
+    that keeps each slice within WGRAD_SLICE_ROWS rows up to twice that,
+    whose blocks fill the last wave by WGRAD_FILL; else the count that
+    fills it best."""
+    least = max(1, -(-m_total // WGRAD_SLICE_ROWS))
+
+    def fill(s):
+        blocks = tiles * s
+        return blocks / (-(-blocks // slots) * slots)
+
+    counts = range(least, 2 * least + 1)
+    return next((s for s in counts if fill(s) >= WGRAD_FILL), max(counts, key=fill))
+
+
+def conv_wgrad(g, x, kernel):
+    """The weight gradient (Cout, Cin, K) of a stride-1 SAME block from the
+    masked gradient ``g`` (B, T, Cout) and its input ``x`` (B, T, Cin):
+    partial products over slices of B * T, summed in slice order.  Counts
+    launches in ``conv_wgrad.launches``."""
+    if not use_kernel(g, x):
+        return conv_wgrad_plain(g, x, kernel)
+    _check("x", x)
+    _check("g", g)
+    if g.shape[:2] != x.shape[:2] or kernel % 2 == 0:
+        raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} must share (B, T), "
+                         f"and the kernel width {kernel} be odd")
+    b, t, cin = x.shape
+    cout, m_total = g.shape[2], b * t
+    kd = kernel * cin
+    tile, depth, blocks_per_sm = tiling()
+    tiles = -(-cout // tile) * -(-kd // tile)
+    slots = blocks_per_sm * torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = wgrad_splits(tiles, m_total, slots)
+    chunk = _round_up(-(-m_total // splits), depth)
+    splits = -(-m_total // chunk)
+    part = x.new_empty((splits, cout, kd))
+    dw = x.new_empty((cout, cin, kernel))
+    fn = c_function("conv", "conv_wgrad", torch.float32, 4, 8)
+    with torch.cuda.device(x.device):
+        err = fn(ptr(g), ptr(x), ptr(part), ptr(dw), m_total, cout, t, cin, kernel,
+                 kernel // 2, splits, chunk, stream_ptr(x.device))
+    raise_on_error(fn.__name__, err)
+    conv_wgrad.launches += 1
+    return dw
+
+
+conv_fwd.launches = 0
+conv_dgrad.launches = 0
+conv_wgrad.launches = 0
+
+
+class _ConvReLU(torch.autograd.Function):
+    """``conv_fwd`` under autograd; saves the block's input and output."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        out = conv_fwd(x, weight, bias)
+        ctx.save_for_backward(x, weight, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, out = ctx.saved_tensors
+        g = torch.ops.aten.threshold_backward(grad, out, 0.0).contiguous()  # ReLU's mask
+        dx = conv_dgrad(g, weight) if ctx.needs_input_grad[0] else None
+        dw = conv_wgrad(g, x, weight.shape[-1]) if ctx.needs_input_grad[1] else None
+        db = g.sum((0, 1)) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def conv_relu(x, weight, bias):
+    """``relu(conv1d(x) + bias)`` of a stride-1 SAME block of odd width on
+    contiguous channels-last ``x`` (B, T, Cin) -> (B, T, Cout), with its
+    backward where autograd asks for one.  Under a profiler each call is
+    the span ``asg.conv``."""
+    with span("asg.conv"):
+        if wants_grad(x, weight, *(() if bias is None else (bias,))):
+            return _ConvReLU.apply(x, weight, bias)
+        return conv_fwd(x, weight, bias)

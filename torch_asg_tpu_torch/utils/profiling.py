@@ -15,6 +15,9 @@ program opens these:
 ``asg.encoder.wide``                the last block (channels -> head_channels)
 ``asg.encoder.<stage>.backward``    that stage's backward, on the thread that
                                     runs it (the autograd engine's on the card)
+``asg.conv``                        one forward call of a stride-1 block on the
+                                    hand-written convolution
+                                    (``conv_kernels.conv_relu``)
 ``asg.criterion``                   ``asg.py::_scores``, every tier
 ``asg.host_sync``                   where the host waits on the device: the
                                     spread guard's ``.tolist()``,
