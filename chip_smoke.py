@@ -60,7 +60,10 @@ launches:
      cells' 250 -> 250 and 250 -> 2000 blocks, the default widths, B = 1,
      T' = 1, 6, 7 and 1001), its kernels built without spills, and each pass
      timed alone against cuDNN on the channels-first and the channels-last
-     layout at the cells' and the default widths;
+     layout at the cells' and the default widths; then the bias-only
+     epilogue (``conv_bias``, no ReLU) at even and odd widths: the gated
+     ConvNet's 200 -> 440 (K = 14), 426 -> 936 (K = 22) and 826 -> 1816
+     (K = 29) layers at B = 16, T = 2000, timed alike, and T below and at K;
   4. grads: the fused tier's gradients (K1 with stores -> K2 ->
      scatter_to_full) and the per-lattice tier's (K3, K6, K7 -> K5, K8 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
@@ -1309,6 +1312,20 @@ CONV_CASES = (
     ("t1001", 8, 1001, 250, 2000, 7),
 )
 CONV_TIMED = ("mid", "wide", "default_mid", "default_wide")
+# (case, B, T, Cin, Cout, K) of check_conv's bias-only pass: the gated
+# ConvNet's (arXiv:1712.09444, LibriSpeech) layers 2, 10 and 17 at a
+# training batch of 16 utterances padded to 2000 frames; its first layer
+# (40 -> 400, K = 13) at T = 1; even widths above and at T.
+CONV_GLU_CASES = (
+    ("glu_l2_k14", 16, 2000, 200, 440, 14),
+    ("glu_l10_k22", 16, 2000, 426, 936, 22),
+    ("glu_l17_k29", 16, 2000, 826, 1816, 29),
+    ("glu_l1_t1", 4, 1, 40, 400, 13),
+    ("glu_t5_k14", 4, 5, 200, 440, 14),
+    ("glu_t14_k14", 4, 14, 200, 440, 14),
+    ("glu_t3_k29", 2, 3, 826, 1816, 29),
+)
+CONV_GLU_TIMED = ("glu_l2_k14", "glu_l10_k22", "glu_l17_k29")
 # largest |error| over the largest |float64 value| a float32 pass may show
 CONV_REL_TOL = 1e-4
 CONV_CHAIN = 5
@@ -1325,46 +1342,66 @@ def conv_inputs(rng, dev, b, t, cin, cout, k):
     return x, w, bias, up
 
 
-def conv_ncl(x, w, bias):
-    """relu(conv1d + bias) of channels-last ``x`` through ``F.conv1d`` on the
+def conv_same(x_ncl, w, bias):
+    """``F.conv1d`` of channels-first ``x_ncl`` with SAME pads: (K - 1) // 2
+    frames on the left and K // 2 on the right (equal when K is odd)."""
+    k = w.shape[-1]
+    if k % 2:
+        return torch.nn.functional.conv1d(x_ncl, w, bias, padding=k // 2)
+    return torch.nn.functional.conv1d(torch.nn.functional.pad(x_ncl, ((k - 1) // 2, k // 2)),
+                                      w, bias)
+
+
+def conv_ncl(x, w, bias, relu=True):
+    """relu?(conv1d + bias) of channels-last ``x`` through ``F.conv1d`` on the
     channels-first view (cuDNN in float32)."""
-    out = torch.nn.functional.conv1d(x.transpose(1, 2), w, bias, padding=w.shape[-1] // 2)
-    return torch.relu(out).transpose(1, 2)
+    out = conv_same(x.transpose(1, 2), w, bias)
+    return (torch.relu(out) if relu else out).transpose(1, 2)
 
 
-def conv_errors(impl, x, w, bias, up):
+def conv_errors(impl, x, w, bias, up, relu=True):
     """{pass: largest |error| / largest |float64 value|} of ``impl``'s forward
     and its three gradients, against float64 ``F.conv1d`` whose gradient
-    takes ``impl``'s own ReLU mask (so a value rounding to either side of 0
-    does not count)."""
+    takes ``impl``'s own ReLU mask where it has one (so a value rounding to
+    either side of 0 does not count)."""
     leaves = [a.detach().clone().requires_grad_() for a in (x, w, bias)]
     out = impl(*leaves)
     got = (out.detach(), *torch.autograd.grad(out, leaves, up))
     ref_leaves = [a.detach().double().requires_grad_() for a in (x, w, bias)]
-    pre = torch.nn.functional.conv1d(ref_leaves[0].transpose(1, 2), ref_leaves[1],
-                                     ref_leaves[2], padding=w.shape[-1] // 2).transpose(1, 2)
-    mask = out.detach() > 0
-    want = (pre.detach().relu(), *torch.autograd.grad(pre, ref_leaves, up.double() * mask))
+    pre = conv_same(ref_leaves[0].transpose(1, 2), ref_leaves[1], ref_leaves[2]).transpose(1, 2)
+    mask = out.detach() > 0 if relu else torch.ones_like(out, dtype=torch.bool)
+    want = (pre.detach().relu() if relu else pre.detach(),
+            *torch.autograd.grad(pre, ref_leaves, up.double() * mask))
     return {name: float((g.double() - r).abs().max() / r.abs().max().clamp_min(1e-30))
             for name, g, r in zip(("fwd", "dgrad", "wgrad", "bias_grad"), got, want)}
 
 
-def conv_pass_ms(x, w, bias, up):
+def conv_pass_ms(x, w, bias, up, relu=True):
     """{pass: {arm: ms}}: the hand-written kernels, their plain versions,
     cuDNN on the channels-first layout (the model's path before them) and
-    cuDNN on channels-last (conv2d with H = 1), each pass alone."""
+    cuDNN on channels-last (conv2d with H = 1), each pass alone; ``relu``
+    picks the block's epilogue.  At an even width cuDNN takes the input
+    padded once beforehand (its SAME pads differ), as the model's
+    ``F.conv1d`` path pads it."""
     from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
 
     k = w.shape[-1]
     pad, ops = k // 2, torch.ops.aten
     with torch.no_grad():
-        g = (up * (ck.conv_fwd(x, w, bias) > 0)).contiguous()
+        out = ck.conv_fwd(x, w, bias, relu)
+        g = (up * (out > 0) if relu else up).contiguous()
+        del out
         x_ncl, g_ncl = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
         cl = torch.channels_last
         x_cl = x.transpose(1, 2).unsqueeze(2).contiguous(memory_format=cl)
         g_cl = g.transpose(1, 2).unsqueeze(2).contiguous(memory_format=cl)
         w_cl = w.unsqueeze(2).contiguous(memory_format=cl)
         check(x_cl.data_ptr() == x.data_ptr(), "conv2d's channels-last input is a copy")
+        if k % 2 == 0:
+            left = (k - 1) // 2
+            x_ncl = torch.nn.functional.pad(x_ncl, (left, k - 1 - left))
+            x_cl = x_ncl.unsqueeze(2).contiguous(memory_format=cl)
+            pad = 0
 
         def ncl(mask):
             return lambda: ops.convolution_backward(g_ncl, x_ncl, w, None, [1], [pad], [1],
@@ -1375,8 +1412,8 @@ def conv_pass_ms(x, w, bias, up):
                                                     [1, 1], False, [0, 0], 1, mask)
 
         arms = {
-            "fwd": {"hand": lambda: ck.conv_fwd(x, w, bias),
-                    "plain": lambda: ck.conv_fwd_plain(x, w, bias),
+            "fwd": {"hand": lambda: ck.conv_fwd(x, w, bias, relu),
+                    "plain": lambda: ck.conv_fwd_plain(x, w, bias, relu),
                     "cudnn_ncl": lambda: ops.convolution(x_ncl, w, bias, [1], [pad], [1],
                                                          False, [0], 1),
                     "cudnn_nhwc": lambda: ops.convolution(x_cl, w_cl, bias, [1, 1], [0, pad],
@@ -1397,15 +1434,16 @@ def conv_pass_ms(x, w, bias, up):
                 for p, fns in arms.items()}
 
 
-def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED):
+def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED, relu=True):
     """The stride-1 blocks' hand-written convolution (``csrc/conv.cu``) on
-    the card: for each case, the forward with bias and ReLU, and the input,
-    weight and bias gradients through its autograd function, each against
-    float64 ``F.conv1d`` (largest error over the largest value, beside
-    cuDNN's in float32); at the timed cases each pass alone against its plain
-    version and cuDNN on the channels-first and the channels-last layout,
-    with TFLOP/s.  Returns the kernels line's entry: the errors, and the
-    first timed case's three passes (``ms``), their float32 bound, the plain
+    the card: for each case, the forward with bias and ReLU (``relu``; else
+    ``conv_bias``, the bias alone), and the input, weight and bias
+    gradients through its autograd function, each against float64
+    ``F.conv1d`` (largest error over the largest value, beside cuDNN's in
+    float32); at the timed cases each pass alone against its plain version
+    and cuDNN on the channels-first and the channels-last layout, with
+    TFLOP/s.  Returns the kernels line's entry: the errors, and the first
+    timed case's three passes (``ms``), their float32 bound, the plain
     versions' time and the faster cuDNN layout's (``library_ms``)."""
     from torch_asg_tpu_torch.ops.kernels import _build
     from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
@@ -1421,20 +1459,22 @@ def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED):
               f"the convolution kernels must not spill: {spills}")
     before = (ck.conv_fwd.launches, ck.conv_dgrad.launches, ck.conv_wgrad.launches)
     rows = []
+    block = ck.conv_relu if relu else ck.conv_bias
     for name, b, t, cin, cout, k in cases:
         x, w, bias, up = conv_inputs(rng, dev, b, t, cin, cout, k)
-        errs = conv_errors(ck.conv_relu, x, w, bias, up)
-        cudnn = conv_errors(conv_ncl, x, w, bias, up)
+        errs = conv_errors(block, x, w, bias, up, relu)
+        cudnn = conv_errors(lambda *a: conv_ncl(*a, relu=relu), x, w, bias, up, relu)
         with torch.no_grad():
-            check(torch.equal(ck.conv_relu(x, w, bias), ck.conv_relu(x, w, bias)),
+            check(torch.equal(block(x, w, bias), block(x, w, bias)),
                   f"conv {name}: two forwards differ")
         check(all(e <= CONV_REL_TOL for e in errs.values()),
               f"conv {name}: {errs} (cuDNN {cudnn}) beyond {CONV_REL_TOL}")
         row = {"phase": "conv", "case": name, "shape": [b, t, cin, cout, k],
+               "epilogue": "bias, relu" if relu else "bias",
                "rel_err": errs, "cudnn_rel_err": cudnn}
         if name in timed:
             flop = 2 * b * t * cin * cout * k
-            ms = conv_pass_ms(x, w, bias, up)
+            ms = conv_pass_ms(x, w, bias, up, relu)
             row["ms"] = ms
             row["tflops"] = {p: {arm: flop / (v * 1e-3) / 1e12 for arm, v in arms.items()}
                              for p, arms in ms.items()}
@@ -3836,6 +3876,8 @@ def main(argv):
     k10, k11 = check_viterbi(rng, dev)
     k1s, k2 = check_k1s_k2(rng, dev)
     conv = check_conv(np.random.default_rng([SEED, 21]), dev)
+    emit({"phase": "conv_glu", **check_conv(np.random.default_rng([SEED, 22]), dev,
+                                            CONV_GLU_CASES, CONV_GLU_TIMED, relu=False)})
     k9 = check_k9(rng, dev)
     k12, k13 = check_align_kernels(rng, dev)
     # the per-lattice phases draw from streams of their own, so the earlier

@@ -26,7 +26,7 @@ FEATURES = 8
     (CUDA, torch.float32, 1, 1, False, "kernel"),
     (CUDA, torch.float32, 2, 48, False, "conv1d"),      # the strided front end
     (CUDA, torch.float32, 2, 7, False, "conv1d"),
-    (CUDA, torch.float32, 1, 6, False, "conv1d"),       # even width: unequal SAME pads
+    (CUDA, torch.float32, 1, 6, False, "kernel"),       # even width: unequal SAME pads
     (CUDA, torch.float64, 1, 7, False, "conv1d"),
     (CUDA, torch.bfloat16, 1, 7, False, "conv1d"),
     (CPU, torch.float32, 1, 7, False, "conv1d"),
@@ -47,11 +47,14 @@ def _reference(x, weight, bias):
 @pytest.mark.parametrize("b,t,cin,cout,k", [
     (2, 13, 5, 6, 7), (1, 9, 4, 3, 3), (3, 1, 5, 4, 7), (2, 6, 3, 5, 7), (2, 7, 3, 5, 7),
     (2, 10, 6, 4, 1),
+    # even widths: SAME pads (K - 1) // 2 on the left, K // 2 on the right
+    (2, 13, 5, 6, 6), (1, 9, 4, 3, 2), (3, 1, 5, 4, 4), (2, 5, 3, 5, 8), (2, 8, 3, 5, 8),
+    (2, 11, 6, 4, 14),
 ])
 def test_passes_match_conv1d(b, t, cin, cout, k):
     """Forward, the masked gradient's dgrad and wgrad, and the bias gradient
     of the autograd function (plain versions) against ``F.conv1d``'s
-    autograd, in float64; T below, at and above the width."""
+    autograd, in float64; T below, at and above the width, odd and even."""
     gen = torch.Generator().manual_seed(b * 1000 + t)
     x = torch.randn(b, t, cin, dtype=torch.float64, generator=gen, requires_grad=True)
     weight = torch.randn(cout, cin, k, dtype=torch.float64, generator=gen, requires_grad=True)
@@ -67,6 +70,47 @@ def test_passes_match_conv1d(b, t, cin, cout, k):
         torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
     with torch.no_grad():
         torch.testing.assert_close(ck.conv_relu(x, weight, bias), want)
+
+
+def _reference_bias(x, weight, bias):
+    """conv1d(x) + bias with SAME pads on channels-last ``x``, no ReLU."""
+    pads = w2l.same_padding(x.shape[1], weight.shape[-1], 1)
+    return F.conv1d(F.pad(x.transpose(1, 2), pads), weight, bias).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,t,cin,cout,k", [
+    (2, 13, 5, 6, 7), (1, 9, 4, 3, 4), (3, 1, 5, 4, 6), (2, 3, 3, 5, 5), (2, 4, 3, 5, 9),
+    (2, 12, 6, 8, 13), (2, 12, 6, 8, 14),
+])
+def test_bias_only_block_matches_conv1d(b, t, cin, cout, k):
+    """``conv_bias``, the gated blocks' convolution: forward without a ReLU
+    and its unmasked backward (input, weight and bias gradients) against
+    ``F.conv1d``'s autograd in float64, at odd and even widths, T below,
+    at and above the width; a negative output passes unclipped."""
+    gen = torch.Generator().manual_seed(b * 100 + t * 10 + k)
+    x = torch.randn(b, t, cin, dtype=torch.float64, generator=gen, requires_grad=True)
+    weight = torch.randn(cout, cin, k, dtype=torch.float64, generator=gen, requires_grad=True)
+    bias = torch.randn(cout, dtype=torch.float64, generator=gen, requires_grad=True)
+    up = torch.randn(b, t, cout, dtype=torch.float64, generator=gen)
+    got = ck.conv_bias(x, weight, bias)
+    want = _reference_bias(x, weight, bias)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert (got < 0).any()
+    grads = torch.autograd.grad((got * up).sum(), (x, weight, bias))
+    wants = torch.autograd.grad((want * up).sum(), (x, weight, bias))
+    for g, w in zip(grads, wants, strict=True):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+    with torch.no_grad():
+        torch.testing.assert_close(ck.conv_bias(x, weight, bias), want)
+    w_only = torch.autograd.grad((ck.conv_bias(x.detach(), weight, None) * up).sum(), weight)
+    want_w = torch.autograd.grad((_reference_bias(x.detach(), weight, None) * up).sum(), weight)
+    torch.testing.assert_close(w_only[0], want_w[0], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("k,left,right", [
+    (1, 0, 0), (2, 0, 1), (7, 3, 3), (14, 6, 7), (29, 14, 14)])
+def test_same_pads(k, left, right):
+    assert ck.same_pads(k) == (left, right) == w2l.same_padding(100, k, 1)
 
 
 def test_passes_take_no_bias():
@@ -103,9 +147,9 @@ def _models(dtype=torch.float64, dropout=0.0):
 
 
 def _kernel_route(device, dtype, stride, kernel, sharded):
-    """Every stride-1 block of odd width on the kernel's path, on the CPU
-    too (its autograd function over the plain versions)."""
-    return "kernel" if stride == 1 and kernel % 2 == 1 and not sharded else "conv1d"
+    """Every stride-1 block on the kernel's path, on the CPU too (its
+    autograd function over the plain versions)."""
+    return "kernel" if stride == 1 and not sharded else "conv1d"
 
 
 @pytest.fixture

@@ -4,8 +4,11 @@ graph; under a CPU profiler one ``make_train_step`` step records every
 ``asg.*`` span once, nested in time as the module's table says, with each
 stage's convolutions, forward and backward, inside that stage's spans; the
 spans change no bit of the loss or of any gradient, on the plain and the
-tensor-parallel step; the criterion, the decoder and the collapse record
-theirs on every tier."""
+tensor-parallel step; the data-parallel step all-reduces its gradients
+inside ``asg.grad_allreduce``; the criterion, the decoder and the collapse
+record theirs on every tier; a ``GatedConvNet`` step records its
+weight-norm, gated and head spans with their backwards and an
+``asg.conv`` a convolution on the kernel's route."""
 
 import contextlib
 
@@ -14,8 +17,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_asg_tpu_torch.models.gated_convnet as gc
 from torch_asg_tpu_torch import asg_scores, viterbi_decode
-from torch_asg_tpu_torch.models import (Wav2Letter, create_train_state, loss_fn,
+from torch_asg_tpu_torch.models import (GatedConvNet, Wav2Letter, create_train_state, loss_fn,
                                         make_train_step, shard_train_state)
 from torch_asg_tpu_torch.parallel.launch import spawn_ranks
 from torch_asg_tpu_torch.runtime import collapse_path
@@ -221,6 +225,31 @@ def test_tensor_parallel_step_records_the_same_stage_spans():
         assert out["backward_convs"] == [1, 2, 1]
 
 
+def dp_allreduce_spans(rank, world):
+    """On one rank of a (2, 1) mesh: one data-parallel train step under the
+    profiler; its ``asg.grad_allreduce`` spans, the gradient all-reduces
+    inside the first, and the encoder's parameter count."""
+    torch.set_num_threads(1)
+    from torch_asg_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((world, 1), ("data", "model"), device="cpu")
+    model = _model(dtype=torch.float64)
+    state = shard_train_state(mesh, model, create_train_state(model))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        make_train_step(model, state.optimizer)(state, _batch(torch.float64))
+    spans = _spans(prof).get("asg.grad_allreduce", [])
+    reduces = [(e.start_ns(), e.end_ns(), e.start_thread_id())
+               for e in prof.profiler.kineto_results.events() if e.name() == "c10d::allreduce_"]
+    return {"spans": len(spans), "params": len(list(model.parameters())),
+            "inside": sum(_within(r, spans[0]) for r in reduces) if spans else 0}
+
+
+def test_data_parallel_step_records_its_gradient_allreduce():
+    for out in spawn_ranks(dp_allreduce_spans, 2, device="cpu", timeout_s=SPAWN_TIMEOUT_S):
+        assert out["spans"] == 1
+        assert out["inside"] == out["params"]
+
+
 def test_the_chrome_trace_holds_the_spans(tmp_path):
     model = _model()
     with profiling.trace(str(tmp_path)):
@@ -228,3 +257,91 @@ def test_the_chrome_trace_holds_the_spans(tmp_path):
     (written,) = tmp_path.iterdir()
     text = written.read_text()
     assert all(f'"asg.encoder{s}"' in text for s in ("", ".frontend", ".mid", ".wide"))
+
+
+GATED = dict(channels=(8, 12, 10), kernels=(3, 4, 5), dropout=(0.2, 0.3, 0.25, 0.35), hidden=14)
+GATED_STRETCHES = ("asg.weight_norm", "asg.encoder.gated", "asg.encoder.head")
+# a gated convolution's backward: the kernel route's autograd function, or F.conv1d's
+CONV_BACKWARDS = ("_ConvBiasBackward", "aten::convolution_backward")
+
+
+def _gated(route, monkeypatch, dropout=True):
+    if route == "kernel":
+        monkeypatch.setattr(gc, "conv_route", lambda *a: "kernel")
+    torch.manual_seed(0)
+    cfg = GATED if dropout else {**GATED, "dropout": (0.0,) * 4}
+    return GatedConvNet(CFG["num_labels"], CFG["in_features"], device="cpu", **cfg)
+
+
+def _gated_spans(prof) -> dict:
+    """``_spans`` and the gated convolutions' backwards."""
+    out = _spans(prof)
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in CONV_BACKWARDS:
+            out.setdefault("conv_backward", []).append(
+                (e.start_ns(), e.end_ns(), e.start_thread_id()))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("route,convs", [("conv1d", 0), ("kernel", 3)])
+def test_a_gated_step_records_its_spans(route, convs, monkeypatch):
+    model = _gated(route, monkeypatch)
+    state = create_train_state(model)
+    step = make_train_step(model, state.optimizer, generator=torch.Generator().manual_seed(1))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, _batch())
+    spans = _gated_spans(prof)
+    names = {"asg.encoder", "asg.criterion", "asg.host_sync"}
+    names |= {f"{s}{b}" for s in GATED_STRETCHES for b in ("", ".backward")}
+    names |= {"asg.conv"} if convs else set()
+    assert {k for k in spans if k.startswith("asg.")} == names
+    assert len(spans.get("asg.conv", [])) == convs
+    assert all(len(spans[k]) == 1 for k in names - {"asg.conv"})
+    (enc,) = spans["asg.encoder"]
+    fwd = [spans[s][0] for s in GATED_STRETCHES]
+    bwd = [spans[f"{s}.backward"][0] for s in reversed(GATED_STRETCHES)]
+    assert all(_within(f, enc) for f in fwd)
+    order = fwd + bwd  # weights, convolutions, head; then head, convolutions, weights
+    assert all(a[1] <= b[0] for a, b in zip(order, order[1:]))
+    assert all(_within(c, spans["asg.encoder.gated"][0]) for c in spans.get("asg.conv", []))
+    (gated_bwd,) = spans["asg.encoder.gated.backward"]
+    assert len(spans["conv_backward"]) == 3
+    assert all(_within(c, gated_bwd) for c in spans["conv_backward"])
+
+
+@pytest.mark.parametrize("route", ["conv1d", "kernel"])
+def test_a_gated_step_without_a_profiler_adds_nothing(route, monkeypatch):
+    model = _gated(route, monkeypatch, dropout=False)
+    state = create_train_state(model)
+    off = _graph_nodes(loss_fn(model, state, _batch()))
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = _graph_nodes(loss_fn(model, state, _batch()))
+    # the weights: an open a weight (5) and a close hook; gated: an open and a
+    # close hook; head: a close and an open
+    assert on == off + 8
+
+    def refuse(*a, **k):
+        raise AssertionError("a span was attached with no profiler running")
+
+    monkeypatch.setattr(profiling._OnBackward, "apply", refuse)
+    monkeypatch.setattr(profiling, "_last_node", refuse)
+    monkeypatch.setattr(profiling, "_RecordFunctionFast", refuse)
+    make_train_step(model, state.optimizer)(state, _batch())
+
+
+@pytest.mark.parametrize("route", ["conv1d", "kernel"])
+def test_gated_spans_change_no_bit(route, monkeypatch):
+    got = []
+    for traced in (False, True):
+        model = _gated(route, monkeypatch)
+        state = create_train_state(model)
+        state.optimizer.zero_grad(set_to_none=True)
+        gen = torch.Generator().manual_seed(3)
+        with profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext():
+            loss = loss_fn(model, state, _batch(), train=True, generator=gen)
+            loss.backward()
+        named = [*model.named_parameters(), ("transition", state.transition)]
+        got.append((loss.detach(), {n: p.grad.clone() for n, p in named}))
+    (l0, g0), (l1, g1) = got
+    assert torch.equal(l0, l1) and g0.keys() == g1.keys()
+    assert all(torch.equal(g0[n], g1[n]) for n in g0)

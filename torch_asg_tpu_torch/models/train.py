@@ -1,4 +1,10 @@
-"""End-to-end ASG training step: Wav2Letter encoder + ASG criterion.
+"""End-to-end ASG training step: an encoder + the ASG criterion.
+
+The step takes any encoder with ``Wav2Letter``'s interface:
+``forward(features, train, generator)`` -> emissions (T', B, N),
+``output_length(feature_lengths)``, ``num_labels`` and ``dropout`` (a rate;
+above 0 a step turns dropout on).  ``Wav2Letter`` and ``GatedConvNet``
+have it; the tensor-parallel step below is ``Wav2Letter``'s alone.
 
 The train state holds the encoder, the criterion's learned transition matrix
 (an ``nn.Parameter`` initialised to zeros) and one optimizer over both.  The
@@ -29,7 +35,8 @@ step, run by every rank of the mesh (one process a rank, as in
   is the single-process step's; each convolution's weight and bias stay
   ``Shard(0)`` over 'model', the head and the transition ``Replicate()``.
   The encoder's gradients are summed over 'data' once after
-  ``backward()``; the transition's is already whole (``asg_loss_dp``).
+  ``backward()`` (the span ``asg.grad_allreduce`` under a profiler); the
+  transition's is already whole (``asg_loss_dp``).
 * **Meshes.** (1, M), (D, 1) and (D, M).  A batch not divisible by D and
   output channels not divisible by M raise "not divisible" errors; a
   DTensor weight on a mesh without 'model' raises.  No weight is gathered
@@ -57,12 +64,13 @@ from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tenso
 from ..asg import asg_loss
 from ..parallel.collectives import mesh_axis
 from ..parallel.data_parallel import asg_loss_dp
+from ..utils.profiling import span
 from .wav2letter import DP_AXIS, TP_AXIS, Wav2Letter
 
 
 @dataclass
 class TrainState:
-    model: Wav2Letter
+    model: nn.Module  # Wav2Letter, GatedConvNet: the interface of the module docstring
     transition: nn.Parameter  # (N, N)
     optimizer: torch.optim.Optimizer
     step: int = 0
@@ -75,7 +83,7 @@ def default_optimizer(params) -> torch.optim.Optimizer:
 
 
 def create_train_state(
-    model: Wav2Letter,
+    model: nn.Module,
     optimizer: Optional[Callable] = None,
 ) -> TrainState:
     """A zero transition on the model's device and in its dtype, and
@@ -94,7 +102,7 @@ def state_mesh(state: TrainState) -> Optional[DeviceMesh]:
     return t.device_mesh if isinstance(t, DTensor) else None
 
 
-def loss_fn(model: Wav2Letter, state: TrainState, batch, impl: str = "auto",
+def loss_fn(model: nn.Module, state: TrainState, batch, impl: str = "auto",
             train: bool = False, generator: Optional[torch.Generator] = None):
     """Mean ASG loss of a batch: ``features`` (B, T, F), ``feature_lengths``
     (B,), ``targets`` (B, S), ``target_lengths`` (B,).  On a sharded state,
@@ -110,7 +118,7 @@ def loss_fn(model: Wav2Letter, state: TrainState, batch, impl: str = "auto",
                        reduction="mean", impl=impl)
 
 
-def make_train_step(model: Wav2Letter, optimizer: torch.optim.Optimizer,
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     impl: str = "auto",
                     generator: Optional[torch.Generator] = None):
     """(state, batch) -> (state, loss): one forward, ``backward()`` and
@@ -132,8 +140,9 @@ def make_train_step(model: Wav2Letter, optimizer: torch.optim.Optimizer,
         if mesh is not None:
             # each rank's encoder gradient is its batch block's part
             data = mesh_axis(mesh, DP_AXIS)
-            for p in model.parameters():
-                dist.all_reduce(p.grad.to_local(), group=data.group)
+            with span("asg.grad_allreduce"):
+                for p in model.parameters():
+                    dist.all_reduce(p.grad.to_local(), group=data.group)
         optimizer.step()
         state.step += 1
         return state, loss.detach()

@@ -5,8 +5,8 @@ label scores shaped (T', B, N), which is what the ASG criterion and the
 Viterbi decoder consume.  The public layout is the JAX package's:
 features (B, T, F) in, emissions (T', B, N) out.  Inside, every block takes
 and gives channels-last activations (B, T, C), and ``conv_route`` picks
-how it convolves them: on the card, a float32 block of stride 1 and odd
-width runs the hand-written channels-last convolution
+how it convolves them: on the card, a float32 block of stride 1 (of any
+width) runs the hand-written channels-last convolution
 (``ops/kernels/conv_kernels.py``: SAME padding by predicate, bias and ReLU
 fused), so the stride-1 stack makes no padded or transposed copy and the
 head reads the last block's output as it lies; every other block runs
@@ -99,13 +99,15 @@ def conv_route(device: torch.device, dtype: torch.dtype, stride: int, kernel: in
                sharded: bool) -> str:
     """How a block convolves: ``'sharded'`` where its weight is a DTensor (the
     tensor-parallel ``F.conv1d`` of the module docstring); ``'kernel'`` on a
-    CUDA device in float32 at stride 1 and odd width, whose SAME pads are
-    equal on both sides (``conv_kernels.conv_relu``); else ``'conv1d'``
-    (``F.conv1d`` on the channels-first view: cuDNN for the strided front
-    end on the card, and every block on the CPU)."""
+    CUDA device in float32 at stride 1, of odd or even width (the SAME pads
+    of an even width are one frame wider on the right:
+    ``conv_kernels.same_pads``); else ``'conv1d'`` (``F.conv1d`` on the
+    channels-first view: cuDNN for the strided front end on the card, and
+    every block on the CPU).  ``kernel``, the block's width, does not
+    change the route."""
     if sharded:
         return "sharded"
-    if device.type == "cuda" and dtype == torch.float32 and stride == 1 and kernel % 2 == 1:
+    if device.type == "cuda" and dtype == torch.float32 and stride == 1:
         return "kernel"
     return "conv1d"
 

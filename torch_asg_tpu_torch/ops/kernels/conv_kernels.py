@@ -1,23 +1,28 @@
 """The encoder's stride-1 convolutions on channels-last float32 activations.
 
-A Wav2Letter block of stride 1 and odd width K (SAME padding: (K - 1) / 2
-frames on each side) computes ``relu(conv1d(x) + bias)``.  Here that is an
+A block of stride 1 and width K with SAME padding (``same_pads``: (K - 1) // 2
+frames on the left, K // 2 on the right; equal when K is odd) computes
+``conv1d(x) + bias``, with a ReLU for a Wav2Letter block.  Here that is an
 implicit GEMM over (B, T, C) activations, whose row (b, t) unfolds to the
-K * C contiguous floats of frames t - pad .. t + pad (``unfold``):
+K * C contiguous floats of frames t - left .. t + right (``unfold``):
 
-* forward: ``out = relu(unfold(x) @ W + bias)``, W[k * Cin + c, n] =
+* forward: ``out = relu?(unfold(x) @ W + bias)``, W[k * Cin + c, n] =
   weight[n, c, k] (``forward_matrix``); the bias and ReLU are the kernel's
   epilogue and the padding its predicate, so no padded copy is made;
-* dgrad: ``dx = unfold(g) @ Wd``, Wd[k * Cout + n, c] = weight[n, c, K-1-k]
-  (``dgrad_matrix``): the transposed convolution of a symmetric pad is the
-  same product on the flipped weight;
+* dgrad: ``dx = unfold'(g) @ Wd``, Wd[k * Cout + n, c] = weight[n, c, K-1-k]
+  (``dgrad_matrix``): the transposed convolution is the same product on the
+  flipped weight with the pads swapped (``unfold'`` starts ``right``
+  frames back);
 * wgrad: ``dW = g^T @ unfold(x)``, laid back out as (Cout, Cin, K).
 
-``g`` is the incoming gradient with the ReLU's mask applied (``out > 0``).
-``conv_relu`` is the block's forward under autograd: its backward keeps
-only the block's input and output, both alive anyway as the neighbouring
-blocks' output and input.  The parameters keep their ``nn.Conv1d`` shapes;
-the weight is laid out inside each call (1.75 MB at 250 -> 250, K = 7).
+``g`` is the incoming gradient, with the ReLU's mask applied (``out > 0``)
+where the block has one.  ``conv_relu`` is a Wav2Letter block's forward
+under autograd: its backward keeps only the block's input and output, both
+alive anyway as the neighbouring blocks' output and input.  ``conv_bias``
+is the bias-only sibling (a gated block's convolution, whose GLU follows
+in plain ops): its backward keeps the input alone.  The parameters keep
+their ``nn.Conv1d`` shapes; the weight is laid out inside each call (1.75 MB
+at 250 -> 250, K = 7).
 
 On CUDA tensors ``conv_fwd``, ``conv_dgrad`` and ``conv_wgrad`` launch the
 kernels of ``csrc/conv.cu`` (float32 only); on CPU tensors they run the
@@ -62,12 +67,17 @@ def tiling() -> tuple:
     return tuple(out)
 
 
-def unfold(x: torch.Tensor, kernel: int) -> torch.Tensor:
-    """(B * T, K * C): row (b, t) is frames t - pad .. t + pad of ``x`` (B, T,
-    C), pad = K // 2, zeros outside [0, T)."""
+def same_pads(kernel: int) -> tuple:
+    """(left, right) SAME padding of a stride-1 convolution of width
+    ``kernel``: (K - 1) // 2 and K // 2."""
+    return (kernel - 1) // 2, kernel // 2
+
+
+def unfold(x: torch.Tensor, kernel: int, left: int) -> torch.Tensor:
+    """(B * T, K * C): row (b, t) is frames t - left .. t - left + K - 1 of
+    ``x`` (B, T, C), zeros outside [0, T)."""
     b, t, c = x.shape
-    pad = kernel // 2
-    xp = torch.nn.functional.pad(x, (0, 0, pad, pad))
+    xp = torch.nn.functional.pad(x, (0, 0, left, kernel - 1 - left))
     return xp.unfold(1, kernel, 1).transpose(2, 3).reshape(b * t, kernel * c)
 
 
@@ -93,27 +103,29 @@ def _panel(matrix: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def conv_fwd_plain(x, weight, bias):
+def conv_fwd_plain(x, weight, bias, relu=True):
     """Plain version of the forward: (B, T, Cout)."""
     b, t, _ = x.shape
-    out = unfold(x, weight.shape[-1]) @ forward_matrix(weight)
+    k = weight.shape[-1]
+    out = unfold(x, k, same_pads(k)[0]) @ forward_matrix(weight)
     if bias is not None:
         out = out + bias
-    return torch.relu(out).view(b, t, -1)
+    return (torch.relu(out) if relu else out).view(b, t, -1)
 
 
 def conv_dgrad_plain(g, weight):
     """Plain version of the input gradient: (B, T, Cin) from the masked
     gradient ``g`` (B, T, Cout)."""
     b, t, _ = g.shape
-    return (unfold(g, weight.shape[-1]) @ dgrad_matrix(weight)).view(b, t, -1)
+    k = weight.shape[-1]
+    return (unfold(g, k, same_pads(k)[1]) @ dgrad_matrix(weight)).view(b, t, -1)
 
 
 def conv_wgrad_plain(g, x, kernel):
     """Plain version of the weight gradient: (Cout, Cin, K) from the masked
     gradient ``g`` (B, T, Cout) and the input ``x`` (B, T, Cin)."""
     cout, cin = g.shape[-1], x.shape[-1]
-    dw = g.reshape(-1, cout).T @ unfold(x, kernel)
+    dw = g.reshape(-1, cout).T @ unfold(x, kernel, same_pads(kernel)[0])
     return dw.view(cout, kernel, cin).permute(0, 2, 1).contiguous()
 
 
@@ -129,14 +141,15 @@ def _check(name, t, channels=None):
 
 
 def _check_weight(weight, cin):
-    if weight.dim() != 3 or weight.shape[1] != cin or weight.shape[2] % 2 == 0:
-        raise ValueError(f"weight: expected (Cout, {cin}, K) with K odd, got {tuple(weight.shape)}")
+    if weight.dim() != 3 or weight.shape[1] != cin:
+        raise ValueError(f"weight: expected (Cout, {cin}, K), got {tuple(weight.shape)}")
     if weight.dtype != torch.float32:
         raise TypeError(f"weight: expected torch.float32, got {weight.dtype}")
 
 
-def _unfold_product(x, matrix, bias, relu):
-    """Launch ``conv_fwd_f32``: (B, T, N) = relu?(unfold(x) @ matrix + bias?)."""
+def _unfold_product(x, matrix, bias, relu, left):
+    """Launch ``conv_fwd_f32``: (B, T, N) = relu?(unfold(x, K, left) @ matrix
+    + bias?)."""
     b, t, c = x.shape
     kd, n = matrix.shape
     panel = _panel(matrix)
@@ -146,23 +159,24 @@ def _unfold_product(x, matrix, bias, relu):
     fn = c_function("conv", "conv_fwd", torch.float32, 4, 9)
     with torch.cuda.device(x.device):
         err = fn(ptr(x), ptr(panel), ctypes.c_void_p(None) if bias is None else ptr(bias),
-                 ptr(out), b * t, n, panel.shape[1], t, c, kd, panel.shape[0], kd // c // 2,
+                 ptr(out), b * t, n, panel.shape[1], t, c, kd, panel.shape[0], left,
                  int(relu), stream_ptr(x.device))
     raise_on_error(fn.__name__, err)
     return out
 
 
-def conv_fwd(x, weight, bias):
-    """``relu(conv1d(x) + bias)`` of a stride-1 SAME block on channels-last
-    ``x`` (B, T, Cin) -> (B, T, Cout); ``bias`` (Cout,) or None.  Counts
-    kernel launches in ``conv_fwd.launches``."""
+def conv_fwd(x, weight, bias, relu=True):
+    """``relu?(conv1d(x) + bias)`` of a stride-1 SAME block on channels-last
+    ``x`` (B, T, Cin) -> (B, T, Cout); ``bias`` (Cout,) or None; the ReLU
+    where ``relu``.  Counts kernel launches in ``conv_fwd.launches``."""
     if not use_kernel(x, weight):
-        return conv_fwd_plain(x, weight, bias)
+        return conv_fwd_plain(x, weight, bias, relu)
     _check("x", x)
     _check_weight(weight, x.shape[2])
     if bias is not None:
         check_tensor("bias", bias, torch.float32, (weight.shape[0],), x.device)
-    out = _unfold_product(x, forward_matrix(weight), bias, True)
+    k = weight.shape[-1]
+    out = _unfold_product(x, forward_matrix(weight), bias, relu, same_pads(k)[0])
     conv_fwd.launches += 1
     return out
 
@@ -175,7 +189,7 @@ def conv_dgrad(g, weight):
         return conv_dgrad_plain(g, weight)
     _check("g", g, weight.shape[0])
     _check_weight(weight, weight.shape[1])
-    out = _unfold_product(g, dgrad_matrix(weight), None, False)
+    out = _unfold_product(g, dgrad_matrix(weight), None, False, same_pads(weight.shape[-1])[1])
     conv_dgrad.launches += 1
     return out
 
@@ -205,9 +219,8 @@ def conv_wgrad(g, x, kernel):
         return conv_wgrad_plain(g, x, kernel)
     _check("x", x)
     _check("g", g)
-    if g.shape[:2] != x.shape[:2] or kernel % 2 == 0:
-        raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} must share (B, T), "
-                         f"and the kernel width {kernel} be odd")
+    if g.shape[:2] != x.shape[:2]:
+        raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} must share (B, T)")
     b, t, cin = x.shape
     cout, m_total = g.shape[2], b * t
     kd = kernel * cin
@@ -222,7 +235,7 @@ def conv_wgrad(g, x, kernel):
     fn = c_function("conv", "conv_wgrad", torch.float32, 4, 8)
     with torch.cuda.device(x.device):
         err = fn(ptr(g), ptr(x), ptr(part), ptr(dw), m_total, cout, t, cin, kernel,
-                 kernel // 2, splits, chunk, stream_ptr(x.device))
+                 same_pads(kernel)[0], splits, chunk, stream_ptr(x.device))
     raise_on_error(fn.__name__, err)
     conv_wgrad.launches += 1
     return dw
@@ -252,12 +265,41 @@ class _ConvReLU(torch.autograd.Function):
         return dx, dw, db
 
 
-def conv_relu(x, weight, bias):
-    """``relu(conv1d(x) + bias)`` of a stride-1 SAME block of odd width on
-    contiguous channels-last ``x`` (B, T, Cin) -> (B, T, Cout), with its
-    backward where autograd asks for one.  Under a profiler each call is
-    the span ``asg.conv``."""
+class _ConvBias(torch.autograd.Function):
+    """``conv_fwd`` without the ReLU under autograd; saves the block's input."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return conv_fwd(x, weight, bias, relu=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        g = grad.contiguous()
+        dx = conv_dgrad(g, weight) if ctx.needs_input_grad[0] else None
+        dw = conv_wgrad(g, x, weight.shape[-1]) if ctx.needs_input_grad[1] else None
+        db = g.sum((0, 1)) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def _conv(function, relu, x, weight, bias):
     with span("asg.conv"):
         if wants_grad(x, weight, *(() if bias is None else (bias,))):
-            return _ConvReLU.apply(x, weight, bias)
-        return conv_fwd(x, weight, bias)
+            return function.apply(x, weight, bias)
+        return conv_fwd(x, weight, bias, relu)
+
+
+def conv_relu(x, weight, bias):
+    """``relu(conv1d(x) + bias)`` of a stride-1 SAME block on contiguous
+    channels-last ``x`` (B, T, Cin) -> (B, T, Cout), with its backward where
+    autograd asks for one.  Under a profiler each call is the span
+    ``asg.conv``."""
+    return _conv(_ConvReLU, True, x, weight, bias)
+
+
+def conv_bias(x, weight, bias):
+    """``conv1d(x) + bias`` of a stride-1 SAME block, as ``conv_relu`` without
+    the ReLU: the forward's epilogue adds the bias alone and the backward
+    takes the incoming gradient unmasked.  One ``asg.conv`` span a call."""
+    return _conv(_ConvBias, False, x, weight, bias)

@@ -3,20 +3,22 @@
 // and ReLU fused, input gradient (dgrad) and weight gradient (wgrad).
 //
 // Replaces no TPU kernel: the JAX package leaves its convolutions to XLA.
-// It takes the place of cuDNN's NCL kernels for the Wav2Letter blocks of
-// stride 1 and odd width K (pad = (K - 1) / 2 on both sides), which did
-// the most of a training step's device work.
+// It takes the place of cuDNN's NCL kernels for the encoders' blocks of
+// stride 1 and width K, odd or even, with SAME pads (left = (K - 1) / 2,
+// right = K / 2 frames), which do the most of a training step's device work.
 //
 // Activations are (B, T, C) row-major.  Row (b, t) of the unfolded input is
-// the K * C floats x[b, t - pad .. t + pad, :], which lie contiguous in
-// memory: element kk of it is x[b * T * C + (t - pad) * C + kk], zero where
-// (t - pad) * C + kk falls outside [0, T * C) (the SAME padding, by
-// predicate; no padded copy exists).  So
-//   forward: out[m, n] = relu(bias[n] + sum_kk A(m, kk) W[kk, n]),
-//            W[k * Cin + c, n] = weight[n, c, k];
+// the K * C floats x[b, t - pad .. t - pad + K - 1, :], pad the left pad,
+// which lie contiguous in memory: element kk of it is
+// x[b * T * C + (t - pad) * C + kk], zero where (t - pad) * C + kk falls
+// outside [0, T * C) (the SAME padding, by predicate; no padded copy
+// exists).  So
+//   forward: out[m, n] = relu?(bias[n] + sum_kk A(m, kk) W[kk, n]),
+//            W[k * Cin + c, n] = weight[n, c, k], the ReLU by a flag;
 //   dgrad:   dx = the same product on the masked gradient g (B, T, Cout)
 //            with W[k * Cout + n, c] = weight[n, c, K - 1 - k], no bias or
-//            ReLU (the transposed convolution of a symmetric pad);
+//            ReLU, and pad the right pad (the transposed convolution swaps
+//            the pads);
 //   wgrad:   dW[n, kk] = sum_m g[m, n] A(m, kk), split over m into slices
 //            whose partial products a second kernel sums in slice order.
 // The wrapper (conv_kernels.py) lays out W, zero-padded to whole tiles.

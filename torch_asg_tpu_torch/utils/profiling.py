@@ -13,11 +13,21 @@ program opens these:
 ``asg.encoder.frontend``            the strided front end (``blocks[0]``)
 ``asg.encoder.mid``                 the stride-1 mid stack (``blocks[1:-1]``)
 ``asg.encoder.wide``                the last block (channels -> head_channels)
-``asg.encoder.<stage>.backward``    that stage's backward, on the thread that
-                                    runs it (the autograd engine's on the card)
+``asg.encoder.gated``               ``GatedConvNet``'s 17 gated convolutions
+``asg.encoder.head``                ``GatedConvNet``'s two linear layers
+``asg.weight_norm``                 ``GatedConvNet``'s weights from their
+                                    (v, g) pairs, every layer's, once a
+                                    forward
+``asg.<stretch>.backward``          that stretch's backward, on the thread
+                                    that runs it (the autograd engine's on
+                                    the card); for every stretch above but
+                                    ``asg.encoder``
 ``asg.conv``                        one forward call of a stride-1 block on the
                                     hand-written convolution
-                                    (``conv_kernels.conv_relu``)
+                                    (``conv_kernels.conv_relu``, ``conv_bias``)
+``asg.grad_allreduce``              the tensor- and data-parallel step's
+                                    all-reduce of the encoder's gradients
+                                    over 'data' (``models/train.py``)
 ``asg.criterion``                   ``asg.py::_scores``, every tier
 ``asg.host_sync``                   where the host waits on the device: the
                                     spread guard's ``.tolist()``,
@@ -68,8 +78,9 @@ class _BackwardSpan:
         self.name, self.record = name, None
 
     def open(self) -> None:
-        self.record = _RecordFunctionFast(self.name)
-        self.record.__enter__()
+        if self.record is None:  # the first of several openers opens it
+            self.record = _RecordFunctionFast(self.name)
+            self.record.__enter__()
 
     def close(self, *_) -> None:
         if self.record is not None:
@@ -92,42 +103,54 @@ class _OnBackward(torch.autograd.Function):
         return grad, None
 
 
-def _last_node(root):
-    """The node of ``root``'s graph that the engine runs last: the one
-    made first in the forward, the leaves' accumulators aside.  Called
-    where the stretch's input needs no gradient, so every node reachable
-    from ``root`` is the stretch's."""
-    seen, todo, nodes = set(), [root], []
+def _next_sequence_nr() -> int:
+    """The sequence number autograd gives the next node made on this thread."""
+    return (torch.empty(0, requires_grad=True) * 1).grad_fn._sequence_nr() + 1
+
+
+def _last_node(roots, floor: int):
+    """The node of the graphs of ``roots`` made since sequence number
+    ``floor`` that the engine runs last: the one made first in the
+    forward, the leaves' accumulators and every node made before ``floor``
+    (such as the weights a stretch reads, made earlier) aside.  Called
+    where the stretch's inputs need no gradient, so every such node is the
+    stretch's."""
+    seen, todo, nodes = set(), list(roots), []
     while todo:
         node = todo.pop()
         if node is None or node in seen:
             continue
         seen.add(node)
-        if type(node).__name__ != "AccumulateGrad":
+        if type(node).__name__ != "AccumulateGrad" and node._sequence_nr() >= floor:
             nodes.append(node)
             todo.extend(n for n, _ in node.next_functions)
     return min(nodes, key=lambda n: n._sequence_nr())
 
 
-def spanned(name: str, fn: Callable, x: torch.Tensor) -> torch.Tensor:
-    """``fn(x)`` in the span ``name``.  While a profiler is collecting and
-    autograd records, its backward runs in the span ``name + ".backward"``:
-    identity functions at the stretch's ends open and close it, or, where
-    ``x`` needs no gradient, a hook on the stretch's last node closes it
-    (no gradient is added for ``x``).  Without a profiler nothing is added
-    to the graph; gradients are the same bits either way."""
+def spanned(name: str, fn: Callable, *args):
+    """``fn(*args)`` in the span ``name``; ``fn`` returns a tensor or a tuple
+    of tensors.  While a profiler is collecting and autograd records, its
+    backward runs in the span ``name + ".backward"``: identity functions at
+    the stretch's ends open it (the first output's gradient to be taken)
+    and close it (the first argument's), or, where no argument needs a
+    gradient, a hook on the stretch's last node closes it (no gradient is
+    added for an argument).  Without a profiler nothing is added to the
+    graph; gradients are the same bits either way."""
     with span(name):
         if not (torch.autograd._profiler_enabled() and torch.is_grad_enabled()):
-            return fn(x)
+            return fn(*args)
         mark = _BackwardSpan(name + ".backward")
-        if x.requires_grad:
-            x = _OnBackward.apply(x, mark.close)
-        y = fn(x)
-        if not y.requires_grad:
+        grads = any(a.requires_grad for a in args)
+        floor = _next_sequence_nr()
+        args = [_OnBackward.apply(a, mark.close) if a.requires_grad else a for a in args]
+        y = fn(*args)
+        outs = y if isinstance(y, tuple) else (y,)
+        if not any(o.requires_grad for o in outs):
             return y
-        if not x.requires_grad:
-            _last_node(y.grad_fn).register_hook(mark.close)
-        return _OnBackward.apply(y, mark.open)
+        if not grads:
+            _last_node([o.grad_fn for o in outs], floor).register_hook(mark.close)
+        outs = tuple(_OnBackward.apply(o, mark.open) if o.requires_grad else o for o in outs)
+        return outs if isinstance(y, tuple) else outs[0]
 
 
 @contextlib.contextmanager
