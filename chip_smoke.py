@@ -421,16 +421,19 @@ def check_auto_route(scores, store, bwd, vit=0):
 
 
 def conv_launches(reset=False):
-    """The stride-1 blocks' hand-written convolution launches by pass,
-    {"conv_fwd": n, "conv_dgrad": n, "conv_wgrad": n}; with ``reset`` the
-    counts are set to 0 first."""
+    """The stride-1 blocks' hand-written convolution launches by pass and by
+    pass and tiling, {"conv_fwd": n, "conv_fwd.<tiling>": n, ...}; with
+    ``reset`` every count is set to 0 first."""
     from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
 
-    wrappers = (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad)
-    if reset:
-        for w in wrappers:
-            w.launches = 0
-    return {w.__name__: w.launches for w in wrappers}
+    out = {}
+    for w in (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad):
+        if reset:
+            for name in [k for k in vars(w) if k.startswith("launches")]:
+                setattr(w, name, 0)
+        out[w.__name__] = w.launches
+        out.update({f"{w.__name__}.{t}": n for t, n in ck.tiling_launches(w).items()})
+    return out
 
 
 def check_conv_launches(model, calls, backward):
@@ -438,14 +441,19 @@ def check_conv_launches(model, calls, backward):
     the strided front end) ran its forward ``calls`` times on the
     hand-written convolution, and, with ``backward``, its input and weight
     gradients as often (the mid stack's first block too: the front end's
-    weight needs its input's gradient).  A block that fell back to
-    ``F.conv1d`` launches none.  Returns the launches a call."""
+    weight needs its input's gradient); each pass's launches by tiling add
+    up to its launches.  A block that fell back to ``F.conv1d`` launches
+    none.  Returns the launches a call."""
     blocks = len(model.blocks) - 1
     want = {"conv_fwd": calls * blocks, "conv_dgrad": calls * blocks * backward,
             "conv_wgrad": calls * blocks * backward}
     got = conv_launches()
-    check(got == want,
-          f"every stride-1 block must run the hand-written convolution: {got}, want {want}")
+    totals = {k: v for k, v in got.items() if "." not in k}
+    check(totals == want,
+          f"every stride-1 block must run the hand-written convolution: {totals}, want {want}")
+    for name, n in totals.items():
+        check(sum(v for k, v in got.items() if k.startswith(name + ".")) == n,
+              f"{name}: the launches by tiling {got} must add up to {n}")
     return {k: v // calls for k, v in got.items()}
 
 
@@ -1314,10 +1322,13 @@ CONV_CASES = (
 CONV_TIMED = ("mid", "wide", "default_mid", "default_wide")
 # (case, B, T, Cin, Cout, K) of check_conv's bias-only pass: the gated
 # ConvNet's (arXiv:1712.09444, LibriSpeech) layers 2, 10 and 17 at a
-# training batch of 16 utterances padded to 2000 frames; its first layer
-# (40 -> 400, K = 13) at T = 1; even widths above and at T.
+# training batch of 16 utterances padded to 2000 frames, and layer 4, whose
+# forward and weight gradient take the 128 x 128 tiling (17's forward and
+# dgrad take it too); its first layer (40 -> 400, K = 13) at T = 1; even
+# widths above and at T.
 CONV_GLU_CASES = (
     ("glu_l2_k14", 16, 2000, 200, 440, 14),
+    ("glu_l4_k16", 16, 2000, 242, 532, 16),
     ("glu_l10_k22", 16, 2000, 426, 936, 22),
     ("glu_l17_k29", 16, 2000, 826, 1816, 29),
     ("glu_l1_t1", 4, 1, 40, 400, 13),
@@ -1453,16 +1464,22 @@ def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED, relu=True):
     if dev.type == "cuda":
         log = _build.build_all(("conv",))["conv"].with_suffix(".log").read_text()
         spills = spill_bytes(log, "conv_")
-        emit({"phase": "conv_build", "ptxas": [line.strip() for line in log.splitlines()
-                                               if "Used" in line or "spill" in line]})
-        check(len(spills) == 3 and not any(spills.values()),
-              f"the convolution kernels must not spill: {spills}")
-    before = (ck.conv_fwd.launches, ck.conv_dgrad.launches, ck.conv_wgrad.launches)
+        built = [line for line in log.splitlines()
+                 if "Compiling entry function" in line and "conv_" in line]
+        emit({"phase": "conv_build", "kernels": len(built),
+              "ptxas": [line.strip() for line in log.splitlines()
+                        if "Used" in line or "spill" in line]})
+        check(built and len(spills) == len(built) and not any(spills.values()),
+              f"no convolution kernel of the {len(built)} built may spill: {spills}")
+    compared = dict.fromkeys(conv_launches(reset=True), 0)
     rows = []
     block = ck.conv_relu if relu else ck.conv_bias
     for name, b, t, cin, cout, k in cases:
         x, w, bias, up = conv_inputs(rng, dev, b, t, cin, cout, k)
+        before = conv_launches()
         errs = conv_errors(block, x, w, bias, up, relu)
+        for key, n in conv_launches().items():
+            compared[key] = compared.get(key, 0) + n - before.get(key, 0)
         cudnn = conv_errors(lambda *a: conv_ncl(*a, relu=relu), x, w, bias, up, relu)
         with torch.no_grad():
             check(torch.equal(block(x, w, bias), block(x, w, bias)),
@@ -1483,10 +1500,11 @@ def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED, relu=True):
         del x, w, bias, up
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    after = (ck.conv_fwd.launches, ck.conv_dgrad.launches, ck.conv_wgrad.launches)
     if dev.type == "cuda":
-        check(all(a > b for a, b in zip(after, before)), "a convolution kernel never launched")
+        check(all(compared[p] > 0 for p in ("conv_fwd", "conv_dgrad", "conv_wgrad")),
+              f"a convolution pass was never held against float64: {compared}")
     out = {"name": "conv_unfold_kernel, conv_wgrad_kernel (stride-1 blocks)",
+           "compared_launches": compared,
            "max_rel_err": max(e for r in rows for e in r["rel_err"].values()),
            "cudnn_max_rel_err": max(e for r in rows for e in r["cudnn_rel_err"].values())}
     first = next((r for r in rows if "ms" in r), None)
@@ -1502,6 +1520,18 @@ def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED, relu=True):
             "bound_by": "operations",
             "library_ms": sum(min(v["cudnn_ncl"], v["cudnn_nhwc"]) for v in ms.values())})
     return out
+
+
+def check_conv_tilings(*compared):
+    """Every pass of the convolution ran on every tiling of ``csrc/conv.cu``
+    against float64 in ``check_conv``'s runs, whose launches so compared
+    (``compared_launches``) are ``compared``."""
+    from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
+
+    missed = [f"{p}.{t.name}" for p in ("conv_fwd", "conv_dgrad", "conv_wgrad")
+              for t in ck.tiling()
+              if not sum(c.get(f"{p}.{t.name}", 0) for c in compared)]
+    check(not missed, f"never held against float64: {missed}")
 
 
 def flax_layout_params(rng, cfg):
@@ -3876,8 +3906,10 @@ def main(argv):
     k10, k11 = check_viterbi(rng, dev)
     k1s, k2 = check_k1s_k2(rng, dev)
     conv = check_conv(np.random.default_rng([SEED, 21]), dev)
-    emit({"phase": "conv_glu", **check_conv(np.random.default_rng([SEED, 22]), dev,
-                                            CONV_GLU_CASES, CONV_GLU_TIMED, relu=False)})
+    conv_glu = check_conv(np.random.default_rng([SEED, 22]), dev, CONV_GLU_CASES,
+                          CONV_GLU_TIMED, relu=False)
+    emit({"phase": "conv_glu", **conv_glu})
+    check_conv_tilings(conv["compared_launches"], conv_glu["compared_launches"])
     k9 = check_k9(rng, dev)
     k12, k13 = check_align_kernels(rng, dev)
     # the per-lattice phases draw from streams of their own, so the earlier

@@ -16,6 +16,9 @@ from torch_asg_tpu_torch.models import Wav2Letter
 from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
 
 CUDA, CPU = torch.device("cuda", 0), torch.device("cpu")
+# csrc/conv.cu's tilings as conv_tiling lists them, and an H100's SMs
+TILINGS = (ck.Tiling(128, 256, 8, 1), ck.Tiling(128, 128, 8, 2))
+SMS = 132
 CFG = dict(num_labels=12, channels=16, depth=2, head_channels=24,
            frontend_kernel=11, frontend_stride=2, kernel=7)
 FEATURES = 8
@@ -138,6 +141,169 @@ def test_wgrad_splits(cout, kd, m_total, want):
     got = ck.wgrad_splits(tiles, m_total, 264)
     assert got == want
     assert -(-m_total // got) <= ck.WGRAD_SLICE_ROWS
+
+
+@pytest.mark.parametrize("cout,kd,m_total,want", [
+    (250, 1750, 64_000, 9),      # the mid stack: 14 tiles, 126 blocks on 132 slots
+    (2000, 1750, 64_000, 8),     # the wide block: 112 tiles, 896 blocks in 7 waves
+    (1816, 23954, 32_000, 4),    # gated layer 17: 1410 tiles, 5640 blocks
+    (532, 3872, 32_000, 8),      # gated layer 4: 80 tiles, 640 blocks
+    (1130, 12336, 32_000, 4),    # gated layer 12: 441 tiles, 1764 blocks
+])
+def test_wgrad_splits_wide_tiles(cout, kd, m_total, want):
+    """The weight gradient's slicing on the 128 x 256 tiling, one block an
+    SM: ``wgrad_splits`` at its tile count, and ``wgrad_slicing``'s slices
+    of whole WGRAD_ROW_ALIGN rows that cover the rows once."""
+    tiles = -(-cout // 128) * -(-kd // 256)
+    assert ck.wgrad_splits(tiles, m_total, SMS) == want
+    splits, chunk = ck.wgrad_slicing(cout, kd, m_total, TILINGS[0], SMS)
+    assert splits == want and chunk % ck.WGRAD_ROW_ALIGN == 0
+    assert (splits - 1) * chunk < m_total <= splits * chunk <= splits * ck.WGRAD_SLICE_ROWS
+
+
+# Every stride-1 convolution the benchmark's cells run, (B T, Cin, Cout,
+# K): letters (B = 64 at T' = 1000, 7 mid blocks and the wide block), then
+# the gated ConvNet's 17 layers (B = 16, T = 2000); and for each, the
+# tiling of its forward, dgrad and wgrad and the wgrad's slices.
+CELL_CONVS = [
+    ("letters_mid", 64_000, 250, 250, 7, "128x256", "128x256", "128x256", 9),
+    ("letters_wide", 64_000, 250, 2000, 7, "128x256", "128x256", "128x256", 8),
+    ("glu_1", 32_000, 40, 400, 13, "128x256", "128x128", "128x256", 8),
+    ("glu_2", 32_000, 200, 440, 14, "128x256", "128x256", "128x256", 6),
+    ("glu_3", 32_000, 220, 484, 15, "128x256", "128x256", "128x256", 5),
+    ("glu_4", 32_000, 242, 532, 16, "128x128", "128x256", "128x128", 5),
+    ("glu_5", 32_000, 266, 584, 17, "128x128", "128x128", "128x256", 7),
+    ("glu_6", 32_000, 292, 642, 18, "128x256", "128x128", "128x256", 4),
+    ("glu_7", 32_000, 321, 706, 19, "128x256", "128x128", "128x256", 7),
+    ("glu_8", 32_000, 353, 776, 20, "128x128", "128x128", "128x256", 4),
+    ("glu_9", 32_000, 388, 852, 21, "128x128", "128x256", "128x256", 4),
+    ("glu_10", 32_000, 426, 936, 22, "128x256", "128x256", "128x256", 4),
+    ("glu_11", 32_000, 468, 1028, 23, "128x128", "128x256", "128x256", 4),
+    ("glu_12", 32_000, 514, 1130, 24, "128x128", "128x128", "128x128", 5),
+    ("glu_13", 32_000, 565, 1242, 25, "128x256", "128x128", "128x256", 4),
+    ("glu_14", 32_000, 621, 1366, 26, "128x128", "128x128", "128x256", 4),
+    ("glu_15", 32_000, 683, 1502, 27, "128x256", "128x256", "128x256", 4),
+    ("glu_16", 32_000, 751, 1652, 28, "128x128", "128x256", "128x256", 4),
+    ("glu_17", 32_000, 826, 1816, 29, "128x128", "128x128", "128x256", 4),
+]
+
+
+@pytest.mark.parametrize("name,m,cin,cout,k,fwd,dgrad,wgrad,splits", CELL_CONVS)
+def test_tiling_rule_at_the_cells_shapes(name, m, cin, cout, k, fwd, dgrad, wgrad, splits):
+    """``pick_tiling`` as a pure function of the product's rows, columns
+    and depth over the tiling table: the forward (B T x Cout over K Cin),
+    dgrad (B T x Cin over K Cout) and wgrad (Cout x K Cin over B T, sliced);
+    and the wgrad's slices there, each the first design's count."""
+    names = [t.name for t in TILINGS]
+    assert names[ck.pick_tiling(m, cout, k * cin, TILINGS, SMS)] == fwd
+    assert names[ck.pick_tiling(m, cin, k * cout, TILINGS, SMS)] == dgrad
+    which = ck.pick_tiling(cout, k * cin, m, TILINGS, SMS, sliced=True)
+    assert names[which] == wgrad
+    assert ck.wgrad_slicing(cout, k * cin, m, TILINGS[which], SMS)[0] == splits
+
+
+@pytest.mark.parametrize("rows,cols,depth,sliced,want,tie", [
+    (32_000, 936, 9_372, False, 0, True),      # 1000 or 2000 blocks: 8 waves either way
+    (32_000, 1816, 23_954, False, 1, False),   # 16 waves of 128 x 256 against 15
+    (32_000, 826, 52_664, False, 1, False),    # 1000 blocks in 8 waves against 1750 in 7
+    (64_000, 250, 1750, False, 0, True),
+    (532, 3872, 32_000, True, 1, False),       # 8 slices in 5 waves against 5 in 3
+    (1816, 23_954, 32_000, True, 0, True),     # 4 slices, 43 waves either way
+])
+def test_tiling_rule_counts_padded_waves(rows, cols, depth, sliced, want, tie):
+    """The fewest waves of padded tiles (times a slice's depth where
+    sliced) wins, and a tie goes to the first tiling listed."""
+    assert ck.pick_tiling(rows, cols, depth, TILINGS, SMS, sliced) == want
+    again = ck.pick_tiling(rows, cols, depth, TILINGS[::-1], SMS, sliced)
+    assert again == (0 if tie else 1 - want)
+
+
+@pytest.fixture
+def kernel_path(monkeypatch):
+    """The kernels' path on the CPU: each pass picks its tiling from
+    TILINGS on a 132-SM card and counts its launch, with the launches
+    replaced by the plain products.  Yields the (pass, shape, tiling
+    index) of every launch."""
+    launched = []
+
+    def product(x, matrix, bias, relu, left, which):
+        launched.append(("product", tuple(x.shape), matrix.shape[1], which))
+        b, t, c = x.shape
+        out = ck.unfold(x, matrix.shape[0] // c, left) @ matrix
+        out = out if bias is None else out + bias
+        return (torch.relu(out) if relu else out).view(b, t, -1)
+
+    def wgrad(g, x, kernel, which):
+        launched.append(("wgrad", tuple(x.shape), g.shape[2], which))
+        return ck.conv_wgrad_plain(g, x, kernel)
+
+    monkeypatch.setattr(ck, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(ck, "tiling", lambda: TILINGS)
+    monkeypatch.setattr(ck, "_sms", lambda device: SMS)
+    monkeypatch.setattr(ck, "_unfold_product", product)
+    monkeypatch.setattr(ck, "_wgrad_product", wgrad)
+    wrappers = (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad)
+    saved = [dict(vars(w)) for w in wrappers]
+    for w in wrappers:
+        for name in [k for k in vars(w) if k.startswith("launches")]:
+            setattr(w, name, 0)
+    yield launched
+    for w, before in zip(wrappers, saved):
+        for name in [k for k in vars(w) if k.startswith("launches")]:
+            delattr(w, name)
+        for name, value in before.items():
+            setattr(w, name, value)
+
+
+@pytest.mark.parametrize("block,relu,shapes", [
+    (ck.conv_relu, True, [(2, 13, 5, 6, 7), (3, 9, 6, 300, 7)]),
+    (ck.conv_bias, False, [(2, 12, 6, 8, 14), (1, 20, 4, 130, 13), (2, 5, 129, 3, 2)]),
+])
+def test_launches_by_tiling_add_up(kernel_path, block, relu, shapes):
+    """Each pass counts one launch a call in ``launches`` and one in the
+    count of the tiling ``pick_tiling`` chose; the tilings' counts add up to
+    ``launches``, and the outputs are the plain versions'."""
+    for b, t, cin, cout, k in shapes:
+        gen = torch.Generator().manual_seed(b * 100 + t)
+        x = torch.randn(b, t, cin, generator=gen, requires_grad=True)
+        weight = torch.randn(cout, cin, k, generator=gen, requires_grad=True)
+        bias = torch.randn(cout, generator=gen, requires_grad=True)
+        out = block(x, weight, bias)
+        torch.testing.assert_close(out, ck.conv_fwd_plain(x, weight, bias, relu))
+        out.sum().backward()
+    calls = len(shapes)
+    for fn in (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad):
+        assert fn.launches == calls
+        counts = ck.tiling_launches(fn)
+        assert sum(counts.values()) == fn.launches
+        assert set(counts) <= {t.name for t in TILINGS}
+    picked = [TILINGS[which].name for _, _, _, which in kernel_path]
+    assert len(picked) == 3 * calls
+    for t in TILINGS:
+        assert sum(ck.tiling_launches(fn).get(t.name, 0)
+                   for fn in (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad)) == picked.count(t.name)
+
+
+def test_chip_smoke_reads_launches_by_tiling(kernel_path):
+    """``chip_smoke.conv_launches`` gives each pass's launches beside its
+    launches by tiling, and ``check_conv_tilings`` fails until every pass
+    has a compared launch on every tiling."""
+    import chip_smoke
+
+    chip_smoke.conv_launches(reset=True)
+    gen = torch.Generator().manual_seed(5)
+    leaves = [torch.randn(shape, generator=gen, requires_grad=True)
+              for shape in ((2, 9, 6), (8, 6, 7), (8,))]
+    ck.conv_bias(*leaves).sum().backward()
+    got = chip_smoke.conv_launches()
+    first = TILINGS[0].name
+    assert got == {key: 1 for p in ("conv_fwd", "conv_dgrad", "conv_wgrad")
+                   for key in (p, f"{p}.{first}")}
+    with pytest.raises(RuntimeError, match="never held against float64"):
+        chip_smoke.check_conv_tilings(got)
+    second = {f"{p}.{TILINGS[1].name}": 1 for p in ("conv_fwd", "conv_dgrad", "conv_wgrad")}
+    chip_smoke.check_conv_tilings(got, second)
+    assert chip_smoke.conv_launches(reset=True) == dict.fromkeys(got, 0)
 
 
 def _models(dtype=torch.float64, dropout=0.0):

@@ -25,8 +25,9 @@ their ``nn.Conv1d`` shapes; the weight is laid out inside each call (1.75 MB
 at 250 -> 250, K = 7).
 
 On CUDA tensors ``conv_fwd``, ``conv_dgrad`` and ``conv_wgrad`` launch the
-kernels of ``csrc/conv.cu`` (float32 only); on CPU tensors they run the
-plain versions beside them, the same products with whole-matrix ``@``.
+kernels of ``csrc/conv.cu`` (float32 only) on the tiling ``pick_tiling``
+takes for the product's shape; on CPU tensors they run the plain versions
+beside them, the same products with whole-matrix ``@``.
 The model reaches them through ``models/wav2letter.py::conv_route``.
 """
 
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,25 +48,60 @@ WGRAD_SLICE_ROWS = 8192
 # Least share of the last wave of resident blocks the weight gradient's
 # slicing fills, where a count of slices reaches it.
 WGRAD_FILL = 0.95
+# A slice's rows are a whole number of these (whole stages of every
+# tiling's depth).
+WGRAD_ROW_ALIGN = 16
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+class Tiling(NamedTuple):
+    """One block tiling of ``csrc/conv.cu``: a block computes a ``rows`` x
+    ``cols`` tile of the product over reduction stages of ``depth``, and
+    ``blocks_per_sm`` blocks are resident on a streaming multiprocessor."""
+
+    rows: int
+    cols: int
+    depth: int
+    blocks_per_sm: int
+
+    @property
+    def name(self) -> str:
+        return f"{self.rows}x{self.cols}"
+
+
 @functools.cache
 def tiling() -> tuple:
-    """(tile, depth, blocks an SM) as ``csrc/conv.cu`` reports them: a block
-    computes a tile x tile square of the product over reduction stages of
-    ``depth``, and that many blocks are resident on a streaming
-    multiprocessor."""
+    """Every tiling as ``csrc/conv.cu`` reports them (``Tiling``s), in the
+    order its entry points number them."""
     from ._build import load
 
     fn = load("conv").conv_tiling
     fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 17)()  # the count, then 4 numbers a tiling: room for 4
     fn(out)
-    return tuple(out)
+    return tuple(Tiling(*out[1 + 4 * i:5 + 4 * i]) for i in range(out[0]))
+
+
+def pick_tiling(rows: int, cols: int, depth: int, tilings: tuple, sms: int,
+                sliced: bool = False) -> int:
+    """The index in ``tilings`` of the tiling for a ``rows`` x ``cols``
+    product over ``depth`` on ``sms`` streaming multiprocessors: the one
+    whose blocks, padded to whole tiles, take the fewest waves of the
+    card's resident slots times the work of a wave (a wave of either tiling
+    holds the same tile area an SM), the first listed on a tie.  With
+    ``sliced`` (the weight gradient) the depth is cut into
+    ``wgrad_slicing``'s slices, each a block of its own."""
+    def cost(i):
+        t = tilings[i]
+        blocks = -(-rows // t.rows) * -(-cols // t.cols)
+        splits, chunk = wgrad_slicing(rows, cols, depth, t, sms) if sliced else (1, depth)
+        slots = t.blocks_per_sm * sms
+        return -(-blocks * splits // slots) * t.rows * t.cols * t.blocks_per_sm * chunk
+
+    return min(range(len(tilings)), key=lambda i: (cost(i), i))
 
 
 def same_pads(kernel: int) -> tuple:
@@ -93,12 +130,12 @@ def dgrad_matrix(weight: torch.Tensor) -> torch.Tensor:
     return weight.flip(2).permute(2, 0, 1).reshape(k * cout, cin)
 
 
-def _panel(matrix: torch.Tensor) -> torch.Tensor:
+def _panel(matrix: torch.Tensor, t: Tiling) -> torch.Tensor:
     """``matrix`` zero-padded to whole stages of rows and whole tiles of
-    columns, as the kernel reads it (16-byte copies, no predicate)."""
+    columns of tiling ``t``, as its kernel reads it (16-byte copies, no
+    predicate)."""
     rows, cols = matrix.shape
-    tile, depth, _ = tiling()
-    out = matrix.new_zeros((_round_up(rows, depth), _round_up(cols, tile)))
+    out = matrix.new_zeros((_round_up(rows, t.depth), _round_up(cols, t.cols)))
     out[:rows, :cols] = matrix
     return out
 
@@ -147,20 +184,39 @@ def _check_weight(weight, cin):
         raise TypeError(f"weight: expected torch.float32, got {weight.dtype}")
 
 
-def _unfold_product(x, matrix, bias, relu, left):
-    """Launch ``conv_fwd_f32``: (B, T, N) = relu?(unfold(x, K, left) @ matrix
-    + bias?)."""
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _count(fn, t: Tiling) -> None:
+    """One launch of ``fn``'s kernels on tiling ``t``: counted in
+    ``fn.launches`` and ``fn.launches_<t.name>``."""
+    fn.launches += 1
+    key = f"launches_{t.name}"
+    setattr(fn, key, getattr(fn, key, 0) + 1)
+
+
+def tiling_launches(fn) -> dict:
+    """{tiling name: launches} of ``fn`` (``conv_fwd``, ``conv_dgrad`` or
+    ``conv_wgrad``): every tiling it has launched on since its counts were
+    last set to 0; they add up to ``fn.launches``."""
+    return {k[len("launches_"):]: v for k, v in vars(fn).items() if k.startswith("launches_")}
+
+
+def _unfold_product(x, matrix, bias, relu, left, which):
+    """Launch ``conv_fwd_f32`` on tiling ``which``: (B, T, N) =
+    relu?(unfold(x, K, left) @ matrix + bias?)."""
     b, t, c = x.shape
     kd, n = matrix.shape
-    panel = _panel(matrix)
+    panel = _panel(matrix, tiling()[which])
     out = x.new_empty((b, t, n))
     if out.numel() >= 2 ** 31:
         raise ValueError(f"out: {out.numel()} elements; the kernels index below 2**31")
-    fn = c_function("conv", "conv_fwd", torch.float32, 4, 9)
+    fn = c_function("conv", "conv_fwd", torch.float32, 4, 10)
     with torch.cuda.device(x.device):
         err = fn(ptr(x), ptr(panel), ctypes.c_void_p(None) if bias is None else ptr(bias),
                  ptr(out), b * t, n, panel.shape[1], t, c, kd, panel.shape[0], left,
-                 int(relu), stream_ptr(x.device))
+                 int(relu), which, stream_ptr(x.device))
     raise_on_error(fn.__name__, err)
     return out
 
@@ -168,29 +224,35 @@ def _unfold_product(x, matrix, bias, relu, left):
 def conv_fwd(x, weight, bias, relu=True):
     """``relu?(conv1d(x) + bias)`` of a stride-1 SAME block on channels-last
     ``x`` (B, T, Cin) -> (B, T, Cout); ``bias`` (Cout,) or None; the ReLU
-    where ``relu``.  Counts kernel launches in ``conv_fwd.launches``."""
+    where ``relu``.  Counts kernel launches in ``conv_fwd.launches`` and by
+    tiling in ``conv_fwd.launches_<tiling>``."""
     if not use_kernel(x, weight):
         return conv_fwd_plain(x, weight, bias, relu)
     _check("x", x)
     _check_weight(weight, x.shape[2])
     if bias is not None:
         check_tensor("bias", bias, torch.float32, (weight.shape[0],), x.device)
+    b, t, _ = x.shape
     k = weight.shape[-1]
-    out = _unfold_product(x, forward_matrix(weight), bias, relu, same_pads(k)[0])
-    conv_fwd.launches += 1
+    which = pick_tiling(b * t, weight.shape[0], k * x.shape[2], tiling(), _sms(x.device))
+    out = _unfold_product(x, forward_matrix(weight), bias, relu, same_pads(k)[0], which)
+    _count(conv_fwd, tiling()[which])
     return out
 
 
 def conv_dgrad(g, weight):
     """The input gradient (B, T, Cin) of a stride-1 SAME block from the
     masked gradient ``g`` (B, T, Cout).  Counts launches in
-    ``conv_dgrad.launches``."""
+    ``conv_dgrad.launches`` and ``conv_dgrad.launches_<tiling>``."""
     if not use_kernel(g, weight):
         return conv_dgrad_plain(g, weight)
     _check("g", g, weight.shape[0])
     _check_weight(weight, weight.shape[1])
-    out = _unfold_product(g, dgrad_matrix(weight), None, False, same_pads(weight.shape[-1])[1])
-    conv_dgrad.launches += 1
+    b, t, _ = g.shape
+    cin, k = weight.shape[1:]
+    which = pick_tiling(b * t, cin, k * weight.shape[0], tiling(), _sms(g.device))
+    out = _unfold_product(g, dgrad_matrix(weight), None, False, same_pads(k)[1], which)
+    _count(conv_dgrad, tiling()[which])
     return out
 
 
@@ -214,7 +276,7 @@ def conv_wgrad(g, x, kernel):
     """The weight gradient (Cout, Cin, K) of a stride-1 SAME block from the
     masked gradient ``g`` (B, T, Cout) and its input ``x`` (B, T, Cin):
     partial products over slices of B * T, summed in slice order.  Counts
-    launches in ``conv_wgrad.launches``."""
+    launches in ``conv_wgrad.launches`` and ``conv_wgrad.launches_<tiling>``."""
     if not use_kernel(g, x):
         return conv_wgrad_plain(g, x, kernel)
     _check("x", x)
@@ -222,22 +284,35 @@ def conv_wgrad(g, x, kernel):
     if g.shape[:2] != x.shape[:2]:
         raise ValueError(f"g {tuple(g.shape)} and x {tuple(x.shape)} must share (B, T)")
     b, t, cin = x.shape
+    which = pick_tiling(g.shape[2], kernel * cin, b * t, tiling(), _sms(x.device), sliced=True)
+    dw = _wgrad_product(g, x, kernel, which)
+    _count(conv_wgrad, tiling()[which])
+    return dw
+
+
+def wgrad_slicing(cout: int, kd: int, m_total: int, t: Tiling, sms: int) -> tuple:
+    """(splits, chunk): the weight gradient's slices of the ``m_total`` rows
+    for a (``cout``, ``kd``) product on tiling ``t``: ``wgrad_splits``'
+    count, then each slice a whole number of WGRAD_ROW_ALIGN rows."""
+    tiles = -(-cout // t.rows) * -(-kd // t.cols)
+    splits = wgrad_splits(tiles, m_total, t.blocks_per_sm * sms)
+    chunk = _round_up(-(-m_total // splits), WGRAD_ROW_ALIGN)
+    return -(-m_total // chunk), chunk
+
+
+def _wgrad_product(g, x, kernel, which):
+    """Launch ``conv_wgrad_f32`` on tiling ``which``: (Cout, Cin, K)."""
+    b, t, cin = x.shape
     cout, m_total = g.shape[2], b * t
     kd = kernel * cin
-    tile, depth, blocks_per_sm = tiling()
-    tiles = -(-cout // tile) * -(-kd // tile)
-    slots = blocks_per_sm * torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = wgrad_splits(tiles, m_total, slots)
-    chunk = _round_up(-(-m_total // splits), depth)
-    splits = -(-m_total // chunk)
+    splits, chunk = wgrad_slicing(cout, kd, m_total, tiling()[which], _sms(x.device))
     part = x.new_empty((splits, cout, kd))
     dw = x.new_empty((cout, cin, kernel))
-    fn = c_function("conv", "conv_wgrad", torch.float32, 4, 8)
+    fn = c_function("conv", "conv_wgrad", torch.float32, 4, 9)
     with torch.cuda.device(x.device):
         err = fn(ptr(g), ptr(x), ptr(part), ptr(dw), m_total, cout, t, cin, kernel,
-                 same_pads(kernel)[0], splits, chunk, stream_ptr(x.device))
+                 same_pads(kernel)[0], splits, chunk, which, stream_ptr(x.device))
     raise_on_error(fn.__name__, err)
-    conv_wgrad.launches += 1
     return dw
 
 

@@ -25,42 +25,81 @@
 //
 // What bounds it on an H100: float32 operations, 2 B T Cout K Cin a pass
 // (56 GFLOP for a 250 -> 250 layer at B = 64, T = 1000) against 67 TFLOP/s
-// of FMAs; every operand is read a few times from L2 at most.  The design
-// is the classic SIMT GEMM: a block of 256 threads owns a 128 x 128 tile of
-// the product, each thread an 8 x 8 sub-tile of accumulators (two 4-wide
-// strips in each direction, so its shared-memory reads are float4 and free
-// of bank conflicts), over reduction stages of 16 held in a 4-deep ring of
-// shared memory (66 KB a block, two blocks an SM) filled by cp.async
-// (4-byte copies with zero fill for the gathered operands, whose rows have
-// any alignment; 16-byte copies for the padded weight panel).  Of the
-// tilings timed on the card (depth 8, 16 or 32; 2-4 stages; one or two
-// blocks an SM; operands read one depth ahead across the stage boundary or
-// not) none was faster on any pass by more than 2% (PERF.md).  Each
-// accumulator sums its products in reduction order in float32 FMAs; no
-// tensor cores, no atomics: two runs give the same bits.
+// of FMAs; every operand is read a few times from L2 at most.  So the
+// measure is the share of issue slots that are FMAs and how many of them
+// stall.  The first design (128 x 128 tiles, 8 x 8 accumulators a thread,
+// two blocks an SM at 127 registers) ran 40-45 TFLOP/s with 86% of its
+// loop's instructions FMAs (PERF.md, diagnosis): four float4 shared loads
+// for 64 FMAs a thread, 16 warps an SM, filled the shared-memory pipe as
+// fast as the FMAs filled theirs, and the clock stayed within 1% of its
+// maximum.  Timed with parts of the loop taken out, this design's FMAs
+// alone reach 52-57 TFLOP/s, with the shared loads 48-51, and the gather's
+// copies take the rest.
+//
+// The design: a thread holds 16 x 8 accumulators (four 4-row strips by two
+// 4-column strips, so a warp's fragment loads are four float4 rows
+// broadcast to 8 lanes each and eight contiguous float4 columns: no bank
+// conflicts), 24 floats of fragments for 128 FMAs, and loads depth k + 1's
+// fragments while depth k's FMAs issue (two register sets).  Warps are
+// 64 x 64, 4 x 8 lanes.  The operands stream through a 4-deep ring of
+// depth-8 stages filled by cp.async, a stage's copies issued together.
+// Each gathered row keeps a pointer and its offset in its utterance, so a
+// 4-byte copy costs one compare; the wgrad copies a row 16 bytes at a time
+// where its width is a multiple of 4 floats (Cout for g, Cin for x).  Two
+// tilings share that loop (`Tiling`): 128 x 256 with 256 threads and one
+// block an SM, the faster where both fit a product alike (fewer copies a
+// FMA), and 128 x 128 with 128 threads and two blocks an SM, which pads
+// less of a product whose columns are not whole 256s; each at up to 255
+// registers.  The wrapper picks the one whose padded tiles take the fewest
+// waves of the card (conv_kernels.py::pick_tiling).  A 256 x 128 tiling of
+// 256 threads was 3-10% slower in every forward timed: one block's 8 warps
+// wait on their own copies at each stage's barrier.  Each accumulator sums its
+// products in ascending reduction order in float32 FMAs, then the bias,
+// then the ReLU; no tensor cores, no atomics: two runs give the same bits,
+// and the forward and dgrad give the first design's.
 
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 128;            // rows and columns of a block's tile
-constexpr int kThreads = 256;
-constexpr int kPitch = kTile + 4;     // floats a shared row: transposed stores
-                                      // of 8 depths x 4 rows hit 32 banks
-constexpr int kRows = kTile * 8 / kThreads;  // gathered tile rows a thread copies: 4
-constexpr int kDepth = 16;            // reduction depth of a stage
-constexpr int kStages = 4;            // stages in flight
-constexpr int kMinBlocks = 2;         // resident blocks an SM the GEMM kernels are built for
-constexpr int kSlot = 2 * kDepth * kPitch;              // floats of one stage
-constexpr int kSmemBytes = kStages * kSlot * 4;
-static_assert(kDepth % 8 == 0, "stages are whole multiples of 8 deep");
+constexpr int kDepth = 8;      // reduction depth of a stage
+constexpr int kStages = 4;     // stages in flight
+constexpr int kTM = 16;        // accumulator rows a thread
+constexpr int kTN = 8;         // accumulator columns a thread
 
-// Stage slot s of the ring: a[k][i] = row i of the tile at depth k, then
-// b[k][j] = column j at depth k.
-__device__ __forceinline__ float* slot_a(float* smem, int s) { return smem + s * kSlot; }
+// A tiling of the product: kRows x kCols a block in warps of 64 x 64,
+// kThreads threads of 16 x 8 accumulators, kMinBlocks resident blocks an SM
+// at up to 255 registers a thread.
+template <int Rows, int Cols>
+struct Tiling {
+  static constexpr int kRows = Rows;
+  static constexpr int kCols = Cols;
+  static constexpr int kThreads = Rows * Cols / (kTM * kTN);
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kWarpsN = Cols / 64;  // warps across the columns
+  static constexpr int kMinBlocks = 65536 / (kThreads * 255) >= 2 ? 2 : 1;
+  // a[k][i] rows: the gather's transposed 4-byte stores of 4 depths x 8
+  // rows a warp hit 32 banks (pitch = 8 mod 32)
+  static constexpr int kPitchA = Rows + 8;
+  static constexpr int kSlotA = kDepth * kPitchA;
+  static constexpr int kSlot = kSlotA + kDepth * Cols;  // floats of one stage
+  static constexpr int kSmemBytes = kStages * kSlot * 4;
+  static_assert(Rows % 64 == 0 && Cols % 64 == 0, "warps of 64 x 64");
+};
+
+// The two tilings, in the order conv_tiling lists them.
+using TilingA = Tiling<128, 256>;
+using TilingB = Tiling<128, 128>;
+
+// Stage slot s of the ring: a[k][i] = row i of the tile at depth k (pitch
+// kPitchA), then b[k][j] = column j at depth k (pitch kCols).
+template <class T>
+__device__ __forceinline__ float* slot_a(float* smem, int s) { return smem + s * T::kSlot; }
+template <class T>
 __device__ __forceinline__ float* slot_b(float* smem, int s) {
-  return smem + s * kSlot + kDepth * kPitch;
+  return smem + s * T::kSlot + T::kSlotA;
 }
 
 // A float, or a zero where !valid: then nothing is read, and src may lie
@@ -71,9 +110,11 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) 
                ::"r"(s), "l"(src), "r"(valid ? 4 : 0));
 }
 
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
+// Four floats from a 16-byte aligned source, or zeros where !valid.
+__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid = true) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -83,124 +124,168 @@ __device__ __forceinline__ void wait_groups() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Row i of the thread's 8 x 8 sub-tile within the block tile (columns alike).
-__device__ __forceinline__ int sub(int lane16, int i) {
-  return (i < 4 ? 0 : kTile / 2) + lane16 * 4 + (i & 3);
+// The thread's first accumulator row and column in the block tile: its rows
+// are row0 + 16 s + e (s < 4, e < 4), its columns col0 + 32 s + e (s < 2).
+// A warp's lanes are 4 rows by 8 columns of 4 x 4 blocks.
+template <class T>
+__device__ __forceinline__ int frag_row0() {
+  return (threadIdx.x / 32 / T::kWarpsN) * 64 + (threadIdx.x % 32 / 8) * 4;
 }
+template <class T>
+__device__ __forceinline__ int frag_col0() {
+  return (threadIdx.x / 32 % T::kWarpsN) * 64 + (threadIdx.x % 8) * 4;
+}
+template <class T>
+__device__ __forceinline__ int acc_row(int i) { return frag_row0<T>() + (i / 4) * 16 + i % 4; }
+template <class T>
+__device__ __forceinline__ int acc_col(int j) { return frag_col0<T>() + (j / 4) * 32 + j % 4; }
 
-// acc += the products of one stage.
-__device__ __forceinline__ void multiply_stage(const float* a, const float* b,
-                                               float (&acc)[8][8]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// The fragments of depth k: 16 rows of a[k], 8 columns of b[k].
+template <class T>
+__device__ __forceinline__ void load_frags(const float* a, const float* b, int k,
+                                           float (&af)[kTM], float (&bf)[kTN]) {
+  const float* ap = a + k * T::kPitchA + frag_row0<T>();
+  const float* bp = b + k * T::kCols + frag_col0<T>();
 #pragma unroll
-  for (int k = 0; k < kDepth; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + k * kPitch + ty * 4);
-    const float4 a1 = *reinterpret_cast<const float4*>(a + k * kPitch + kTile / 2 + ty * 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(b + k * kPitch + tx * 4);
-    const float4 b1 = *reinterpret_cast<const float4*>(b + k * kPitch + kTile / 2 + tx * 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int s = 0; s < kTM / 4; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(ap + 16 * s);
+    af[4 * s] = v.x, af[4 * s + 1] = v.y, af[4 * s + 2] = v.z, af[4 * s + 3] = v.w;
+  }
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  for (int s = 0; s < kTN / 4; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(bp + 32 * s);
+    bf[4 * s] = v.x, bf[4 * s + 1] = v.y, bf[4 * s + 2] = v.z, bf[4 * s + 3] = v.w;
   }
 }
 
-// The ring: stage kt of `stages` is loaded by load(smem, slot, kt)
-// kStages - 1 stages ahead of the one multiplied.
-template <class Load>
+// The ring: stage kt of `stages` is copied in by load(smem, slot), which
+// also moves the loader on by a stage, kStages - 1 stages ahead of the one
+// multiplied; depth k + 1's fragments are read while depth k's FMAs issue,
+// across the stage boundary too.
+template <class T, class Load>
 __device__ __forceinline__ void mainloop(float* smem, Load& load, int stages,
-                                         float (&acc)[8][8]) {
+                                         float (&acc)[kTM][kTN]) {
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < stages) load(smem, s, s);
+    if (s < stages) load(smem, s);
     commit();
   }
+  wait_groups<kStages - 2>();
+  __syncthreads();  // stage 0 has landed
+  float af[2][kTM], bf[2][kTN];
+  load_frags<T>(slot_a<T>(smem, 0), slot_b<T>(smem, 0), 0, af[0], bf[0]);
   for (int kt = 0; kt < stages; ++kt) {
-    wait_groups<kStages - 2>();
-    __syncthreads();  // stage kt has landed, and every thread is done with kt - 1
-    const int next = kt + kStages - 1;
-    if (next < stages) load(smem, next % kStages, next);
-    commit();
     const int slot = kt % kStages;
-    multiply_stage(slot_a(smem, slot), slot_b(smem, slot), acc);
+    const float* a = slot_a<T>(smem, slot);
+    const float* b = slot_b<T>(smem, slot);
+#pragma unroll
+    for (int k = 0; k < kDepth; ++k) {
+      if (k == 0) {
+        // into the slot of stage kt - 1, which every thread finished
+        // reading before the last barrier
+        const int next = kt + kStages - 1;
+        if (next < stages) load(smem, next % kStages);
+        commit();
+      }
+      if (k == kDepth - 1) {
+        wait_groups<kStages - 2>();
+        __syncthreads();  // stage kt + 1 has landed
+        const int ns = (kt + 1) % kStages;
+        load_frags<T>(slot_a<T>(smem, ns), slot_b<T>(smem, ns), 0, af[(k + 1) % 2],
+                      bf[(k + 1) % 2]);
+      } else {
+        load_frags<T>(a, b, k + 1, af[(k + 1) % 2], bf[(k + 1) % 2]);
+      }
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(af[k % 2][i], bf[k % 2][j], acc[i][j]);
+    }
   }
   wait_groups<0>();
 }
 
 // Forward and dgrad operands: A(m, kk) gathered from x (transposed into
-// a[k][i]; lane l copies depth l % 8 of row l / 8, so 8 depths x 4 rows
-// of a warp fill 32 banks), W from the padded panel (npad columns, whole
-// stages of rows).  Stages are loaded in order: the panel pointer advances
-// a stage a call.
+// a[k][i]; lane l copies depths l % 4 and l % 4 + 4 of row l / 4 of its
+// warp's 8, so 4 depths x 8 rows of a warp fill 32 banks), W from the
+// padded panel (npad columns, whole stages of rows), 16 bytes a copy.
+// Each of the thread's rows keeps a pointer to its next element and that
+// element's offset in its utterance, c = (t - pad) C + kk, which is in
+// range while c < hi = min(T C, (t - pad) C + K C): one compare a copy.
+template <class T>
 struct UnfoldLoad {
-  const float* x;
-  const float* w;        // this thread's float4 of the panel at the stage's depth 0
-  int tc, kd, npad8;     // npad8: 8 rows of the panel
-  int lin[kRows];        // (t - pad) * C of the thread's rows; INT_MIN / 2 past M
-  int off[kRows];        // b * T * C + (t - pad) * C: where the row's element 0 lies
+  static constexpr int kRowsA = T::kRows * 4 / T::kThreads;             // rows of A a thread copies
+  static constexpr int kCopiesB = kDepth * T::kCols / 4 / T::kThreads;  // float4s of W a thread copies
+  static constexpr int kPanelRows = T::kThreads * 4 / T::kCols;  // panel rows of one round of copies
+  static_assert(kDepth == 8, "a lane copies depths d and d + 4");
+  const float* w;            // this thread's first float4 of the panel at the stage's depth 0
+  int npad;
+  const float* px[kRowsA];   // the thread's rows' elements at the stage's depth
+  unsigned c[kRowsA];        // their offsets in the utterance, (t - pad) C + kk
+  unsigned hi[kRowsA];       // the end of the range; 0 past M
 
-  __device__ __forceinline__ void operator()(float* smem, int slot, int kt) {
-    const int kcol = threadIdx.x % 8;
-    float* a = slot_a(smem, slot) + kcol * kPitch + threadIdx.x / 8;
-    float* b = slot_b(smem, slot) + (threadIdx.x / 32) * kPitch + (threadIdx.x % 32) * 4;
+  __device__ __forceinline__ void operator()(float* smem, int slot) {
+    const int lane = threadIdx.x % 32;
+    float* a = slot_a<T>(smem, slot) + (lane % 4) * T::kPitchA + (threadIdx.x / 32) * 8 + lane / 4;
 #pragma unroll
-    for (int d = 0; d < kDepth; d += 8) {
-      const int kk = kt * kDepth + d + kcol;
-      const bool in_k = kk < kd;
-      const float* xk = x + kk;
+    for (int r = 0; r < kRowsA; ++r) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        copy4(a + d * kPitch + r * (kThreads / 8), xk + off[r],
-              in_k && static_cast<unsigned>(lin[r] + kk) < static_cast<unsigned>(tc));
-      copy16(b + d * kPitch, w + (d / 8) * npad8);
+      for (int h = 0; h < 2; ++h)
+        copy4(a + 4 * h * T::kPitchA + r * (T::kThreads / 4), px[r] + 4 * h,
+              c[r] + 4 * h < hi[r]);
+      px[r] += kDepth;
+      c[r] += kDepth;
     }
-    w += (kDepth / 8) * npad8;
+    float* b = slot_b<T>(smem, slot) + (threadIdx.x * 4 / T::kCols) * T::kCols +
+               (threadIdx.x * 4) % T::kCols;
+#pragma unroll
+    for (int q = 0; q < kCopiesB; ++q)
+      copy16(b + q * kPanelRows * T::kCols, w + q * kPanelRows * npad);
+    w += kDepth * npad;
   }
 };
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 conv_unfold_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, float* __restrict__ out, int m_total, int n,
                    int npad, int t_len, int c_in, int kd, int kpad, int pad, int relu) {
   extern __shared__ __align__(16) float smem[];
-  const int n0 = blockIdx.x * kTile, m0 = blockIdx.y * kTile;
-  UnfoldLoad load;
-  load.x = x;
-  load.tc = t_len * c_in;
-  load.kd = kd;
-  load.npad8 = 8 * npad;
-  load.w = w + (threadIdx.x / 32) * npad + n0 + (threadIdx.x % 32) * 4;
+  const int n0 = blockIdx.x * T::kCols, m0 = blockIdx.y * T::kRows;
+  const int lane = threadIdx.x % 32;
+  const int tc = t_len * c_in;
+  UnfoldLoad<T> load;
+  load.npad = npad;
+  load.w = w + (threadIdx.x * 4 / T::kCols) * npad + n0 + (threadIdx.x * 4) % T::kCols;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int m = m0 + threadIdx.x / 8 + r * (kThreads / 8);
-    const int b = m / t_len, t = m - b * t_len;
-    load.lin[r] = m < m_total ? (t - pad) * c_in : INT_MIN / 2;
-    load.off[r] = m < m_total ? b * load.tc + (t - pad) * c_in : 0;
+  for (int r = 0; r < UnfoldLoad<T>::kRowsA; ++r) {
+    const int m = m0 + (threadIdx.x / 32) * 8 + lane / 4 + r * (T::kThreads / 4);
+    const int lin = (m % t_len - pad) * c_in;  // the row's first element in its utterance
+    load.px[r] = x + (static_cast<long long>(m - pad) * c_in + lane % 4);
+    load.c[r] = static_cast<unsigned>(lin + lane % 4);
+    load.hi[r] = m < m_total ? static_cast<unsigned>(min(tc, lin + kd)) : 0u;
   }
-  float acc[8][8];
+  float acc[kTM][kTN];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  mainloop(smem, load, kpad / kDepth, acc);
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  mainloop<T>(smem, load, kpad / kDepth, acc);
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float bv[8];
+  float bv[kTN];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + sub(tx, j);
+  for (int j = 0; j < kTN; ++j) {
+    const int col = n0 + acc_col<T>(j);
     bv[j] = bias != nullptr && col < n ? bias[col] : 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + sub(ty, i);
+  for (int i = 0; i < kTM; ++i) {
+    const int row = m0 + acc_row<T>(i);
     if (row >= m_total) continue;
     float* o = out + static_cast<long long>(row) * n;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + sub(tx, j);
+    for (int j = 0; j < kTN; ++j) {
+      const int col = n0 + acc_col<T>(j);
       if (col < n) {
         float v = acc[i][j] + bv[j];
         if (relu) v = v < 0.f ? 0.f : v;  // NaN passes, as torch.relu's
@@ -211,108 +296,114 @@ conv_unfold_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // Wgrad operands over a slice of m: g rows (a[k][i] = g[m, n0 + i]) and
-// unfolded x rows (b[k][j] = A(m, kk0 + j)), both copied as they lie.
-// Lane l of warp w copies columns l + 32 q of rows w + 8 r of each stage;
-// the row state advances by one stage a call (stages are loaded in order),
-// so no division is made in the loop.
+// unfolded x rows (b[k][j] = A(m, kk0 + j)), both copied as they lie.  Warp
+// w copies row w + kWarps p of each stage; lane l copies columns l + 32 q
+// (4 bytes a copy), or float4s l + 32 q where vec_g (vec_x) says g's (x's)
+// rows are whole float4s.  Each row keeps pointers to its elements, the
+// rows left in the slice, its frame and u = (t - pad) Cin + kk0 + the
+// lane's first column, which the SAME padding's range is checked on; a
+// stage moves them on by kDepth rows, with no division.
+template <class T>
 struct WgradLoad {
-  static constexpr int kGroups = kDepth / 8;  // rows of a stage a thread copies
-  static constexpr int kCols = kTile / 32;      // columns of a row a thread copies
-  const float* g;
-  const float* x;
-  int t_len, tc, m_end, step, gstep;  // step: Depth * Cin; gstep: Depth * n_out
-  int kkb;                  // kk0 + lane: the thread's first column of the unfolded rows
-  bool n_ok[kCols];         // its columns of g lie below n_out
-  bool kk_ok[kCols];        // its unfolded columns lie below K Cin
-  int m[kGroups];           // the stage's row m of each of the thread's rows
-  int t[kGroups];           // its frame
-  int lrow[kGroups];        // (t - pad) * Cin
-  int xoff[kGroups];        // b * T * Cin + (t - pad) * Cin
-  int goff[kGroups];        // m * n_out + n0 + lane
+  static constexpr int kPasses = kDepth / T::kWarps;  // rows of a stage a thread copies
+  const float* gp[kPasses];  // g[m, n0 + lane (x 4 where vec_g)]
+  const float* xp[kPasses];  // A(m, kk0 + lane (x 4 where vec_x))
+  int left[kPasses];         // rows of the slice from m on; the row is in it while > 0
+  int t[kPasses];            // m's frame
+  int u[kPasses];            // (t - pad) Cin + the first column's kk
+  int t_len, tc, gstep, xstep;  // kDepth n_out and kDepth Cin
+  int nl, kl;                // columns of g and of the unfolded x from the lane's first on
+  bool vec_g, vec_x;
 
-  __device__ __forceinline__ void init(int m_begin, int n_out, int n0, int kk0, int kd, int c_in,
-                                       int pad) {
+  __device__ __forceinline__ void operator()(float* smem, int slot) {
     const int lane = threadIdx.x % 32;
-    step = kDepth * c_in;
-    gstep = kDepth * n_out;
-    kkb = kk0 + lane;
 #pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      kk_ok[q] = kkb + 32 * q < kd;
-      n_ok[q] = n0 + lane + 32 * q < n_out;
-    }
+    for (int p = 0; p < kPasses; ++p) {
+      const int row = threadIdx.x / 32 + T::kWarps * p;
+      const bool in = left[p] > 0;
+      if (vec_g) {
+        float* a = slot_a<T>(smem, slot) + row * T::kPitchA + 4 * lane;
 #pragma unroll
-    for (int r = 0; r < kGroups; ++r) {
-      m[r] = m_begin + 8 * r + threadIdx.x / 32;
-      const int b = m[r] / t_len;
-      t[r] = m[r] - b * t_len;
-      lrow[r] = (t[r] - pad) * c_in;
-      xoff[r] = b * tc + lrow[r];
-      goff[r] = m[r] * n_out + n0 + lane;
-    }
-  }
-
-  __device__ __forceinline__ void operator()(float* smem, int slot, int) {
-    float* a = slot_a(smem, slot) + threadIdx.x % 32;
-    float* bt = slot_b(smem, slot) + threadIdx.x % 32;
+        for (int q = 0; q < T::kRows / 128; ++q)
+          copy16(a + 128 * q, gp[p] + 128 * q, in && 128 * q < nl);
+      } else {
+        float* a = slot_a<T>(smem, slot) + row * T::kPitchA + lane;
 #pragma unroll
-    for (int r = 0; r < kGroups; ++r) {
-      const int k = 8 * r + threadIdx.x / 32;
-      const bool in_slice = m[r] < m_end;
-      const float* gp = g + goff[r];
-      const float* xp = x + (xoff[r] + kkb);
-      const int l = lrow[r] + kkb;
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        copy4(a + k * kPitch + 32 * q, gp + 32 * q, in_slice && n_ok[q]);
-        copy4(bt + k * kPitch + 32 * q, xp + 32 * q,
-              in_slice && kk_ok[q] &&
-                  static_cast<unsigned>(l + 32 * q) < static_cast<unsigned>(tc));
+        for (int q = 0; q < T::kRows / 32; ++q)
+          copy4(a + 32 * q, gp[p] + 32 * q, in && 32 * q < nl);
       }
-      m[r] += kDepth;
-      goff[r] += gstep;
-      t[r] += kDepth;
-      lrow[r] += step;
-      xoff[r] += step;
-      while (t[r] >= t_len) {  // into the next utterance
-        t[r] -= t_len;
-        lrow[r] -= tc;
+      if (vec_x) {
+        float* b = slot_b<T>(smem, slot) + row * T::kCols + 4 * lane;
+#pragma unroll
+        for (int q = 0; q < T::kCols / 128; ++q)
+          copy16(b + 128 * q, xp[p] + 128 * q,
+                 in && 128 * q < kl &&
+                     static_cast<unsigned>(u[p] + 128 * q) < static_cast<unsigned>(tc));
+      } else {
+        float* b = slot_b<T>(smem, slot) + row * T::kCols + lane;
+#pragma unroll
+        for (int q = 0; q < T::kCols / 32; ++q)
+          copy4(b + 32 * q, xp[p] + 32 * q,
+                in && 32 * q < kl &&
+                    static_cast<unsigned>(u[p] + 32 * q) < static_cast<unsigned>(tc));
+      }
+      gp[p] += gstep;
+      xp[p] += xstep;
+      left[p] -= kDepth;
+      t[p] += kDepth;
+      u[p] += xstep;
+      while (t[p] >= t_len) {  // into the next utterance
+        t[p] -= t_len;
+        u[p] -= tc;
       }
     }
   }
 };
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 conv_wgrad_kernel(const float* __restrict__ g, const float* __restrict__ x,
                   float* __restrict__ part, int m_total, int n_out, int t_len, int c_in, int kd,
-                  int pad, int chunk) {
+                  int pad, int chunk, int vec_g, int vec_x) {
   extern __shared__ __align__(16) float smem[];
-  const int kk0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile, s = blockIdx.z;
-  const int m_begin = s * chunk;
-  WgradLoad load;
-  load.g = g;
-  load.x = x;
+  const int kk0 = blockIdx.x * T::kCols, n0 = blockIdx.y * T::kRows, s = blockIdx.z;
+  const int m_begin = s * chunk, m_end = min(m_total, m_begin + chunk);
+  const int lane = threadIdx.x % 32;
+  const int gcol = vec_g ? 4 * lane : lane, xcol = vec_x ? 4 * lane : lane;
+  WgradLoad<T> load;
   load.t_len = t_len;
   load.tc = t_len * c_in;
-  load.m_end = min(m_total, m_begin + chunk);
-  load.init(m_begin, n_out, n0, kk0, kd, c_in, pad);
-  float acc[8][8];
+  load.gstep = kDepth * n_out;
+  load.xstep = kDepth * c_in;
+  load.nl = n_out - n0 - gcol;
+  load.kl = kd - kk0 - xcol;
+  load.vec_g = vec_g != 0;
+  load.vec_x = vec_x != 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int p = 0; p < WgradLoad<T>::kPasses; ++p) {
+    const int m = m_begin + threadIdx.x / 32 + T::kWarps * p;
+    load.gp[p] = g + (static_cast<long long>(m) * n_out + n0 + gcol);
+    load.xp[p] = x + (static_cast<long long>(m - pad) * c_in + kk0 + xcol);
+    load.left[p] = m_end - m;
+    load.t[p] = m % t_len;
+    load.u[p] = (load.t[p] - pad) * c_in + kk0 + xcol;
+  }
+  float acc[kTM][kTN];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const int rows = load.m_end - m_begin;
-  mainloop(smem, load, rows > 0 ? (rows + kDepth - 1) / kDepth : 0, acc);
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  const int rows = m_end - m_begin;
+  mainloop<T>(smem, load, rows > 0 ? (rows + kDepth - 1) / kDepth : 0, acc);
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float* p = part + static_cast<long long>(s) * n_out * kd;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int nn = n0 + sub(ty, i);
+  for (int i = 0; i < kTM; ++i) {
+    const int nn = n0 + acc_row<T>(i);
     if (nn >= n_out) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int kk = kk0 + sub(tx, j);
+    for (int j = 0; j < kTN; ++j) {
+      const int kk = kk0 + acc_col<T>(j);
       if (kk < kd) p[static_cast<long long>(nn) * kd + kk] = acc[i][j];
     }
   }
@@ -332,53 +423,82 @@ __global__ void conv_wgrad_sum_kernel(const float* __restrict__ part, float* __r
   dw[(static_cast<long long>(nn) * c_in + c) * k_w + k] = sum;
 }
 
+template <class T>
+int launch_fwd(const float* x, const float* w, const float* bias, float* out, int m_total, int n,
+               int npad, int t_len, int c_in, int kd, int kpad, int pad, int relu,
+               cudaStream_t stream) {
+  const cudaError_t set = cudaFuncSetAttribute(
+      conv_unfold_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid(npad / T::kCols, (m_total + T::kRows - 1) / T::kRows);
+  conv_unfold_kernel<T><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      x, w, bias, out, m_total, n, npad, t_len, c_in, kd, kpad, pad, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_wgrad(const float* g, const float* x, float* part, int m_total, int n_out, int t_len,
+                 int c_in, int kd, int pad, int splits, int chunk, cudaStream_t stream) {
+  const cudaError_t set = cudaFuncSetAttribute(
+      conv_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  // whole float4 rows, 16-byte aligned: a choice by the widths alone for
+  // the tensors the wrapper allocates
+  const int vec_g = n_out % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const int vec_x = c_in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid((kd + T::kCols - 1) / T::kCols, (n_out + T::kRows - 1) / T::kRows, splits);
+  conv_wgrad_kernel<T><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      g, x, part, m_total, n_out, t_len, c_in, kd, pad, chunk, vec_g, vec_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The kernels' shared memory is dynamic, allowed above 48 KB on the current
 // device before each launch.
 extern "C" {
 
-// The tiling the wrapper sizes its operands by: {rows and columns of a
-// block's tile, reduction depth of a stage, resident blocks an SM}.
+// The tilings, in the order the entry points' `tiling` argument names
+// them: out[0] = their count, then for each {rows and columns of a block's
+// tile, reduction depth of a stage, resident blocks an SM}.
 void conv_tiling(int* out) {
-  out[0] = kTile;
-  out[1] = kDepth;
-  out[2] = kMinBlocks;
+  const int tilings[2][4] = {{TilingA::kRows, TilingA::kCols, kDepth, TilingA::kMinBlocks},
+                             {TilingB::kRows, TilingB::kCols, kDepth, TilingB::kMinBlocks}};
+  out[0] = 2;
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 4; ++j) out[1 + 4 * i + j] = tilings[i][j];
 }
 
 // x: (B, T, Cin) as m_total = B T rows; w: (kpad, npad) panel; bias: (n,) or
 // null; out: (B, T, n).  kd = K Cin; kpad a multiple of the depth, npad of
-// the tile.
+// the tiling's columns; tiling: 0 or 1, as conv_tiling lists them.
 int conv_fwd_f32(const float* x, const float* w, const float* bias, float* out, int m_total,
                  int n, int npad, int t_len, int c_in, int kd, int kpad, int pad, int relu,
-                 void* stream) {
-  const cudaError_t set = cudaFuncSetAttribute(
-      conv_unfold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(npad / kTile, (m_total + kTile - 1) / kTile);
-  conv_unfold_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, out, m_total, n, npad, t_len, c_in, kd, kpad, pad, relu);
-  return static_cast<int>(cudaGetLastError());
+                 int tiling, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tiling == 0
+             ? launch_fwd<TilingA>(x, w, bias, out, m_total, n, npad, t_len, c_in, kd, kpad,
+                                   pad, relu, st)
+             : launch_fwd<TilingB>(x, w, bias, out, m_total, n, npad, t_len, c_in, kd, kpad,
+                                   pad, relu, st);
 }
 
 // g: (B, T, n_out); x: (B, T, Cin); part: (splits, n_out, k_w Cin) scratch;
-// dw: (n_out, Cin, k_w).  Slice s holds rows [s chunk, (s + 1) chunk).
+// dw: (n_out, Cin, k_w).  Slice s holds rows [s chunk, (s + 1) chunk), chunk
+// a multiple of the depth.
 int conv_wgrad_f32(const float* g, const float* x, float* part, float* dw, int m_total,
                    int n_out, int t_len, int c_in, int k_w, int pad, int splits, int chunk,
-                   void* stream) {
+                   int tiling, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t set = cudaFuncSetAttribute(
-      conv_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (set != cudaSuccess) return static_cast<int>(set);
   const int kd = k_w * c_in;
-  const dim3 grid((kd + kTile - 1) / kTile, (n_out + kTile - 1) / kTile, splits);
-  conv_wgrad_kernel<<<grid, kThreads, kSmemBytes, st>>>(g, x, part, m_total, n_out, t_len,
-                                                         c_in, kd, pad, chunk);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = tiling == 0 ? launch_wgrad<TilingA>(g, x, part, m_total, n_out, t_len, c_in,
+                                                      kd, pad, splits, chunk, st)
+                              : launch_wgrad<TilingB>(g, x, part, m_total, n_out, t_len, c_in,
+                                                      kd, pad, splits, chunk, st);
+  if (err != 0) return err;
   const long long size = static_cast<long long>(n_out) * kd;
-  conv_wgrad_sum_kernel<<<static_cast<unsigned>((size + kThreads - 1) / kThreads), kThreads, 0,
-                          st>>>(part, dw, splits, n_out, c_in, k_w);
+  conv_wgrad_sum_kernel<<<static_cast<unsigned>((size + 255) / 256), 256, 0, st>>>(
+      part, dw, splits, n_out, c_in, k_w);
   return static_cast<int>(cudaGetLastError());
 }
 
