@@ -3,7 +3,10 @@
 forced-alignment, per-lattice training, posterior-decoding, n-best/beam,
 streaming, acceptor-scoring and multi-GPU paths on the CUDA cards (one rank
 per card; every other phase on card 0), with the native host library, and
-check and time each hand-written kernel against its plain PyTorch version.
+check each hand-written kernel against its plain PyTorch version and each
+path against its float64 or log-domain reference.  It times nothing: the
+benchmark (``bench_h100/run.py``, with ``--trace 1`` for the per-layer
+breakdown) does.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit:
@@ -11,11 +14,13 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line; any failure raises, so the exit code
-is nonzero.  Each profile (PROFILES: device busy time, idle share, a warp
-route's kernels by device time) is one call taken in a new process of its
-own, ``python3 chip_smoke.py --profile NAME``, on inputs of the phase's
-shape, and taken again if it lacks one of the port's kernels the call
-launches:
+is nonzero.  Every launch count is read from the port's launch ledger,
+``ops/kernels/common.py::LAUNCHES`` (by kernel id, and by id and route or
+tiling).  Each profile (PROFILES: the port's kernels one call launches) is
+one call taken in a new process of its own, ``python3 chip_smoke.py
+--profile NAME``, on inputs of the phase's shape, and taken again if it
+does not show each kernel it names exactly once; the phase fails if its
+last try does not either:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels from ``torch_asg_tpu_torch/ops/kernels/csrc``,
      one process per source, all at once; the fp32 instances of the warp
@@ -23,87 +28,79 @@ launches:
      must not spill (``-Xptxas -v``);
   3. kernels: each kernel against its plain version on the card, at the
      serving and training shape B=64, T=1000, N=30, S=50 with ragged
-     lengths, plus small fp64, degenerate-length and wide-label cases; times
-     are medians of CUDA-event timings.  K1, K1 with stores and K2 run on
-     each route that takes the case's width (the warp route up to 128
-     labels and slots, at its width edges in fp32 and fp64; the block route
-     in every case), and both routes are timed at the serving and training
-     shape, with the microseconds per serial step; one warp-route K2 call
-     is profiled by kernel (profile ``k2_warp``).  K2 must give the same
-     bits twice on each route.
+     lengths, plus small fp64, degenerate-length and wide-label cases.  K1,
+     K1 with stores and K2 run on each route that takes the case's width
+     (the warp route up to 128 labels and slots, at its width edges in fp32
+     and fp64; the block route in every case); K2 must give the same bits
+     twice on each route, and one warp-route K2 call must run its three
+     kernels (profile ``k2_warp``).
      K9 (the matmul tier's dual-stream kernel) at the wordpiece shape T=100,
      B=8, N=10,000 (fp32, ragged lengths) and at small fp64 shapes; twice
      with the same bits; and against the two matmul-tier scans, the
-     formulation it replaces, which are timed beside it.  K10 and K11
-     bit-identical to their plain versions, each on each route that takes
-     the width (also at the warp route's width edges), both routes timed,
-     one warp-route call of each profiled by kernel (``k10_warp``,
-     ``k11_warp``).  K12 and K13 (forced alignment) bit-identical to their
-     plain versions at the serving shape, at S=512, on ties, on degenerate
-     lengths and at fp64, each on each route that takes the width (also at
-     the warp route's width edges), both routes timed, one warp-route call
-     of each profiled (``k12_warp``, ``k13_warp``).  K11 and K13 also on
-     rows drawn at random, inside their domain and outside it, with final
-     labels and end slots outside [0, width) and input lengths 0, 1, T - 1,
-     T and T + 1 (``check_backtrace``).  K3-K8 (the per-lattice tier) at the
-     training shape, at small fp64 shapes, on degenerate lengths, with -inf
-     transitions, with E in and out of shared memory and at the width cap
-     N = S = 512; each on each route that takes the width, also at the warp
-     routes' width edges; K6's warp route also against the sequential
-     recursion, and at each block size it is built for (fp32 and fp64,
-     timed); K5 and K8 twice with the same bits on each route; one warp-
-     route call of each of K3-K8 profiled by kernel (``lattice_warp``);
+     formulation it replaces.  K10 and K11 bit-identical to their plain
+     versions, each on each route that takes the width (also at the warp
+     route's width edges), one warp-route call of each profiled
+     (``k10_warp``, ``k11_warp``).  K12 and K13 (forced alignment)
+     bit-identical to their plain versions at the serving shape, at S=512,
+     on ties, on degenerate lengths and at fp64, each on each route that
+     takes the width (also at the warp route's width edges), one
+     warp-route call of each profiled (``k12_warp``, ``k13_warp``).  K11
+     and K13 also on rows drawn at random, inside their domain and outside
+     it, with final labels and end slots outside [0, width) and input
+     lengths 0, 1, T - 1, T and T + 1 (``check_backtrace``).  K3-K8 (the
+     per-lattice tier) at the training shape, at small fp64 shapes, on
+     degenerate lengths, with -inf transitions, with E in and out of shared
+     memory and at the width cap N = S = 512; each on each route that takes
+     the width, also at the warp routes' width edges; K6's warp route also
+     against the sequential recursion; K5 and K8 twice with the same bits on
+     each route; one warp-route call of each of K3-K8 profiled
+     (``lattice_warp``);
      conv: the stride-1 blocks' hand-written channels-last convolution
      (``csrc/conv.cu``) through its autograd function, forward with bias and
      ReLU, input, weight and bias gradients, each against float64
      ``F.conv1d`` beside cuDNN's float32 error (``check_conv``: the letter
      cells' 250 -> 250 and 250 -> 2000 blocks, the default widths, B = 1,
-     T' = 1, 6, 7 and 1001), its kernels built without spills, and each pass
-     timed alone against cuDNN on the channels-first and the channels-last
-     layout at the cells' and the default widths; then the bias-only
-     epilogue (``conv_bias``, no ReLU) at even and odd widths: the gated
-     ConvNet's 200 -> 440 (K = 14), 426 -> 936 (K = 22) and 826 -> 1816
-     (K = 29) layers at B = 16, T = 2000, timed alike, and T below and at K;
+     T' = 1, 6, 7 and 1001), its kernels built without spills; then the
+     bias-only epilogue (``conv_bias``, no ReLU) at even and odd widths: the
+     gated ConvNet's 200 -> 440 (K = 14), 242 -> 532 (K = 16), 426 -> 936
+     (K = 22) and 826 -> 1816 (K = 29) layers at B = 16, T = 2000, and T
+     below and at K; every pass held against float64 on every tiling
+     (``check_conv_tilings``);
   4. grads: the fused tier's gradients (K1 with stores -> K2 ->
      scatter_to_full) and the per-lattice tier's (K3, K6, K7 -> K5, K8 ->
      scatter_to_full) against the log-domain scan tier's, fp64, at the
-     training shape;
+     training shape, each kernel launched once;
      native_runtime: g++ builds the native host library
      (``torch_asg_tpu_torch/runtime/csrc/asg_host.cpp``), which must load;
      every host call below passes ``use_native=True``;
   5. serve: the full-width Wav2Letter (random weights from a seed) answers 3
      requests of 64 utterances after one warm-up request: encoder ->
      viterbi_decode -> collapse_path (native) -> asg_scores and asg_loss.
-     The first request's native hypotheses must equal the NumPy arm's, and
-     its stage split is taken with each arm of collapse_path.  Every
-     serving kernel's launch count must rise in those 3 requests, and every
-     K1, K10 and K11 launch must take the route 'auto' takes; the outputs
-     are checked against the log-domain oracle tiers, one more request,
-     synchronised after each stage, shows where its time goes, and one
-     asg_scores call is timed and profiled alone, and one viterbi_decode
-     call profiled alone (device busy time, idle share);
-  6. train: the full-width Wav2Letter takes one warm-up step and 5 timed
-     AdamW steps on one fixed batch of 64 utterances, prepared as
+     The first request's native hypotheses must equal the NumPy arm's.
+     Every serving kernel must launch in those 3 requests, every K1, K10
+     and K11 launch must take the route 'auto' takes, and every stride-1
+     block must run the hand-written convolution; the outputs are checked
+     against the log-domain oracle tiers, and one asg_scores call and one
+     viterbi_decode call are profiled alone (``serve_scores``,
+     ``serve_decode``);
+  6. train: the full-width Wav2Letter takes one warm-up step and 5 AdamW
+     steps on one fixed batch of 64 utterances, prepared as
      ``examples/train_asg.py`` prepares them (cmvn -> pack_frames ->
-     encode_targets, native).  Host prep is timed with each arm, whose
-     batches must agree (features within CMVN_TOL, the rest exactly).  Each
-     step must launch K1 with stores and K2 once,
-     each on the route 'auto' takes, and the score-only K1 never; losses and
-     gradients must be finite, the first step's gradients must agree with
-     the scan tier's, and the loss must fall.  One more step, synchronised
-     after each stage, and the criterion's forward+backward alone (timed and
-     profiled) show where the time goes.  Then (``train_prefetch``) the
-     model trains on PREFETCH_BATCHES distinct full-width batches of one
-     shape three times from one saved model and optimizer state: serially
-     (prepare, copy, step), through ``device_prefetch(depth=2)`` (prep and
-     copy on a worker thread and a side stream), and on the serial loop's
-     batches already on the card (the step's own pace); each prefetched
-     batch must equal the serial loop's, tensor for tensor, and every loss
-     must be finite; each loop's steps per second, the worker's prep time
-     per batch, and the prefetched loop profiled (``train_prefetch``: busy
-     time, idle share);
+     encode_targets, native); the NumPy arm's batch must agree (features
+     within CMVN_TOL, the rest exactly).  Each step must launch K1 with
+     stores and K2 once, each on the route 'auto' takes, the score-only K1
+     never, and the convolution's three passes in every stride-1 block;
+     losses and gradients must be finite, the first step's gradients must
+     agree with the scan tier's, and the loss must fall; the criterion's
+     forward+backward is profiled (``train_criterion``).  Then
+     (``train_prefetch``) the model trains on PREFETCH_BATCHES distinct
+     full-width batches of one shape twice from one saved model and
+     optimizer state: serially (prepare, copy, step) and through
+     ``device_prefetch(depth=2)`` (prep and copy on a worker thread and a
+     side stream); each prefetched batch must equal the serial loop's,
+     tensor for tensor, and every loss must be finite;
   7. train_wordpiece: the full-width Wav2Letter with a 10,000-wordpiece head
-     takes one warm-up step and 5 timed steps on a batch of 8 utterances
+     takes one warm-up step and 5 steps on a batch of 8 utterances
      (150-200 feature frames, 5-10 wordpiece targets), so 'auto' runs the
      matmul tier.  Each step must launch K9 once and K1, K1s and K2 never; a
      forward-only asg_scores call must launch no K9; the first step's
@@ -115,16 +112,15 @@ launches:
      spans must partition each utterance, and an empty transcript (one
      element a request) must score -inf;
   9. train_pallas: the full-width letter model takes one warm-up step and 5
-     timed steps of make_train_step(..., impl='pallas') on ``train``'s
-     batch.  Each step must launch K3, K5, K6, K7 and K8 once and K4, K1,
-     K1s, K2 and K9 never, K3 and K5-K8 on the route 'auto' takes; the
-     first step's gradients must agree with the scan tier's (fp32 with K6 on
-     its block route, fp64 on the routes 'auto' takes; fp32 on those routes
-     finite, with the entries outside the bound counted) and the loss must
-     fall; a score-only asg_scores call must launch K4 and K7 alone,
-     each on the route 'auto' takes, and is timed (beside the fused tier's
-     score-only call) and profiled (``pallas_scores``); the criterion alone
-     is timed and profiled (``pallas_criterion``);
+     steps of make_train_step(..., impl='pallas') on ``train``'s batch.
+     Each step must launch K3, K5, K6, K7 and K8 once and K4, K1, K1s, K2
+     and K9 never, K3 and K5-K8 on the route 'auto' takes; the first step's
+     gradients must agree with the scan tier's (fp64 on the routes 'auto'
+     takes; fp32 on those routes finite, with the entries outside the bound
+     counted) and the loss must fall; a score-only asg_scores call must
+     launch K4 and K7 alone, each on the route 'auto' takes, and is
+     profiled (``pallas_scores``), as is the criterion alone
+     (``pallas_criterion``);
  10. serve_posterior: the full-width letter model answers 3 requests of 64
      utterances after a warm-up: encoder -> posterior_decode ('auto', so the
      per-lattice tier: K3 and K5 once a request, K4 never) ->
@@ -142,8 +138,7 @@ launches:
      only); rank 0 of viterbi_nbest must equal viterbi_decode (K10 + K11),
      beam_decode at a full beam its scores, rank 0 of beam_nbest
      beam_decode; scores descend along the ranks, and each path rescored on
-     the host gives its score within the fp32 accumulation bound.  One
-     viterbi_nbest call is profiled (``serve_nbest``);
+     the host gives its score within the fp32 accumulation bound;
  12. serve_stream: the full-width letter model encodes 64 utterances once and
      the emissions reach the streaming API in ragged chunks (each stream's
      chunk of 50-150 frames drawn per chunk, so streams advance at different
@@ -156,58 +151,56 @@ launches:
      viterbi_nbest: paths, positions and labels equal); a float64 stream the
      float64 scan tier's scores within rtol 1e-9, and its paths the same
      stream's on the CPU; the streaming updates launch no kernel of the
-     port.  Timed: each surface's update per chunk, the whole-stream request
-     (first chunk to hypotheses on the host), one chunk profiled
-     (``stream_chunk``);
+     port; a whole-stream request gives every element a hypothesis;
  13. wfsa: generic acceptors on the card at B=64, T=1000, N=30: the full
      automaton against fcc_score and viterbi_decode (K10 + K11), chains
      against fac_score, fp32 and fp64; a looped 200-word lexicon scored,
      decoded and streamed (equal to the one-shot calls), its posteriors at
      B=8 with their peak memory; wfsa_score, wfsa_posteriors and
-     wfsa_viterbi twice each with the same bits (no atomics);
+     wfsa_viterbi twice each with the same bits (no atomics); the acceptor
+     calls launch no kernel of the port;
  14. parallel: one rank per card (world = the card count, NCCL, rank r on
      cuda:r; ``parallel.launch.spawn_ranks``, which fails the run on any
      rank's error, exit or timeout).  Each rank: one data-parallel train
      step of the full-width letter model (B=64, the ``train`` batch) through
      ``asg_loss_dp`` ('auto': K1 with stores, K2), its loss and every
      gradient against the single-process ``make_train_step`` within the
-     ``train`` bounds, both step times; the tensor-parallel step
-     (``make_train_step`` on a ``shard_train_state`` state, conv output
-     channels over 'model', the batch over 'data'; a (1, 1) mesh on one
-     card, (world/2, 2) on an even count) against a fresh single-process
-     step, its loss within 1e-5 relative and every gradient and stepped
-     parameter within the ``train`` bounds, with its K1-with-stores and K2
-     launches, its time and its peak memory; ``viterbi_decode_dp`` (K10, K11),
-     ``beam_decode_dp`` (beam 16) and ``viterbi_align_dp`` (K12, K13, one
-     empty transcript) bit for bit against the single-process calls;
-     ``asg_loss_vp`` and ``fcc_score_vp`` at the wordpiece width (T=100,
-     B=8, N=10,000, S=10) against ``asg_loss`` ('auto': the matmul tier, K9)
-     in fp32 within the ``train_wordpiece`` bounds and against the scan tier
-     in fp64 within 1e-9, with the call time and peak memory;
-     ``asg_loss_seq`` (B=64, T=1000, N=30, S=50, fp64) against the scan tier
-     within 1e-9; and on rank 0 the chunk transfer matrices of 4 time
-     chunks folded in one process, against the scan tier.  Every rank's
-     K1-with-stores, K2 and K10-K13 counts must rise, and its tp step's
-     K1-with-stores and K2 counts.  Then, in this
-     process: checkpoint resume of the letter train state (saved after
-     step 2, restored into a fresh state: step 3 bit-identical), the three
-     ``examples/*_torch.py`` at their defaults, and one serving request
-     timed by ``utils.profiling.time_fn_chained`` beside its CUDA-event
-     median;
- 15. the kernel table (every kernel launched on its path), the nvidia-smi
-     line, and last the result line.
+     ``train`` bounds; the tensor-parallel step (``make_train_step`` on a
+     ``shard_train_state`` state, conv output channels over 'model', the
+     batch over 'data'; a (1, 1) mesh on one card, (world/2, 2) on an even
+     count) against a fresh single-process step, its loss within 1e-5
+     relative and every gradient and stepped parameter within the ``train``
+     bounds, with its K1-with-stores and K2 launches and its peak memory;
+     ``viterbi_decode_dp`` (K10, K11), ``beam_decode_dp`` (beam 16) and
+     ``viterbi_align_dp`` (K12, K13, one empty transcript) bit for bit
+     against the single-process calls; ``asg_loss_vp`` and
+     ``fcc_score_vp`` at the wordpiece width (T=100, B=8, N=10,000, S=10)
+     against ``asg_loss`` ('auto': the matmul tier, K9) in fp32 within the
+     ``train_wordpiece`` bounds and against the scan tier in fp64 within
+     1e-9, with the peak memory; ``asg_loss_seq`` (B=64, T=1000, N=30,
+     S=50, fp64) against the scan tier within 1e-9; and on rank 0 the chunk
+     transfer matrices of 4 time chunks folded in one process, against the
+     scan tier.  Every rank must launch K1 with stores, K2, the stride-1
+     convolution's three passes and K10-K13, its tp step K1 with stores and
+     K2 and no convolution kernel (its sharded blocks keep ``F.conv1d``).
+     Then, in this process: checkpoint resume of the letter train state
+     (saved after step 2, restored into a fresh state: step 3
+     bit-identical) and the three ``examples/*_torch.py`` at their
+     defaults;
+ 15. the kernel table (each kernel's launches on its path and its largest
+     error against its plain version), the nvidia-smi line, and last the
+     result line.
 
 Precision: float32 matrix products and convolutions run in full float32
 (TF32 off for both cuBLAS and cuDNN).  Exits nonzero, printing no result,
 when no CUDA device is available.
 """
 
+import collections
 import copy
 import json
-import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -217,9 +210,6 @@ SEED = 20261016
 B, T, N, S = 64, 1000, 30, 50
 ALPHABET, MAX_REPS = 28, 2  # 28 letters + 2 repeat symbols = N labels
 FEATURES = 64
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-RUNS = 20
 
 
 def emit(obj):
@@ -231,28 +221,14 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def time_ms(fn, runs=RUNS, warmup=2):
-    """Median wall time of ``fn`` on the card over ``runs`` calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def launched(*kernels, routes=False):
+    """The launch ledger's counts (``common.LAUNCHES``) of ``kernels`` (ids
+    such as ``K1s`` or ``conv_fwd``), or with ``routes`` of each of their
+    routes (``<id>.<route>``), 0 where none launched."""
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES, ROUTES
 
-
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    float32 operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    keys = [f"{k}.{r}" for k in kernels for r in ROUTES] if routes else kernels
+    return {k: LAUNCHES[k] for k in keys}
 
 
 def lattice_case(rng, dev, dtype, b, t, n, s, li_range, lo_range, integer=False):
@@ -305,25 +281,11 @@ K1_WIDTH_CASES = tuple(
                  (64, 16), (100, 64)))
 
 
-def time_routes(wrapper, args, serial_steps, auto):
-    """A two-route kernel's wrapper's times at the serving and training
-    shape, both routes in one run (``ms_warp``, ``ms_block``; ``ms`` is the
-    route 'auto' takes, ``auto``), and µs per serial step."""
-    out = {"route_auto": auto}
-    for route in ("warp", "block"):
-        out[f"ms_{route}"] = time_ms(lambda: wrapper(*args, route=route))
-    out["ms"] = out[f"ms_{auto}"]
-    out["us_per_step"] = out["ms"] / serial_steps * 1e3
-    out["us_per_step_by_route"] = {r: out[f"ms_{r}"] / serial_steps * 1e3
-                                   for r in ("warp", "block")}
-    return out
-
-
 def check_k1(rng, dev):
     """K1 against its plain version on each route that takes the case's
-    width: fp32 at the serving shape (both routes timed); fp64 at a small
-    shape and on degenerate lengths (L_in = 1, L_out = 1, L_out > L_in,
-    L_in outside [1, T]); the warp route's width edges (K1_WIDTH_CASES); on
+    width: fp32 at the serving shape; fp64 at a small shape and on
+    degenerate lengths (L_in = 1, L_out = 1, L_out > L_in, L_in outside
+    [1, T]); the warp route's width edges (K1_WIDTH_CASES); on
     the block route fp32 with E in opted-in shared memory (N=200), with E in
     global memory (N=300), and at the widest widths the front-end takes."""
     from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
@@ -364,80 +326,33 @@ def check_k1(rng, dev):
                 check(bool(torch.isfinite(got[0]).all()),
                       f"K1 {route} {name}: non-finite full scores")
             results[name][route] = max(max_err(g, w) for g, w in zip(got, want))
-    li = args[5]  # the serving case's
-    lsum = int(li.sum())
-    nbytes = (lsum * (N + S) + N * N + 2 * B * S) * 4 + 2 * B * 4 + 2 * B * 4
-    ops = (lsum - B) * (2 * N * N + 4 * N + 8 * S)
-    bound_ms, bound_by = bound(nbytes, ops)
-    serial_steps = int(li.max()) - 1
-    times = time_routes(ak._fwd_scores_kernel, args, serial_steps, width_route(max(N, S)))
     return {
-        "name": "asg_fwd_scores (K1, score-only)",
-        "max_abs_err": results["fp32_serving"][times["route_auto"]],
+        "name": "asg_fwd_scores (K1, score-only)", "id": "K1",
+        "max_abs_err": results["fp32_serving"][width_route(max(N, S))],
         "max_abs_err_by_case": results,
         "tolerance": "fp32 rtol 1e-4 atol 1e-3 (1000 serial steps, other sum order); fp64 1e-10",
-        **times,
-        "plain_ms": time_ms(lambda: ak._fwd_scores_plain(*args)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "serial_steps": serial_steps,
     }
 
 
-def route_launches(reset=False):
-    """K1's (both variants), K2's, K10's and K11's launches by route,
-    {"<wrapper>.<route>": n}; with ``reset`` the counts are set to 0
-    first."""
-    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
-    from torch_asg_tpu_torch.ops.kernels.common import ROUTES
-    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (viterbi_backtrace_pallas,
-                                                                 viterbi_forward_pallas)
-
-    out = {}
-    for wrapper in (ak._fwd_scores_kernel, ak._fwd_store_kernel, ak._bwd_kernel,
-                    viterbi_forward_pallas, viterbi_backtrace_pallas):
-        for route in ROUTES:
-            if reset:
-                setattr(wrapper, f"launches_{route}", 0)
-            out[f"{wrapper.__name__}.{route}"] = getattr(wrapper, f"launches_{route}")
-    return out
-
-
 def check_auto_route(scores, store, bwd, vit=0):
-    """Since the last reset, the score-only K1 launched ``scores`` times, K1
-    with stores ``store`` times, K2 ``bwd`` times and K10 and K11 ``vit``
-    times each (one decode), each through the route 'auto' takes at N, S
-    (K10, K11: at N)."""
+    """Since the launch ledger was cleared, the score-only K1 launched
+    ``scores`` times, K1 with stores ``store`` times, K2 ``bwd`` times and
+    K10 and K11 ``vit`` times each (one decode), each through the route
+    'auto' takes at N, S (K10, K11: at N)."""
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
-    got = route_launches()
+    got = launched("K1", "K1s", "K2", "K10", "K11", routes=True)
     route, vit_route = width_route(max(N, S)), width_route(N)
     want = dict.fromkeys(got, 0)
-    want.update({f"_fwd_scores_kernel.{route}": scores, f"_fwd_store_kernel.{route}": store,
-                 f"_bwd_kernel.{route}": bwd, f"viterbi_forward_pallas.{vit_route}": vit,
-                 f"viterbi_backtrace_pallas.{vit_route}": vit})
+    want.update({f"K1.{route}": scores, f"K1s.{route}": store, f"K2.{route}": bwd,
+                 f"K10.{vit_route}": vit, f"K11.{vit_route}": vit})
     check(got == want,
           f"every K1, K2, K10 and K11 launch must take the route 'auto' takes: {got}")
     return got
 
 
-def conv_launches(reset=False):
-    """The stride-1 blocks' hand-written convolution launches by pass and by
-    pass and tiling, {"conv_fwd": n, "conv_fwd.<tiling>": n, ...}; with
-    ``reset`` every count is set to 0 first."""
-    from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
-
-    out = {}
-    for w in (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad):
-        if reset:
-            for name in [k for k in vars(w) if k.startswith("launches")]:
-                setattr(w, name, 0)
-        out[w.__name__] = w.launches
-        out.update({f"{w.__name__}.{t}": n for t, n in ck.tiling_launches(w).items()})
-    return out
-
-
 def check_conv_launches(model, calls, backward):
-    """Since the last reset, each stride-1 block of ``model`` (every block but
+    """Since the launch ledger was cleared, each stride-1 block of ``model`` (every block but
     the strided front end) ran its forward ``calls`` times on the
     hand-written convolution, and, with ``backward``, its input and weight
     gradients as often (the mid stack's first block too: the front end's
@@ -445,10 +360,12 @@ def check_conv_launches(model, calls, backward):
     up to its launches.  A block that fell back to ``F.conv1d`` launches
     none.  Returns the launches a call."""
     blocks = len(model.blocks) - 1
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
+
     want = {"conv_fwd": calls * blocks, "conv_dgrad": calls * blocks * backward,
             "conv_wgrad": calls * blocks * backward}
-    got = conv_launches()
-    totals = {k: v for k, v in got.items() if "." not in k}
+    totals = launched(*want)
+    got = {**totals, **{k: v for k, v in LAUNCHES.items() if k.split(".")[0] in want}}
     check(totals == want,
           f"every stride-1 block must run the hand-written convolution: {totals}, want {want}")
     for name, n in totals.items():
@@ -527,9 +444,9 @@ def check_viterbi(rng, dev):
     degenerate lengths, with the transition in global memory (N=300), at
     the kernel's label cap, and at the warp route's width edges
     (VITERBI_WIDTH_CASES); K11 also on its own cases (``check_backtrace``);
-    each on each route that takes the case's width.  Both routes of each
-    timed at the serving shape, and their warp routes' kernels by device
-    time (the profiles ``k10_warp`` and ``k11_warp``)."""
+    each on each route that takes the case's width.  Their warp routes
+    each run their kernels once in a profiled call (the profiles
+    ``k10_warp`` and ``k11_warp``)."""
     from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
@@ -543,7 +460,7 @@ def check_viterbi(rng, dev):
     )
     width_rng = np.random.default_rng([SEED, 10])  # keeps ``rng``'s stream as it was
     widths = {c[0] for c in VITERBI_WIDTH_CASES}
-    serving, errs, routes_run = None, {}, {}
+    errs, routes_run = {}, {}
     for name, dtype, (b, t, n), li_r, integer in cases + VITERBI_WIDTH_CASES:
         case_rng = width_rng if name in widths else rng
         trans, inputs, _, li, _ = lattice_case(case_rng, dev, dtype, b, t, n, 1, li_r, [1] * b,
@@ -566,44 +483,18 @@ def check_viterbi(rng, dev):
             if route == width_route(n):
                 path_auto = path
         if name == "fp32_serving":
-            serving = (trans, inputs, li, final, bp_ref)
             same = d_auto == d_ref  # also where both are -inf
             errs["k10"] = float(torch.where(same, 0.0, (d_auto - d_ref).abs()).max())
             errs["k11"] = float((path_auto - path_ref).abs().max())
     k11_routes = {**routes_run, **check_backtrace("K11", np.random.default_rng([SEED, 13]), dev)}
-    trans, inputs, li, final, bp = serving
-    lsum = int(li.sum())
-    fwd_bytes = (lsum * N + N * N + B + T * B * N + B * N) * 4
-    fwd_ops = 2 * T * B * N * N
-    bt_bytes = (lsum - B + 2 * B + T * B) * 4
-    k10_bound, k10_by = bound(fwd_bytes, fwd_ops)
-    k11_bound, k11_by = bound(bt_bytes, 0)
-    exact = "bit-identical (max-plus is exact)"
     split = profile_call("k10_warp")
     check(split["complete"], f"K10's warp route must run its two kernels: {split}")
     bt_split = profile_call("k11_warp")
     check(bt_split["complete"], f"K11's warp route must run its kernel: {bt_split}")
-    serial_steps = int(li.max()) - 1
-    k10 = {
-        "name": "viterbi_forward (K10)", "max_abs_err": errs["k10"], "tolerance": exact,
-        "routes_by_case": routes_run,
-        **time_routes(vk.viterbi_forward_pallas, (trans, inputs, li), serial_steps,
-                      width_route(N)),
-        "warp_device_ms": {p: split["phase_ms"][p] for p in K10_WARP_PHASES},
-        "plain_ms": time_ms(lambda: vk.viterbi_forward_plain(trans, inputs, li)),
-        "bound_ms": k10_bound, "bound_by": k10_by, "serial_steps": serial_steps,
-    }
-    k11 = {
-        "name": "viterbi_backtrace (K11)", "max_abs_err": errs["k11"],
-        "tolerance": "bit-identical (integer lookups)",
-        "routes_by_case": k11_routes,
-        # the warp route's chain: frames min(L_in, T) - 2 .. 0, K10's step count
-        **time_routes(vk.viterbi_backtrace_pallas, (final, bp, li), serial_steps,
-                      width_route(N)),
-        "warp_device_ms": {p: bt_split["phase_ms"][p] for p in K11_WARP_PHASES},
-        "plain_ms": time_ms(lambda: vk.viterbi_backtrace_plain(final, bp, li)),
-        "bound_ms": k11_bound, "bound_by": k11_by, "serial_steps": serial_steps,
-    }
+    k10 = {"name": "viterbi_forward (K10)", "id": "K10", "max_abs_err": errs["k10"],
+           "tolerance": "bit-identical (max-plus is exact)", "routes_by_case": routes_run}
+    k11 = {"name": "viterbi_backtrace (K11)", "id": "K11", "max_abs_err": errs["k11"],
+           "tolerance": "bit-identical (integer lookups)", "routes_by_case": k11_routes}
     return k10, k11
 
 
@@ -710,10 +601,9 @@ def check_k1s_k2(rng, dev):
     """K1 with stores and K2, each on every route that takes the width,
     against its plain version on the card in every case of TRAIN_CASES and
     at the warp routes' width edges (K1_WIDTH_CASES).  K2 runs on the plain
-    version's residuals, so both K2 versions see the same inputs.  Both
-    routes of each timed at the training shape, and one warp-route K2 call
-    profiled by kernel."""
-    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
+    version's residuals, so both K2 versions see the same inputs.  One
+    warp-route K2 call is profiled: it must run the route's three
+    kernels."""
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     errs1, errs2 = {}, {}
@@ -731,54 +621,26 @@ def check_k1s_k2(rng, dev):
         errs2[name] = check_k2(k2_args(args, want, b, dtype, edge_grad_rng), name)
     for name, dtype, (b, t, n, s), li_r, lo_r in TRAIN_CASES:
         args = k1_args(lattice_case(rng, dev, dtype, b, t, n, s, li_r, lo_r))
-        li = args[5]
         errs1[name], want = check_k1s(args, name)
         bargs = k2_args(args, want, b, dtype, rng)
         errs2[name] = check_k2(bargs, name)
-    # the training-shape case's inputs: timing and bounds
-    lsum = int(li.sum())
-    w = 4  # float32 bytes
-    k1s_bytes = ((lsum * (N + S) + N * N + 2 * B * S) * w + 2 * B * 4 + 2 * B * w
-                 + T * B * (N + S) * w)
-    k1s_ops = (lsum - B) * (2 * N * N + 4 * N + 8 * S)
-    # K2's bound counts the TPU kernel's inputs and outputs alone, each read
-    # or written once, so that it reads the same whatever implements it:
-    # I, A, PB, QB over the frames t < L_in; E and E^T; self and next;
-    # L_in; g_full and g_fac; gI and gA (all T rows); dT; gself and gnext.
-    # Operations: the alpha contraction and the rank-one update (4 N^2 a
-    # frame) and the softmaxes and edge fractions; dT's product with E.
-    k2_bytes = (lsum * 2 * (N + S) * w + 2 * N * N * w + 2 * B * S * w + B * 4 + 2 * B * w
-                + T * B * (N + S) * w + N * N * w + 2 * B * S * w)
-    k2_ops = lsum * (4 * N * N + 16 * N + 24 * S) + N * N
-    k1s_bound, k1s_by = bound(k1s_bytes, k1s_ops)
-    k2_bound, k2_by = bound(k2_bytes, k2_ops)
     tol1 = "; ".join(f"{k} rtol {r:g} atol {a:g}" for k, (r, a) in K1S_TOL[torch.float32].items())
-    serial_steps = int(li.max()) - 1
     auto = width_route(max(N, S))
-    times = time_routes(ak._fwd_store_kernel, args, serial_steps, auto)
-    k2_times = time_routes(ak._bwd_kernel, bargs, int(li.max()), auto)
     k2_profile = profile_call("k2_warp")
-    check(all(v > 0 for v in k2_profile["phase_ms"].values()),
-          f"K2's warp route must run its three kernels: {k2_profile['phase_ms']}")
+    check(all(v > 0 for v in k2_profile["phase_launches"].values()),
+          f"K2's warp route must run its three kernels: {k2_profile['phase_launches']}")
     k1s = {
-        "name": "asg_fwd_store (K1 with stores)",
-        "max_abs_err": errs1["fp32_training"][times["route_auto"]],
-        "max_abs_err_by_case": errs1,
+        "name": "asg_fwd_store (K1 with stores)", "id": "K1s",
+        "max_abs_err": errs1["fp32_training"][auto], "max_abs_err_by_case": errs1,
         "tolerance": f"fp32 {tol1} (1000 serial steps, other sum order); fp64 1e-10",
-        **times,
-        "plain_ms": time_ms(lambda: ak._fwd_store_plain(*args), runs=5, warmup=1),
-        "bound_ms": k1s_bound, "bound_by": k1s_by, "serial_steps": serial_steps,
     }
     k2 = {
-        "name": "asg_bwd (K2)", "max_abs_err": errs2["fp32_training"][k2_times["route_auto"]],
+        "name": "asg_bwd (K2)", "id": "K2", "max_abs_err": errs2["fp32_training"][auto],
         "max_abs_err_by_case": errs2,
         "tolerance": ("fp32 rtol 1e-3, atol 1e-5 x max|output| per output (1000 serial "
                       "steps, other sum order); fp64 rtol 1e-9, atol 1e-12 x max; two "
                       "runs bit-identical on each route"),
-        **k2_times,
-        "warp_profile": k2_profile, "warp_device_ms": k2_profile["phase_ms"],
-        "plain_ms": time_ms(lambda: ak._bwd_plain(*bargs), runs=5, warmup=1),
-        "bound_ms": k2_bound, "bound_by": k2_by, "serial_steps": int(li.max()),
+        "warp_profile": k2_profile,
     }
     return k1s, k2
 
@@ -846,36 +708,19 @@ def check_k9(rng, dev):
     again = bk.fcc_dual_streams(*args)
     check(all(torch.equal(g, a) for g, a in zip(got, again)), "K9: two runs differ")
     trans, xm, li = args
-
-    def scans():
-        return fcc._alpha_scan_mm(trans, xm), fcc._beta_scan_mm(trans, xm, li)
-
-    ref = scans()
+    ref = fcc._alpha_scan_mm(trans, xm), fcc._beta_scan_mm(trans, xm, li)
     for label, g, w in zip(("alpha", "beta"), got, ref):
         torch.testing.assert_close(g, w, rtol=K9_TOL[f32][0], atol=K9_TOL[f32][1],
                                    msg=lambda m: f"K9 vs the scans {label}: {m}")
     err_scans = max(max_err(g, w) for g, w in zip(got, ref))
-    w = 4  # float32 bytes
-    io_bytes = (WP_T * WP_B * WP_N + WP_B) * w + 2 * WP_T * WP_B * WP_N * w
-    ops = (WP_T - 1) * 4 * WP_B * WP_N * WP_N
-    bound_ms, bound_by = bound(io_bytes + WP_N * WP_N * w, ops)
-    # E read once per paired step: it cannot stay on the chip (N^2 = 400 MB)
-    e_per_step_ms, _ = bound(io_bytes + WP_T * WP_B * WP_N * w
-                             + (WP_T - 1) * WP_N * WP_N * w, ops)
     rtol, atol = K9_TOL[f32]
     return {
-        "name": "fcc_dual_streams (K9)", "max_abs_err": errs["fp32_wordpiece"],
+        "name": "fcc_dual_streams (K9)", "id": "K9", "max_abs_err": errs["fp32_wordpiece"],
         "max_abs_err_by_case": errs, "max_abs_err_vs_matmul_scans": err_scans,
         "tolerance": (f"fp32 rtol {rtol:g} atol {atol:g} (99 paired steps of 10,000-term "
                       "sums in another order), also against the two scans; fp64 1e-10; "
                       "two runs bit-identical"),
         "shape": [WP_T, WP_B, WP_N],
-        "ms": time_ms(lambda: bk.fcc_dual_streams(trans, xm, li)),
-        "plain_ms": time_ms(lambda: bk.fcc_dual_streams_plain(trans, xm, li), runs=5, warmup=1),
-        "matmul_scans_ms": time_ms(scans, runs=5, warmup=1),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_ms_e_read_per_paired_step": e_per_step_ms,
-        "serial_steps": WP_T - 1,
     }
 
 
@@ -903,13 +748,11 @@ def check_align_kernels(rng, dev):
     integer (tie-forcing) scores, at S=512, on degenerate lengths, at fp64
     and at the warp route's width edges (ALIGN_WIDTH_CASES); K13 also on
     its own cases (``check_backtrace``); each on each route that takes the
-    case's width, both routes of each timed at the serving shape.  K13 runs
-    on the plain version's bits, so both K13 versions see the same inputs.
-    The warp routes' kernels by device time (the profiles ``k12_warp`` and
-    ``k13_warp``)."""
+    case's width.  K13 runs on the plain version's bits, so both K13
+    versions see the same inputs.  Their warp routes each run their kernel
+    once in a profiled call (the profiles ``k12_warp`` and ``k13_warp``)."""
     from torch_asg_tpu_torch.ops.fac import make_aligned
     from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
-    from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     cases = (
         ("fp32_serving", torch.float32, (B, T, N, S), (500, T), (10, S), False),
@@ -922,7 +765,7 @@ def check_align_kernels(rng, dev):
     )
     edge_rng = np.random.default_rng([SEED, 12])  # keeps ``rng``'s stream as it was
     edges = {c[0] for c in ALIGN_WIDTH_CASES}
-    serving, routes_run = None, {}
+    routes_run = {}
     for name, dtype, (b, t, n, s), li_r, lo_r, integer in cases + ALIGN_WIDTH_CASES:
         case_rng = edge_rng if name in edges else rng
         trans, inputs, targets, li, lo = lattice_case(case_rng, dev, dtype, b, t, n, s, li_r,
@@ -941,42 +784,15 @@ def check_align_kernels(rng, dev):
             pos = vk.align_backtrace_pallas(end_s, adv_ref, li, route=route)
             torch.cuda.synchronize()
             check(torch.equal(pos, pos_ref), f"K13 {route} {name}: positions differ")
-        if name == "fp32_serving":
-            serving = (lat, li, end_s, adv_ref)
-    lat, li, end_s, adv = serving
-    w = 4
-    lsum = int(li.sum())
-    k12_bytes = (2 * T * B * S + 2 * B * S + B * S) * w + B * 4
-    k12_ops = 5 * (T - 1) * B * S
-    k13_bytes = (lsum - B + 2 * B + T * B) * 4
-    k12_bound, k12_by = bound(k12_bytes, k12_ops)
-    k13_bound, k13_by = bound(k13_bytes, 0)
-    exact = "bit-identical (max-plus is exact)"
-    serial_steps = min(int(li.max()), T - 1)  # the warp route's chain: rows 1 .. L_in
-    bt_steps = int(li.max()) - 1  # K13's warp route: frames min(L_in, T) - 2 .. 0
     split = profile_call("k12_warp")
     check(split["complete"], f"K12's warp route must run its kernel: {split}")
     bt_split = profile_call("k13_warp")
     check(bt_split["complete"], f"K13's warp route must run its kernel: {bt_split}")
     k13_routes = {**routes_run, **check_backtrace("K13", np.random.default_rng([SEED, 14]), dev)}
-    k12 = {
-        "name": "align_forward (K12)", "max_abs_err": 0.0, "tolerance": exact,
-        "routes_by_case": routes_run,
-        **time_routes(vk.align_forward_pallas, (lat, li), serial_steps, width_route(S)),
-        "warp_device_ms": {p: split["phase_ms"][p] for p in K12_WARP_PHASES},
-        "plain_ms": time_ms(lambda: vk.align_forward_plain(lat, li), runs=5, warmup=1),
-        "bound_ms": k12_bound, "bound_by": k12_by, "serial_steps": serial_steps,
-    }
-    k13 = {
-        "name": "align_backtrace (K13)", "max_abs_err": 0.0,
-        "tolerance": "bit-identical (integer lookups)",
-        "routes_by_case": k13_routes,
-        **time_routes(vk.align_backtrace_pallas, (end_s, adv, li), bt_steps, width_route(S)),
-        "warp_device_ms": {p: bt_split["phase_ms"][p] for p in K13_WARP_PHASES},
-        "plain_ms": time_ms(lambda: vk.align_backtrace_plain(end_s, adv, li), runs=5,
-                            warmup=1),
-        "bound_ms": k13_bound, "bound_by": k13_by, "serial_steps": bt_steps,
-    }
+    k12 = {"name": "align_forward (K12)", "id": "K12", "max_abs_err": 0.0,
+           "tolerance": "bit-identical (max-plus is exact)", "routes_by_case": routes_run}
+    k13 = {"name": "align_backtrace (K13)", "id": "K13", "max_abs_err": 0.0,
+           "tolerance": "bit-identical (integer lookups)", "routes_by_case": k13_routes}
     return k12, k13
 
 
@@ -1025,6 +841,9 @@ K5_WARP_PHASES = ("fcc_bwd_post_kernel", "fcc_bwd_sums_kernel")
 K6_WARP_PHASES = ("fac_alpha_band_kernel", "fac_alpha_warp_kernel", "fac_alpha_fill_kernel")
 K7_WARP_PHASES = ("fac_beta_warp_kernel",)
 K8_WARP_PHASES = ("fac_bwd_post_kernel", "fac_bwd_sums_kernel")
+# The width each of K3-K8 picks its route by: labels for K3-K5, slots for
+# K6-K8.
+LATTICE_WIDTHS = {"K3": N, "K4": N, "K5": N, "K6": S, "K7": S, "K8": S}
 
 
 def check_lattice_kernels(rng, dev, only=None):
@@ -1035,19 +854,16 @@ def check_lattice_kernels(rng, dev, only=None):
     of ``fp64_degenerate`` on each route too; K6's warp route against its
     own plain version (the blocked algorithm) and the sequential one; K5
     and K8 run on the plain versions' chains, so both versions see the same
-    inputs, and twice on each route, which must give the same bits.  Times
-    and bounds at the training shape, both routes of each kernel, the
-    device time of each kernel of their warp routes (the profile
-    ``lattice_warp``), and K6's warp route at each block size it is built
-    for, fp32 and fp64 (``block_sweep_ms``).  ``only`` (kernel ids)
-    restricts the checks and times to those kernels."""
+    inputs, and twice on each route, which must give the same bits.  Their
+    warp routes each run their kernels once in one profiled call (the
+    profile ``lattice_warp``).  ``only`` (kernel ids) restricts the checks
+    to those kernels."""
     from torch_asg_tpu_torch.ops.fac import make_aligned
     from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
     from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
     names = ("K3", "K4", "K5", "K6", "K7", "K8")
-    routed_ids = names
     errs = {k: {} for k in names}
     # the width edges draw from streams of their own, keeping ``rng``'s as it was
     fcc_rng, fac_rng = np.random.default_rng([SEED, 8]), np.random.default_rng([SEED, 9])
@@ -1167,106 +983,47 @@ def check_lattice_kernels(rng, dev, only=None):
                 check(bool((da_r[:, [2, 3, 5, 6]] == 0).all()),
                       f"K8 {route}: elements without an aligned path must have zero "
                       "posteriors")
-    # timing and bounds at the training shape (the last case)
     check(name == "fp32_training", "the loop must end on the training shape")
-    lsum, w = int(li.sum()), 4
-    tbn, tbs = T * B * N * w, T * B * S * w
-    step = 2 * N * N + 8 * N
-    cost = {
-        "K3": ((lsum * N + N * N) * w + B * 4 + 2 * tbn, 2 * (lsum - B) * step),
-        "K4": ((lsum * N + N * N) * w + B * 4 + tbn, (lsum - B) * step),
-        "K5": ((3 * lsum * N + 2 * N * N + B) * w + B * 4 + tbn,
-               lsum * (2 * N * N + 10 * N) + B * N * N),
-        "K6": ((2 * B * S) * w + 2 * tbs, T * B * S * 8),
-        "K7": ((lsum * S + 2 * B * S) * w + 2 * B * 4 + tbs, (lsum - B) * S * 8),
-        "K8": ((2 * B * S + B) * w + 4 * tbs + 2 * B * S * w, T * B * S * 14),
-    }
     # id -> (stem, the pallas_call line of the TPU kernel it replaces)
     meta = {"K3": ("fcc_fwd", "fcc_kernels.py:126"), "K4": ("fcc_beta", "fcc_kernels.py:202"),
             "K5": ("fcc_bwd", "fcc_kernels.py:284"), "K6": ("fac_alpha", "fac_kernels.py:146"),
             "K7": ("fac_beta", "fac_kernels.py:163"), "K8": ("fac_bwd", "fac_kernels.py:185")}
     rtol, atol = LATTICE_TOL[torch.float32]
-    serial = int(li.max()) - 1
-    # id -> (wrapper, arguments, serial steps, warp-route kernels, width)
-    routed = {
-        "K3": (fk.fcc_fwd_pallas, (e, c, x, li32), serial, K3_WARP_PHASES, N),
-        "K4": (fk.fcc_beta_pallas, (e, c, x, li32), serial, K4_WARP_PHASES, N),
-        "K5": (fk.fcc_bwd_pallas, (e, c, x, li32, *fwd_want, g), int(li.max()),
-               K5_WARP_PHASES, N),
-        "K6": (ak.fac_alpha_pallas, (lat,), T - 1, K6_WARP_PHASES, S),
-        "K7": (ak.fac_beta_pallas, (lat, li, lo), serial, K7_WARP_PHASES, S),
-        "K8": (ak.fac_bwd_pallas, (lat, *fac_want, g), T, K8_WARP_PHASES, S),
-    }
-    # the warp routes' kernels by device time, K3's-K8's in one profile
-    split = profile_call("lattice_warp") if any(k in routed for k, _ in runs) else None
+    ran = list(dict.fromkeys(kname for kname, _ in runs))
+    # the warp routes' kernels, K3's-K8's in one profile
+    split = profile_call("lattice_warp") if ran else None
     check(split is None or split["complete"],
           f"K3's-K8's warp routes must run their twelve kernels: {split}")
     out = []
-    for (kname, variant), (kernel, plain) in runs.items():
-        if kname in routed and variant != width_route(routed[kname][4]):
-            continue
-        bound_ms, bound_by = bound(*cost[kname])
+    for kname in ran:
         stem, replaces = meta[kname]
-        entry = {
-            "name": f"{stem} ({kname})", "wrapper": f"{stem}_pallas",
+        out.append({
+            "name": f"{stem} ({kname})", "id": kname,
             "source": f"torch_asg_tpu_torch/ops/kernels/csrc/{stem[:3]}.cu",
             "replaces": f"torch_asg_tpu/ops/pallas/{replaces}",
+            "max_abs_err": errs[kname]["fp32_training"][width_route(LATTICE_WIDTHS[kname])],
             "max_abs_err_by_case": errs[kname],
             "tolerance": (f"fp32 rtol {rtol:g} atol {atol:g} (1000 serial steps, other sum "
                           "order); fp64 1e-10" + ("; two runs bit-identical"
                                                   if kname in ("K5", "K8") else "")),
-            "plain_ms": time_ms(plain, runs=5, warmup=1),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "serial_steps": T - 1 if kname in ("K6", "K8") else serial,
-        }
-        wrapper, args, steps, phases, width = routed[kname]
-        entry.update(time_routes(wrapper, args, steps, width_route(width)))
-        entry["max_abs_err"] = errs[kname]["fp32_training"][entry["route_auto"]]
-        entry["warp_device_ms"] = {p: split["phase_ms"][p] for p in phases}
-        out.append(entry)
-    return out
-
-
-def lattice_route_launches(reset=False):
-    """K3's-K8's launches by route, {"<wrapper>.<route>": n}; with ``reset``
-    the counts are set to 0 first."""
-    from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
-    from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
-    from torch_asg_tpu_torch.ops.kernels.common import ROUTES
-
-    out = {}
-    for wrapper in (fk.fcc_fwd_pallas, fk.fcc_beta_pallas, fk.fcc_bwd_pallas,
-                    ak.fac_alpha_pallas, ak.fac_beta_pallas, ak.fac_bwd_pallas):
-        for route in ROUTES:
-            if reset:
-                setattr(wrapper, f"launches_{route}", 0)
-            out[f"{wrapper.__name__}.{route}"] = getattr(wrapper, f"launches_{route}")
+        })
     return out
 
 
 def check_lattice_auto_route(**launches):
-    """Since the last reset, each wrapper named in ``launches`` (e.g.
-    ``fcc_fwd_pallas=5``) launched that many times and the other routed
-    wrappers of K3-K8 never, every time through the route 'auto' takes (at
-    N labels for K3, K4 and K5, at S slots for K6, K7 and K8)."""
+    """Since the launch ledger was cleared, each kernel named in
+    ``launches`` (e.g. ``K3=5``) launched that many times and the other
+    kernels of K3-K8 never, every time through the route 'auto' takes (at N
+    labels for K3, K4 and K5, at S slots for K6, K7 and K8)."""
     from torch_asg_tpu_torch.ops.kernels.common import width_route
 
-    got = lattice_route_launches()
+    got = launched(*LATTICE_WIDTHS, routes=True)
     want = dict.fromkeys(got, 0)
-    for wrapper, count in launches.items():
-        want[f"{wrapper}.{width_route(N if wrapper.startswith('fcc') else S)}"] = count
+    for kernel, count in launches.items():
+        want[f"{kernel}.{width_route(LATTICE_WIDTHS[kernel])}"] = count
     check(got == want,
           f"every K3-K8 launch must take the route 'auto' takes: {got}")
     return got
-
-
-def lattice_counters():
-    """The launch counters of K3-K8's wrappers."""
-    from torch_asg_tpu_torch.ops.kernels import fac_kernels, fcc_kernels
-
-    return (fcc_kernels.fcc_fwd_pallas, fcc_kernels.fcc_beta_pallas,
-            fcc_kernels.fcc_bwd_pallas, fac_kernels.fac_alpha_pallas,
-            fac_kernels.fac_beta_pallas, fac_kernels.fac_bwd_pallas)
 
 
 def check_grads_vs_scan(rng, dev):
@@ -1276,23 +1033,22 @@ def check_grads_vs_scan(rng, dev):
     fp64, at the training shape (B=64, T=1000, N=30, S=50, ragged
     lengths)."""
     from torch_asg_tpu_torch import asg_loss
-    from torch_asg_tpu_torch.ops.kernels.asg_kernels import _bwd_kernel, _fwd_store_kernel
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
     trans, inputs, targets, li, lo = lattice_case(rng, dev, torch.float64, B, T, N, S,
                                                   (T // 2, T), (10, S))
     grads, losses = {}, {}
-    counters = (_fwd_store_kernel, _bwd_kernel, *lattice_counters())
-    before = {c.__name__: c.launches for c in counters}
+    LAUNCHES.clear()
     for impl in ("fused", "pallas", "scan"):
         tr = trans.clone().requires_grad_(True)
         em = inputs.clone().requires_grad_(True)
         loss = asg_loss(tr, em, targets, li, lo, impl=impl)
         grads[impl] = torch.autograd.grad(loss, (tr, em))
         losses[impl] = loss.detach()
-    launched = {c.__name__: c.launches - before[c.__name__] for c in counters}
-    want = dict.fromkeys(before, 1)
-    want["fcc_beta_pallas"] = 0
-    check(launched == want, f"the fused and per-lattice tiers' launches: {launched}")
+    counts = launched("K1s", "K2", *LATTICE_WIDTHS)
+    want = dict.fromkeys(counts, 1)
+    want["K4"] = 0
+    check(counts == want, f"the fused and per-lattice tiers' launches: {counts}")
     errs = {}
     for tier in ("fused", "pallas"):
         torch.testing.assert_close(losses[tier], losses["scan"], rtol=1e-9, atol=0)
@@ -1302,7 +1058,7 @@ def check_grads_vs_scan(rng, dev):
     emit({"phase": "grads", "dtype": "float64", "shape": [B, T, N, S],
           "tolerance": "rtol 1e-8, atol 1e-10 x max|scan gradient|",
           "max_abs_err_vs_scan": errs, "loss": float(losses["fused"]),
-          "launches": launched})
+          "launches": counts})
 
 
 # (case, B, T', Cin, Cout, K) of check_conv: the letter cells' mid and wide
@@ -1319,7 +1075,6 @@ CONV_CASES = (
     ("t7", 4, 7, 250, 250, 7),
     ("t1001", 8, 1001, 250, 2000, 7),
 )
-CONV_TIMED = ("mid", "wide", "default_mid", "default_wide")
 # (case, B, T, Cin, Cout, K) of check_conv's bias-only pass: the gated
 # ConvNet's (arXiv:1712.09444, LibriSpeech) layers 2, 10 and 17 at a
 # training batch of 16 utterances padded to 2000 frames, and layer 4, whose
@@ -1336,10 +1091,8 @@ CONV_GLU_CASES = (
     ("glu_t14_k14", 4, 14, 200, 440, 14),
     ("glu_t3_k29", 2, 3, 826, 1816, 29),
 )
-CONV_GLU_TIMED = ("glu_l2_k14", "glu_l10_k22", "glu_l17_k29")
 # largest |error| over the largest |float64 value| a float32 pass may show
 CONV_REL_TOL = 1e-4
-CONV_CHAIN = 5
 
 
 def conv_inputs(rng, dev, b, t, cin, cout, k):
@@ -1387,77 +1140,18 @@ def conv_errors(impl, x, w, bias, up, relu=True):
             for name, g, r in zip(("fwd", "dgrad", "wgrad", "bias_grad"), got, want)}
 
 
-def conv_pass_ms(x, w, bias, up, relu=True):
-    """{pass: {arm: ms}}: the hand-written kernels, their plain versions,
-    cuDNN on the channels-first layout (the model's path before them) and
-    cuDNN on channels-last (conv2d with H = 1), each pass alone; ``relu``
-    picks the block's epilogue.  At an even width cuDNN takes the input
-    padded once beforehand (its SAME pads differ), as the model's
-    ``F.conv1d`` path pads it."""
-    from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
-
-    k = w.shape[-1]
-    pad, ops = k // 2, torch.ops.aten
-    with torch.no_grad():
-        out = ck.conv_fwd(x, w, bias, relu)
-        g = (up * (out > 0) if relu else up).contiguous()
-        del out
-        x_ncl, g_ncl = x.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
-        cl = torch.channels_last
-        x_cl = x.transpose(1, 2).unsqueeze(2).contiguous(memory_format=cl)
-        g_cl = g.transpose(1, 2).unsqueeze(2).contiguous(memory_format=cl)
-        w_cl = w.unsqueeze(2).contiguous(memory_format=cl)
-        check(x_cl.data_ptr() == x.data_ptr(), "conv2d's channels-last input is a copy")
-        if k % 2 == 0:
-            left = (k - 1) // 2
-            x_ncl = torch.nn.functional.pad(x_ncl, (left, k - 1 - left))
-            x_cl = x_ncl.unsqueeze(2).contiguous(memory_format=cl)
-            pad = 0
-
-        def ncl(mask):
-            return lambda: ops.convolution_backward(g_ncl, x_ncl, w, None, [1], [pad], [1],
-                                                    False, [0], 1, mask)
-
-        def nhwc(mask):
-            return lambda: ops.convolution_backward(g_cl, x_cl, w_cl, None, [1, 1], [0, pad],
-                                                    [1, 1], False, [0, 0], 1, mask)
-
-        arms = {
-            "fwd": {"hand": lambda: ck.conv_fwd(x, w, bias, relu),
-                    "plain": lambda: ck.conv_fwd_plain(x, w, bias, relu),
-                    "cudnn_ncl": lambda: ops.convolution(x_ncl, w, bias, [1], [pad], [1],
-                                                         False, [0], 1),
-                    "cudnn_nhwc": lambda: ops.convolution(x_cl, w_cl, bias, [1, 1], [0, pad],
-                                                          [1, 1], False, [0, 0], 1)},
-            "dgrad": {"hand": lambda: ck.conv_dgrad(g, w),
-                      "plain": lambda: ck.conv_dgrad_plain(g, w),
-                      "cudnn_ncl": ncl([True, False, False]),
-                      "cudnn_nhwc": nhwc([True, False, False])},
-            "wgrad": {"hand": lambda: ck.conv_wgrad(g, x, k),
-                      "plain": lambda: ck.conv_wgrad_plain(g, x, k),
-                      "cudnn_ncl": ncl([False, True, False]),
-                      "cudnn_nhwc": nhwc([False, True, False])},
-        }
-        # CONV_CHAIN calls a timing, so the card, not the host's launches,
-        # sets the pace (as in a training step)
-        return {p: {arm: time_ms(lambda fn=fn: [fn() for _ in range(CONV_CHAIN)], runs=10)
-                         / CONV_CHAIN for arm, fn in fns.items()}
-                for p, fns in arms.items()}
-
-
-def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED, relu=True):
+def check_conv(rng, dev, cases=CONV_CASES, relu=True):
     """The stride-1 blocks' hand-written convolution (``csrc/conv.cu``) on
     the card: for each case, the forward with bias and ReLU (``relu``; else
     ``conv_bias``, the bias alone), and the input, weight and bias
     gradients through its autograd function, each against float64
     ``F.conv1d`` (largest error over the largest value, beside cuDNN's in
-    float32); at the timed cases each pass alone against its plain version
-    and cuDNN on the channels-first and the channels-last layout, with
-    TFLOP/s.  Returns the kernels line's entry: the errors, and the first
-    timed case's three passes (``ms``), their float32 bound, the plain
-    versions' time and the faster cuDNN layout's (``library_ms``)."""
+    float32).  Returns the kernels line's entry: the errors, and the
+    launches so compared, by pass and by pass and tiling
+    (``compared_launches``)."""
     from torch_asg_tpu_torch.ops.kernels import _build
     from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1471,15 +1165,14 @@ def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED, relu=True):
                         if "Used" in line or "spill" in line]})
         check(built and len(spills) == len(built) and not any(spills.values()),
               f"no convolution kernel of the {len(built)} built may spill: {spills}")
-    compared = dict.fromkeys(conv_launches(reset=True), 0)
+    compared = collections.Counter()
     rows = []
     block = ck.conv_relu if relu else ck.conv_bias
     for name, b, t, cin, cout, k in cases:
         x, w, bias, up = conv_inputs(rng, dev, b, t, cin, cout, k)
-        before = conv_launches()
+        before = LAUNCHES.copy()
         errs = conv_errors(block, x, w, bias, up, relu)
-        for key, n in conv_launches().items():
-            compared[key] = compared.get(key, 0) + n - before.get(key, 0)
+        compared.update(LAUNCHES - before)
         cudnn = conv_errors(lambda *a: conv_ncl(*a, relu=relu), x, w, bias, up, relu)
         with torch.no_grad():
             check(torch.equal(block(x, w, bias), block(x, w, bias)),
@@ -1489,12 +1182,6 @@ def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED, relu=True):
         row = {"phase": "conv", "case": name, "shape": [b, t, cin, cout, k],
                "epilogue": "bias, relu" if relu else "bias",
                "rel_err": errs, "cudnn_rel_err": cudnn}
-        if name in timed:
-            flop = 2 * b * t * cin * cout * k
-            ms = conv_pass_ms(x, w, bias, up, relu)
-            row["ms"] = ms
-            row["tflops"] = {p: {arm: flop / (v * 1e-3) / 1e12 for arm, v in arms.items()}
-                             for p, arms in ms.items()}
         emit(row)
         rows.append(row)
         del x, w, bias, up
@@ -1503,23 +1190,10 @@ def check_conv(rng, dev, cases=CONV_CASES, timed=CONV_TIMED, relu=True):
     if dev.type == "cuda":
         check(all(compared[p] > 0 for p in ("conv_fwd", "conv_dgrad", "conv_wgrad")),
               f"a convolution pass was never held against float64: {compared}")
-    out = {"name": "conv_unfold_kernel, conv_wgrad_kernel (stride-1 blocks)",
-           "compared_launches": compared,
-           "max_rel_err": max(e for r in rows for e in r["rel_err"].values()),
-           "cudnn_max_rel_err": max(e for r in rows for e in r["cudnn_rel_err"].values())}
-    first = next((r for r in rows if "ms" in r), None)
-    if first is not None:
-        b, t, cin, cout, k = first["shape"]
-        ms = first["ms"]
-        out.update({
-            "case": first["case"], "shape": first["shape"],
-            "ms": sum(v["hand"] for v in ms.values()),
-            "ms_by_pass": {p: v["hand"] for p, v in ms.items()},
-            "plain_ms": sum(v["plain"] for v in ms.values()),
-            "bound_ms": len(ms) * 2 * b * t * cin * cout * k / FP32_OPS_PER_S * 1e3,
-            "bound_by": "operations",
-            "library_ms": sum(min(v["cudnn_ncl"], v["cudnn_nhwc"]) for v in ms.values())})
-    return out
+    return {"name": "conv_unfold_kernel, conv_wgrad_kernel (stride-1 blocks)",
+            "compared_launches": dict(compared),
+            "max_rel_err": max(e for r in rows for e in r["rel_err"].values()),
+            "cudnn_max_rel_err": max(e for r in rows for e in r["cudnn_rel_err"].values())}
 
 
 def check_conv_tilings(*compared):
@@ -1553,9 +1227,10 @@ def flax_layout_params(rng, cfg):
     return params
 
 
-def serve(rng, dev, counters):
+def serve(rng, dev):
     from torch_asg_tpu_torch import asg_loss, asg_scores, viterbi_decode
     from torch_asg_tpu_torch.convert import transition_from_numpy
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
     from torch_asg_tpu_torch.runtime import collapse_path
 
     model = letter_model(rng, dev).eval()
@@ -1571,56 +1246,27 @@ def serve(rng, dev, counters):
                          (feats, feat_lengths, targets.astype(np.int32), lo.astype(np.int32))])
     torch.cuda.synchronize()
 
-    def answer(feats, feat_lengths, targets, lo, sync=lambda: None, native=True):
-        """One request; ``sync`` runs after each stage (a no-op when timing
-        the whole request); ``native``: collapse_path's arm."""
-        marks = [time.perf_counter()]
-
-        def mark():
-            sync()
-            marks.append(time.perf_counter())
-
+    def answer(feats, feat_lengths, targets, lo):
         with torch.no_grad():
             em = model(feats)
             li = model.output_length(feat_lengths).to(torch.int32)
-            mark()
             dec = viterbi_decode(trans, em, li)
-            mark()
             paths = dec.paths.cpu().numpy()
-            hyps = [collapse_path(paths[:, b], ALPHABET, MAX_REPS, use_native=native)
+            hyps = [collapse_path(paths[:, b], ALPHABET, MAX_REPS, use_native=True)
                     for b in range(B)]
-            mark()
             full, aligned = asg_scores(trans, em, targets, li, lo)
-            mark()
             loss = asg_loss(trans, em, targets, li, lo, reduction="none")
         torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        stage_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-        return (em, li, targets, lo, dec, hyps, full, aligned, loss), stage_ms
+        return em, li, targets, lo, dec, hyps, full, aligned, loss
 
     answer(*requests[0])  # warm-up: library loads, cuDNN set-up
-    for c in counters:
-        c.launches = 0
-    route_launches(reset=True)
-    conv_launches(reset=True)
-    latencies, outs = [], []
-    for req in requests:
-        out, stage_ms = answer(*req)
-        latencies.append(sum(stage_ms))
-        outs.append(out)
-    launches = {c.__name__: c.launches for c in counters}
+    LAUNCHES.clear()
+    outs = [answer(*req) for req in requests]
+    launches = launched("K1", "K10", "K11")
     for name, n in launches.items():
         check(n > 0, f"serving path never launched {name}")
-    routes_seen = check_auto_route(launches["asg_scores_fused"], 0, 0,
-                                   launches["viterbi_forward_pallas"])
+    routes_seen = check_auto_route(launches["K1"], 0, 0, launches["K10"])
     conv_per_request = check_conv_launches(model, len(requests), backward=False)
-    # where a request's time goes: the first request again, synchronised
-    # after each stage (outside the counted run), with each collapse arm
-    stage_names = ("encoder", "viterbi_decode", "paths_to_host_and_collapse", "asg_scores",
-                   "asg_loss")
-    stages = dict(zip(stage_names, answer(*requests[0], sync=torch.cuda.synchronize)[1]))
-    stages_numpy = dict(zip(stage_names, answer(*requests[0], sync=torch.cuda.synchronize,
-                                                native=False)[1]))
     # the native hypotheses against the NumPy arm's, on the same paths
     first_paths = outs[0][4].paths.cpu().numpy()
     hyps_numpy = [collapse_path(first_paths[:, b], ALPHABET, MAX_REPS, use_native=False)
@@ -1628,17 +1274,13 @@ def serve(rng, dev, counters):
     check(all(np.array_equal(h, w) and h.dtype == w.dtype
               for h, w in zip(outs[0][5], hyps_numpy)),
           "native hypotheses differ from the NumPy arm's")
-    # one asg_scores call alone: its CUDA-event median and the device's share
-    em, li, targets, lo = outs[0][:4]
-
-    def scores():
-        with torch.no_grad():
-            asg_scores(trans, em, targets, li, lo)
-
-    scores_ms = time_ms(scores)
+    # one asg_scores call and one viterbi_decode call alone, profiled: the
+    # kernels each launches
     scores_profile = profile_call("serve_scores")
-    # one viterbi_decode call alone, profiled: the decode stage's device time
+    check(scores_profile["complete"], f"asg_scores must run K1's warp kernel: {scores_profile}")
     decode_profile = profile_call("serve_decode")
+    check(decode_profile["complete"],
+          f"viterbi_decode must run K10's and K11's warp kernels: {decode_profile}")
 
     for em, li, targets, lo, dec, hyps, full, aligned, loss in outs:
         check(tuple(em.shape) == (T, B, N), f"emissions shape {tuple(em.shape)}")
@@ -1658,13 +1300,10 @@ def serve(rng, dev, counters):
     torch.testing.assert_close(aligned, ref_aligned, rtol=1e-4, atol=1e-3)
     emit({"phase": "serve", "card": torch.cuda.get_device_name(0),
           "requests": 3, "batch": B, "frames": T,
-          "latency_ms": latencies, "median_latency_ms": statistics.median(latencies),
           "launches": launches, "route_launches": routes_seen,
           "conv_launches_per_request": conv_per_request,
-          "stage_ms_first_request": stages,
-          "stage_ms_first_request_numpy_collapse": stages_numpy,
-          "native_hypotheses_equal_numpy": True, "asg_scores_ms": scores_ms,
-          "asg_scores_profile": scores_profile, "viterbi_decode_profile": decode_profile,
+          "native_hypotheses_equal_numpy": True, "asg_scores_profile": scores_profile,
+          "viterbi_decode_profile": decode_profile,
           "max_abs_err_scores_vs_scan": max(float((full - ref_full).abs().max()),
                                             float((aligned - ref_aligned).abs().max())),
           "mean_loss": float(loss.mean()),
@@ -1712,17 +1351,12 @@ def prepare_batch(utts, labels, dev):
 CMVN_TOL = (1e-5, 1e-5)
 
 
-def host_prep_arms(utts, labels, runs=3):
-    """Host prep of one batch with each arm: {arm: median ms}; the batches
-    must agree, features within CMVN_TOL and the rest exactly."""
-    batches, times = {}, {}
-    for arm, native in (("numpy", False), ("native", True)):
-        ms = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            batches[arm] = host_batch(utts, labels, use_native=native)
-            ms.append((time.perf_counter() - t0) * 1e3)
-        times[arm] = statistics.median(ms)
+def host_prep_arms(utts, labels):
+    """Host prep of one batch with each arm; the batches must agree,
+    features within CMVN_TOL and the rest exactly.  Returns the native
+    features' largest difference."""
+    batches = {arm: host_batch(utts, labels, use_native=native)
+               for arm, native in (("numpy", False), ("native", True))}
     for key, want in batches["numpy"].items():
         got = batches["native"][key]
         check(got.shape == want.shape and got.dtype == want.dtype,
@@ -1732,20 +1366,15 @@ def host_prep_arms(utts, labels, runs=3):
                   f"native features differ by {np.abs(got - want).max()}")
         else:
             check(np.array_equal(got, want), f"native {key} differ from the NumPy arm's")
-    return times, float(np.abs(batches["native"]["features"]
-                               - batches["numpy"]["features"]).max())
+    return float(np.abs(batches["native"]["features"] - batches["numpy"]["features"]).max())
 
 
 def train(rng, dev):
     """The full-width Wav2Letter trains on one fixed batch through the port's
-    entry points: one warm-up step, then 5 timed steps, each ending in a
-    device synchronise."""
+    entry points: one warm-up step, then 5 counted steps."""
     from torch_asg_tpu_torch import asg_loss
-    from torch_asg_tpu_torch.asg import _spread_guard
     from torch_asg_tpu_torch.models import create_train_state, loss_fn, make_train_step
-    from torch_asg_tpu_torch.ops.kernels.asg_kernels import (_bwd_kernel,
-                                                              _fwd_store_kernel,
-                                                              asg_scores_fused)
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
     model = letter_model(rng, dev)
     state = create_train_state(model)
@@ -1754,7 +1383,7 @@ def train(rng, dev):
     batch = prepare_batch(utts, labels, dev)
     li = model.output_length(batch["feature_lengths"]).to(torch.int32)
     check(int(batch["targets"].shape[1]) <= S, "encoded targets wider than S")
-    host_prep_ms, features_err = host_prep_arms(utts, labels)
+    features_err = host_prep_arms(utts, labels)
 
     # the first step's gradients, fused tier against the scan tier (fp32)
     with torch.no_grad():
@@ -1777,25 +1406,16 @@ def train(rng, dev):
 
     state, _ = step(state, batch)  # warm-up: cuDNN set-up
     torch.cuda.synchronize()
-    counters = (asg_scores_fused, _fwd_store_kernel, _bwd_kernel)
-    for c in counters:
-        c.launches = 0
-    route_launches(reset=True)
-    conv_launches(reset=True)
-    losses, latencies = [], []
+    LAUNCHES.clear()
+    losses = []
     for _ in range(5):
-        t0 = time.perf_counter()
         state, loss = step(state, batch)
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
         check(finite_grads(), "non-finite gradient in a training step")
-    launches = {"asg_scores_fused": asg_scores_fused.launches,
-                "_fwd_store_kernel": _fwd_store_kernel.launches,
-                "_bwd_kernel": _bwd_kernel.launches}
-    check(launches["_fwd_store_kernel"] == 5 and launches["_bwd_kernel"] == 5,
+    launches = launched("K1", "K1s", "K2")
+    check(launches["K1s"] == 5 and launches["K2"] == 5,
           f"K1 with stores and K2 must launch once a step: {launches}")
-    check(launches["asg_scores_fused"] == 0,
+    check(launches["K1"] == 0,
           f"the score-only K1 must not launch in a training step: {launches}")
     routes_seen = check_auto_route(0, 5, 5)
     conv_per_step = check_conv_launches(model, 5, backward=True)
@@ -1803,60 +1423,20 @@ def train(rng, dev):
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch))
     check(loss_after < losses[0], f"loss did not fall: {losses[0]} -> {loss_after}")
-    median_ms = statistics.median(latencies)
-
-    # one more step, synchronised after each stage
-    marks = [time.perf_counter()]
-
-    def mark():
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-
-    staged = prepare_batch(utts, labels, dev)
-    mark()
-    state.optimizer.zero_grad(set_to_none=True)
-    em = model(staged["features"])
-    mark()
-    loss = asg_loss(state.transition, em, staged["targets"],
-                    model.output_length(staged["feature_lengths"]).to(torch.int32),
-                    staged["target_lengths"])
-    mark()
-    loss.backward()
-    mark()
-    state.optimizer.step()
-    mark()
-    stages = dict(zip(("host_prep", "encoder_forward", "asg_loss_forward", "backward",
-                       "optimizer_step"),
-                      [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]))
-
-    # the criterion alone: asg_loss forward + backward on fixed emissions
-    em_fixed = em0.detach().clone().requires_grad_(True)
-    tr_fixed = state.transition.detach().clone().requires_grad_(True)
-
-    def criterion():
-        out = asg_loss(tr_fixed, em_fixed, batch["targets"], li, batch["target_lengths"])
-        torch.autograd.grad(out, (tr_fixed, em_fixed))
-
-    criterion_ms = time_ms(criterion)
+    # the criterion's forward and backward alone, profiled: the kernels it
+    # launches
     profiled = profile_call("train_criterion")
-    # the spread guard alone: one (N, N) reduction and one host sync a call
-    guard_ms = time_ms(lambda: _spread_guard(tr_fixed.detach(), "auto", 1.0, True))
-    frames = int(li.sum())
+    check(profiled["complete"], f"the criterion must run K1s's and K2's warp kernels: {profiled}")
     emit({"phase": "train", "card": torch.cuda.get_device_name(0), "batch": B,
-          "frames_max": int(li.max()), "frames_sum": frames,
-          "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
-          "frames_per_s": frames / (median_ms * 1e-3), "losses": losses,
-          "loss_after": loss_after, "launches": launches,
+          "frames_max": int(li.max()), "frames_sum": int(li.sum()),
+          "steps": 5, "losses": losses, "loss_after": loss_after, "launches": launches,
           "route_launches": routes_seen, "conv_launches_per_step": conv_per_step,
           "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
-          "max_abs_err_grads_vs_scan": grad_errs, "stage_ms": stages,
-          "criterion_fwd_bwd_ms": criterion_ms, "spread_guard_ms": guard_ms,
-          "criterion_frames_per_s": frames / (criterion_ms * 1e-3),
-          "criterion_profile": profiled, "host_prep_ms": host_prep_ms,
+          "max_abs_err_grads_vs_scan": grad_errs, "criterion_profile": profiled,
           "cmvn_tolerance": CMVN_TOL, "max_abs_err_native_features": features_err})
     train_prefetch(np.random.default_rng([SEED, 13]), dev, state, step)
-    return ({**{k: launches[k] for k in ("_fwd_store_kernel", "_bwd_kernel")},
-             "conv_per_step": conv_per_step}, (utts, labels))
+    return ({"K1s": launches["K1s"], "K2": launches["K2"], "conv_per_step": conv_per_step},
+            (utts, labels))
 
 
 PREFETCH_BATCHES = 12
@@ -1869,52 +1449,34 @@ def prefetch_batches(rng):
     return [train_batch(rng, longest=2000) for _ in range(PREFETCH_BATCHES)]
 
 
-def prefetched(raw, dev, prep_ms=None):
+def prefetched(raw, dev):
     """The batches of ``raw`` through ``device_prefetch(depth=2)``: native host
-    prep on a worker thread, the copy on a side stream; each batch's host
-    prep time on the worker is appended to ``prep_ms`` when given."""
+    prep on a worker thread, the copy on a side stream."""
     from torch_asg_tpu_torch.runtime import device_prefetch
 
-    def prepare(item):
-        t0 = time.perf_counter()
-        out = host_batch(*item)
-        if prep_ms is not None:
-            prep_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    return device_prefetch(raw, prepare, depth=2, device=dev)
+    return device_prefetch(raw, lambda item: host_batch(*item), depth=2, device=dev)
 
 
-def run_loop(state, step, make_batches):
-    """One step on each batch that ``make_batches()`` yields, timed from
-    before that call to a device synchronise after the last step: (the
-    batches, the losses, the wall time in s, the ms until the first batch
-    was in hand: the part of a prefetched loop that nothing overlaps)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    batches = make_batches()
+def run_loop(state, step, batches):
+    """One step on each batch of ``batches``: (the batches, the losses)."""
     seen, losses = [], []
     try:
         for batch in batches:
-            if not seen:
-                first_ms = (time.perf_counter() - t0) * 1e3
             seen.append(batch)
             state, loss = step(state, batch)
             losses.append(loss)
     finally:
         if hasattr(batches, "close"):
             batches.close()
-    torch.cuda.synchronize()
-    return seen, [float(x) for x in losses], time.perf_counter() - t0, first_ms
+    return seen, [float(x) for x in losses]
 
 
 def train_prefetch(rng, dev, state, step):
     """PREFETCH_BATCHES distinct full-width batches, trained on from one
     saved model and optimizer state, in the same order: serially (prepare,
-    copy, step), through ``device_prefetch``, and from the serial loop's
-    batches already on the card (the step's own pace).  The prefetcher
-    changes when a batch is copied, not what is copied: each of its batches
-    must equal the serial loop's, tensor for tensor."""
+    copy, step) and through ``device_prefetch``.  The prefetcher changes
+    when a batch is copied, not what is copied: each of its batches must
+    equal the serial loop's, tensor for tensor."""
     raw = prefetch_batches(rng)
     state, _ = step(state, prepare_batch(*raw[0], dev))  # warm-up: the batches' shape
     saved = (copy.deepcopy(state.model.state_dict()),
@@ -1928,38 +1490,27 @@ def train_prefetch(rng, dev, state, step):
 
     runs = {}
     restore()
-    runs["serial"] = run_loop(state, step, lambda: (prepare_batch(u, lab, dev)
-                                                    for u, lab in raw))
+    runs["serial"] = run_loop(state, step, (prepare_batch(u, lab, dev) for u, lab in raw))
     restore()
-    worker_prep_ms = []
-    runs["prefetched"] = run_loop(state, step, lambda: prefetched(raw, dev, worker_prep_ms))
-    restore()
-    runs["resident"] = run_loop(state, step, lambda: iter(runs["serial"][0]))
+    runs["prefetched"] = run_loop(state, step, prefetched(raw, dev))
     check(len(runs["prefetched"][0]) == PREFETCH_BATCHES, "the prefetcher lost a batch")
     for i, (got, want) in enumerate(zip(runs["prefetched"][0], runs["serial"][0])):
         for key in want:
             check(got[key].device == want[key].device and got[key].dtype == want[key].dtype
                   and torch.equal(got[key], want[key]),
                   f"prefetched batch {i}'s {key} differs from the serial loop's")
-    for name, (_, losses, _, _) in runs.items():
+    for name, (_, losses) in runs.items():
         check(all(np.isfinite(losses)), f"non-finite loss in the {name} loop: {losses}")
-    profiled = profile_call("train_prefetch")
     emit({"phase": "train_prefetch", "card": torch.cuda.get_device_name(0),
           "batches": PREFETCH_BATCHES, "batch": B, "depth": 2,
-          **{f"{name}_steps_per_s": PREFETCH_BATCHES / wall
-             for name, (_, _, wall, _) in runs.items()},
-          **{f"{name}_first_batch_ms": first for name, (_, _, _, first) in runs.items()},
-          **{f"{name}_losses": losses for name, (_, losses, _, _) in runs.items()},
-          "worker_host_prep_ms": worker_prep_ms,
-          "batches_equal_serial": True, "prefetched_loop_profile": profiled})
+          **{f"{name}_losses": losses for name, (_, losses) in runs.items()},
+          "batches_equal_serial": True})
 
 
 def device_profile(fn, names=()):
-    """One call of ``fn`` under torch.profiler: the device's busy time (the
-    sum of its kernels' own times, ms), the number of kernels, the five
-    kernels that took longest in all ([name cut to 80 characters, ms]), and
-    for each name in ``names`` the time (``phase_ms``) and the number
-    (``phase_launches``) of the kernels whose name holds it."""
+    """One call of ``fn`` under torch.profiler: for each name in ``names``
+    the number of kernels the device ran whose name holds it
+    (``phase_launches``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1968,22 +1519,13 @@ def device_profile(fn, names=()):
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return {
-        "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
-        "kernels": sum(e.count for e in kernels),
-        "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3] for e in top],
-        "phase_ms": {p: sum(e.self_device_time_total for e in kernels if p in e.key) / 1e3
-                     for p in names},
-        "phase_launches": {p: sum(e.count for e in kernels if p in e.key) for p in names},
-    }
+    return {"phase_launches": {p: sum(e.count for e in kernels if p in e.key) for p in names}}
 
 
 # The profiles of single calls, by name, each with the port's kernels that
 # one call launches once each.  ``profile_call`` takes each in a process of
 # its own, as that process's first profiler session: sessions that came
-# later in a long process lost kernel records (scripts/fcc_diag.py
-# --profiler).
+# later in a long process lost kernel records.
 PROFILES = {
     "k2_warp": K2_WARP_PHASES,
     "lattice_warp": (K3_WARP_PHASES + K4_WARP_PHASES + K5_WARP_PHASES + K6_WARP_PHASES
@@ -2000,43 +1542,32 @@ PROFILES = {
                          + K7_WARP_PHASES + K8_WARP_PHASES),
     "pallas_scores": K4_WARP_PHASES + K7_WARP_PHASES,
     "posterior_request": K3_WARP_PHASES + K5_WARP_PHASES,
-    # plain PyTorch: no kernel of the port
-    "train_prefetch": (),
-    "serve_nbest": (),
-    "stream_chunk": (),
 }
 PROFILE_TRIES = 3
 
 
-def profile_call(name, root=None):
+def profile_call(name):
     """Profile ``name`` (a key of PROFILES) in a new process, ``python3
     chip_smoke.py --profile NAME``: ``device_profile``'s reading of one
-    call, the call's CUDA-event median (``call_ms``) and its idle share,
-    1 - busy / call_ms.  A profile that does not show each kernel PROFILES
-    names exactly once is short: it is taken again in another new process,
-    up to PROFILE_TRIES times, and if the last is short too, ``complete``
-    is False and it gives no idle share.  ``root``: the checkout whose port
-    the new process imports, for timing two checkouts with one instrument
-    (``scripts/ab_serve_train.py``); its kernels go unchecked (``complete``
-    None)."""
+    call.  A profile that does not show each kernel PROFILES names exactly
+    once is short: it is taken again in another new process, up to
+    PROFILE_TRIES times, and if the last is short too, ``complete`` is
+    False."""
     cmd = [sys.executable, str(Path(__file__).resolve()), "--profile", name]
-    if root is not None:
-        cmd += ["--root", str(Path(root).resolve())]
     for attempt in range(1, PROFILE_TRIES + 1):
         run = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         check(run.returncode == 0,
               f"profile {name} failed:\n{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
         out = json.loads(run.stdout.strip().splitlines()[-1])
         out["attempts"] = attempt
-        if out["complete"] is not False:
+        if out["complete"]:
             break
     return out
 
 
 def profile_target(name, dev):
     """The call that profile ``name`` takes, at the shape its phase gives
-    it, on inputs drawn from a seed of its own: (the call, the runs its
-    CUDA-event median takes)."""
+    it, on inputs drawn from a seed of its own."""
     from torch_asg_tpu_torch import asg_loss, asg_scores, posterior_decode, viterbi_decode
     from torch_asg_tpu_torch.convert import transition_from_numpy
     from torch_asg_tpu_torch.runtime import collapse_path
@@ -2048,7 +1579,7 @@ def profile_target(name, dev):
 
         trans, inputs, _, li, _ = lattice_case(rng, dev, torch.float32, B, T, N, 1, (500, T),
                                                [1] * B)
-        return (lambda: vk.viterbi_forward_pallas(trans, inputs, li, route="warp")), RUNS
+        return lambda: vk.viterbi_forward_pallas(trans, inputs, li, route="warp")
     if name == "k11_warp":
         # the kernel's serving-shape case: K10's backpointers and final labels
         from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
@@ -2057,7 +1588,7 @@ def profile_target(name, dev):
                                                [1] * B)
         d_end, bp = vk.viterbi_forward_pallas(trans, inputs, li)
         final = vk.argmax_first(d_end, dim=1)[1]
-        return (lambda: vk.viterbi_backtrace_pallas(final, bp, li, route="warp")), RUNS
+        return lambda: vk.viterbi_backtrace_pallas(final, bp, li, route="warp")
     if name in ("k12_warp", "k13_warp"):
         # the kernels' serving-shape case; K13 on K12's advance bits
         from torch_asg_tpu_torch.ops.fac import make_aligned
@@ -2067,10 +1598,10 @@ def profile_target(name, dev):
                                                       (T // 2, T), (10, S))
         lat = make_aligned(trans, inputs, targets, li, lo)
         if name == "k12_warp":
-            return (lambda: vk.align_forward_pallas(lat, li, route="warp")), RUNS
+            return lambda: vk.align_forward_pallas(lat, li, route="warp")
         adv = vk.align_forward_pallas(lat, li)[1]
         end_s = (lo - 1).to(torch.int32)
-        return (lambda: vk.align_backtrace_pallas(end_s, adv, li, route="warp")), RUNS
+        return lambda: vk.align_backtrace_pallas(end_s, adv, li, route="warp")
     if name in ("k2_warp", "lattice_warp"):
         # the kernels' training-shape case
         case = lattice_case(rng, dev, torch.float32, B, T, N, S, (500, 1000), (10, S))
@@ -2081,7 +1612,7 @@ def profile_target(name, dev):
             args = k1_args(case)
             pb, qb = ak._fwd_store_kernel(*args, route="warp")[:2]
             bargs = args[:6] + (pb, qb, g, -g)
-            return (lambda: ak._bwd_kernel(*bargs, route="warp")), RUNS
+            return lambda: ak._bwd_kernel(*bargs, route="warp")
         from torch_asg_tpu_torch.ops.fac import make_aligned
         from torch_asg_tpu_torch.ops.kernels import fac_kernels as ak
         from torch_asg_tpu_torch.ops.kernels import fcc_kernels as fk
@@ -2099,25 +1630,16 @@ def profile_target(name, dev):
             ak.fac_beta_pallas(lat, li, lo, route="warp")
             ak.fac_bwd_pallas(lat, *fac_chains, g, route="warp")
 
-        return warp_routes, RUNS
-    if name == "train_prefetch":
-        # train_prefetch's prefetched loop over batches of its shape
-        from torch_asg_tpu_torch.models import create_train_state, make_train_step
-
-        model = letter_model(rng, dev)
-        state = create_train_state(model)
-        step = make_train_step(model, state.optimizer)
-        raw = prefetch_batches(rng)
-        return (lambda: run_loop(state, step, lambda: prefetched(raw, dev))), 3
+        return warp_routes
     if name.endswith("criterion") or name == "pallas_scores":
         # asg_loss forward + backward on fixed emissions, as the training
-        # phases time it; or one score-only call through the per-lattice
+        # phases run it; or one score-only call through the per-lattice
         # tier on them
         if name == "wordpiece_criterion":
-            n, impl, runs = WP_N, "auto", 10
+            n, impl = WP_N, "auto"
             model, batch = letter_model(rng, dev, WP_N), wordpiece_batch(rng, dev)
         else:
-            n, impl, runs = N, "pallas" if name == "pallas_criterion" else "auto", RUNS
+            n, impl = N, "pallas" if name == "pallas_criterion" else "auto"
             model = letter_model(rng, dev)
             batch = prepare_batch(*train_batch(rng), dev)
         li = model.output_length(batch["feature_lengths"]).to(torch.int32)
@@ -2131,35 +1653,13 @@ def profile_target(name, dev):
                     asg_scores(tr, em, batch["targets"], li, batch["target_lengths"],
                                impl="pallas")
 
-            return scores, runs
+            return scores
 
         def criterion():
             out = asg_loss(tr, em, batch["targets"], li, batch["target_lengths"], impl=impl)
             torch.autograd.grad(out, (tr, em))
 
-        return criterion, runs
-    if name == "stream_chunk":
-        # one streaming chunk of 100 frames at the serving width from a fresh
-        # state: the scores with their read-out, and the best path
-        import torch_asg_tpu_torch as pt
-
-        chunk = torch.as_tensor(rng.normal(size=(100, B, N)).astype(np.float32), device=dev)
-        trans = torch.as_tensor((rng.normal(size=(N, N)) * 0.5).astype(np.float32),
-                                device=dev)
-        targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
-                                  device=dev)
-        lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
-        pre = pt.streaming_targets(trans, targets, N, lo)
-        st, vst = pt.streaming_init(B, N, S, device=dev), pt.streaming_viterbi_init(B, N,
-                                                                                     device=dev)
-
-        def chunk_update():
-            with torch.no_grad():
-                pt.streaming_scores(pt.streaming_update(trans, st, chunk, stream_targets=pre),
-                                    lo)
-                pt.streaming_viterbi_update(trans, vst, chunk)
-
-        return chunk_update, 5
+        return criterion
     # a serving request's inputs, as ``serve`` and ``serve_posterior`` draw them
     model = letter_model(rng, dev).eval()
     trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
@@ -2167,13 +1667,6 @@ def profile_target(name, dev):
     feat_lengths = torch.as_tensor(rng.integers(1000, 2001, size=B), device=dev)
     feats = torch.as_tensor(rng.normal(size=(B, 2000, FEATURES)).astype(np.float32),
                             device=dev)
-    if name == "serve_nbest":
-        from torch_asg_tpu_torch import viterbi_nbest
-
-        with torch.no_grad():
-            em = model(feats)
-            li = model.output_length(feat_lengths).to(torch.int32)
-        return (lambda: viterbi_nbest(trans, em, NBEST_K, li)), 5
     if name == "serve_decode":
         with torch.no_grad():
             em = model(feats)
@@ -2183,7 +1676,7 @@ def profile_target(name, dev):
             with torch.no_grad():
                 viterbi_decode(trans, em, li)
 
-        return decode, RUNS
+        return decode
     if name == "serve_scores":
         lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
         targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
@@ -2196,7 +1689,7 @@ def profile_target(name, dev):
             with torch.no_grad():
                 asg_scores(trans, em, targets, li, lo)
 
-        return scores, RUNS
+        return scores
     check(name == "posterior_request", f"no profile named {name!r}")
 
     def request():
@@ -2208,26 +1701,21 @@ def profile_target(name, dev):
                 collapse_path(paths[:, b], ALPHABET, MAX_REPS, use_native=True)
         torch.cuda.synchronize()
 
-    return request, 5
+    return request
 
 
 def profile_main(argv):
-    """``chip_smoke.py --profile NAME [--root DIR]``: print ``profile_call``'s
-    reading of one profile, taken as this process's first profiler
-    session."""
+    """``chip_smoke.py --profile NAME``: print ``profile_call``'s reading of
+    one profile, taken as this process's first profiler session after one
+    call outside it (library loads, cuDNN set-up)."""
     name = argv[argv.index("--profile") + 1]
-    checked = "--root" not in argv
-    if not checked:
-        sys.path.insert(0, argv[argv.index("--root") + 1])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fn, runs = profile_target(name, torch.device("cuda", 0))
-    call_ms = time_ms(fn, runs=runs)
+    fn = profile_target(name, torch.device("cuda", 0))
+    fn()
     out = device_profile(fn, PROFILES[name])
-    complete = (all(n == 1 for n in out["phase_launches"].values()) if checked else None)
-    emit({"profile": name, **out, "call_ms": call_ms, "complete": complete,
-          "idle_share": (None if complete is False
-                         else 1.0 - out["device_busy_ms"] / call_ms)})
+    emit({"profile": name, **out,
+          "complete": all(n == 1 for n in out["phase_launches"].values())})
     return 0
 
 
@@ -2256,15 +1744,11 @@ def wordpiece_batch(rng, dev):
 def train_wordpiece(rng, dev):
     """The full-width Wav2Letter with a 10,000-wordpiece head trains on one
     fixed batch through the port's entry points ('auto' runs the matmul
-    tier): one warm-up step, then 5 timed steps, each ending in a device
-    synchronise."""
+    tier): one warm-up step, then 5 counted steps."""
     from torch_asg_tpu_torch import asg_loss, asg_scores
     from torch_asg_tpu_torch.models import create_train_state, loss_fn, make_train_step
     from torch_asg_tpu_torch.ops.fcc import force_dual_streams
-    from torch_asg_tpu_torch.ops.kernels.asg_kernels import (_bwd_kernel,
-                                                              _fwd_store_kernel,
-                                                              asg_scores_fused)
-    from torch_asg_tpu_torch.ops.kernels.bigvocab_kernels import fcc_dual_streams
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
     model = letter_model(rng, dev, WP_N)
     state = create_train_state(model)
@@ -2297,75 +1781,36 @@ def train_wordpiece(rng, dev):
 
     state, loss_before = step(state, batch)  # warm-up; its loss precedes any update
     loss_before = float(loss_before)
-    counters = (fcc_dual_streams, asg_scores_fused, _fwd_store_kernel, _bwd_kernel)
-    for c in counters:
-        c.launches = 0
-    losses, latencies = [], []
+    LAUNCHES.clear()
+    losses = []
     for _ in range(5):
-        t0 = time.perf_counter()
         state, loss = step(state, batch)
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
         check(finite_grads(), "non-finite gradient in a wordpiece training step")
-    launches = {c.__name__: c.launches for c in counters}
-    check(launches == {"fcc_dual_streams": 5, "asg_scores_fused": 0,
-                       "_fwd_store_kernel": 0, "_bwd_kernel": 0},
+    launches = launched("K9", "K1", "K1s", "K2")
+    check(launches == {"K9": 5, "K1": 0, "K1s": 0, "K2": 0},
           f"each wordpiece step must launch K9 once and K1, K1s, K2 never: {launches}")
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch))
     check(loss_after < loss_before, f"loss did not fall: {loss_before} -> {loss_after}")
-    median_ms = statistics.median(latencies)
     # a forward-only call runs the beta chain alone: no K9
-    before = fcc_dual_streams.launches
+    before = LAUNCHES["K9"]
     with torch.no_grad():
         full, aligned = asg_scores(state.transition, em0, targets, li, lo)
     torch.cuda.synchronize()
-    check(fcc_dual_streams.launches == before, "a forward-only call launched K9")
+    check(LAUNCHES["K9"] == before, "a forward-only call launched K9")
     check(bool(torch.isfinite(full).all() and (full >= aligned - 1e-2).all()),
           "forward-only wordpiece scores")
-
-    # one more step, synchronised after each stage
-    marks = [time.perf_counter()]
-
-    def mark():
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-
-    state.optimizer.zero_grad(set_to_none=True)
-    em = model(batch["features"])
-    mark()
-    loss = asg_loss(state.transition, em, targets, li, lo)
-    mark()
-    loss.backward()
-    mark()
-    state.optimizer.step()
-    mark()
-    stages = dict(zip(("encoder_forward", "asg_loss_forward", "backward", "optimizer_step"),
-                      [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]))
-
-    em_fixed = em0.detach().clone().requires_grad_(True)
-    tr_fixed = state.transition.detach().clone().requires_grad_(True)
-
-    def criterion():
-        out = asg_loss(tr_fixed, em_fixed, targets, li, lo)
-        torch.autograd.grad(out, (tr_fixed, em_fixed))
-
-    criterion_ms = time_ms(criterion, runs=10)
     profiled = profile_call("wordpiece_criterion")
-    frames = int(li.sum())
+    check(profiled["complete"], f"the wordpiece criterion must run K9's kernels: {profiled}")
     emit({"phase": "train_wordpiece", "card": torch.cuda.get_device_name(0),
-          "batch": WP_B, "labels": WP_N, "frames_max": int(li.max()), "frames_sum": frames,
-          "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
-          "frames_per_s": frames / (median_ms * 1e-3), "loss_before": loss_before,
+          "batch": WP_B, "labels": WP_N, "frames_max": int(li.max()),
+          "frames_sum": int(li.sum()), "steps": 5, "loss_before": loss_before,
           "losses": losses, "loss_after": loss_after, "launches": launches,
           "grad_tolerance": "rtol 1e-3, atol 1e-4 x max|scan gradient| (fp32)",
-          "max_abs_err_grads_vs_scans": grad_errs, "stage_ms": stages,
-          "criterion_fwd_bwd_ms": criterion_ms,
-          "criterion_frames_per_s": frames / (criterion_ms * 1e-3),
-          "criterion_profile": profiled})
-    return {"fcc_dual_streams": launches["fcc_dual_streams"]}
+          "max_abs_err_grads_vs_scans": grad_errs, "criterion_profile": profiled})
+    return {"K9": launches["K9"]}
 
 
 def align(rng, dev):
@@ -2376,9 +1821,7 @@ def align(rng, dev):
     -inf; K12 and K13 must take the route 'auto' takes at S slots."""
     from torch_asg_tpu_torch import alignment_segments, viterbi_align
     from torch_asg_tpu_torch.convert import transition_from_numpy
-    from torch_asg_tpu_torch.ops.kernels.common import ROUTES, width_route
-    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (align_backtrace_pallas,
-                                                                 align_forward_pallas)
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES, width_route
 
     model = letter_model(rng, dev).eval()
     trans = transition_from_numpy(rng.normal(size=(N, N)) * 0.5, device=dev,
@@ -2404,21 +1847,12 @@ def align(rng, dev):
         return em, li, ali, seg
 
     answer(*requests[0])  # warm-up
-    counters = (align_forward_pallas, align_backtrace_pallas)
-    for c in counters:
-        c.launches = 0
-        for route in ROUTES:
-            setattr(c, f"launches_{route}", 0)
-    latencies, outs = [], []
-    for req in requests[1:]:
-        t0 = time.perf_counter()
-        outs.append(answer(*req) + (req[2], req[3]))
-        latencies.append((time.perf_counter() - t0) * 1e3)
-    launches = {c.__name__: c.launches for c in counters}
-    check(launches == {"align_forward_pallas": 3, "align_backtrace_pallas": 3},
+    LAUNCHES.clear()
+    outs = [answer(*req) + (req[2], req[3]) for req in requests[1:]]
+    launches = launched("K12", "K13")
+    check(launches == {"K12": 3, "K13": 3},
           f"each alignment request must launch K12 and K13 once: {launches}")
-    align_routes = {f"{c.__name__}.{route}": getattr(c, f"launches_{route}")
-                    for c in counters for route in ROUTES}
+    align_routes = launched("K12", "K13", routes=True)
     want = {k: 3 if k.endswith("." + width_route(S)) else 0 for k in align_routes}
     check(align_routes == want,
           f"every K12 and K13 launch must take the route 'auto' takes: {align_routes}")
@@ -2438,8 +1872,7 @@ def align(rng, dev):
                   and (starts[b, 1:k] == ends[b, :k - 1] + 1).all()
                   and (starts[b, k:] == -1).all(), f"spans of element {b} do not partition it")
     emit({"phase": "align", "card": torch.cuda.get_device_name(0), "requests": 3,
-          "batch": B, "frames": T, "latency_ms": latencies,
-          "median_latency_ms": statistics.median(latencies), "launches": launches,
+          "batch": B, "frames": T, "launches": launches,
           "route_launches": align_routes, "positions_equal_xla": True,
           "empty_transcript_scores": [float(o[2].scores[0]) for o in outs]})
     return launches
@@ -2470,22 +1903,18 @@ GRAD_MISS_FACTOR = 2
 def train_pallas(rng, dev, utts, labels):
     """The full-width Wav2Letter trains on ``train``'s batch through the
     per-lattice tier, ``make_train_step(model, opt, impl='pallas')``: one
-    warm-up step, then 5 timed steps, each ending in a device synchronise.
-    Each step must launch K3, K5, K6, K7 and K8 once and K4, K1, K1s, K2 and
-    K9 never, K3 and K5-K8 on the route 'auto' takes; a score-only
-    ``asg_scores(impl='pallas')`` call must launch K4 and K7 once, on the
-    route 'auto' takes, and nothing else.  The first step's gradients are
+    warm-up step, then 5 counted steps.  Each step must launch K3, K5, K6,
+    K7 and K8 once and K4, K1, K1s, K2 and K9 never, K3 and K5-K8 on the
+    route 'auto' takes; a score-only ``asg_scores(impl='pallas')`` call
+    must launch K4 and K7 once, on the route 'auto' takes, and nothing
+    else.  The first step's gradients are
     held against the scan tier's as the comment below says.  The score-only
-    call is timed (``scores_only_ms``, beside the fused tier's
-    ``scores_only_fused_ms`` on the same inputs) and profiled
-    (``pallas_scores``).  Returns the launch counts of the timed steps (K4:
-    of the score-only call)."""
+    call and the criterion alone are profiled (``pallas_scores``,
+    ``pallas_criterion``).  Returns the launch counts of the counted steps
+    (K4: of the score-only call)."""
     from torch_asg_tpu_torch import asg_loss, asg_scores
     from torch_asg_tpu_torch.models import create_train_state, loss_fn, make_train_step
-    from torch_asg_tpu_torch.ops.kernels.asg_kernels import (_bwd_kernel,
-                                                              _fwd_store_kernel,
-                                                              asg_scores_fused)
-    from torch_asg_tpu_torch.ops.kernels.bigvocab_kernels import fcc_dual_streams
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
     model = letter_model(rng, dev)
     state = create_train_state(model)
@@ -2541,39 +1970,27 @@ def train_pallas(rng, dev, utts, labels):
 
     state, _ = step(state, batch)  # warm-up
     torch.cuda.synchronize()
-    lattice = lattice_counters()
-    counters = (*lattice, asg_scores_fused, _fwd_store_kernel, _bwd_kernel, fcc_dual_streams)
-    for c in counters:
-        c.launches = 0
-    lattice_route_launches(reset=True)
-    losses, latencies = [], []
+    kernels = (*LATTICE_WIDTHS, "K1", "K1s", "K2", "K9")
+    LAUNCHES.clear()
+    losses = []
     for _ in range(5):
-        t0 = time.perf_counter()
         state, loss = step(state, batch)
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
         check(finite_grads(), "non-finite gradient in a per-lattice training step")
-    launches = {c.__name__: c.launches for c in counters}
-    want = dict.fromkeys(launches, 0)
-    want.update({c.__name__: 5 for c in lattice})
-    want["fcc_beta_pallas"] = 0
+    launches = launched(*kernels)
+    want = dict.fromkeys(kernels, 0)
+    want.update(K3=5, K5=5, K6=5, K7=5, K8=5)
     check(launches == want,
           f"each step must launch K3, K5, K6, K7, K8 once and K4, K1, K1s, K2, K9 never: "
           f"{launches}")
-    routes_seen = check_lattice_auto_route(fcc_fwd_pallas=5, fcc_bwd_pallas=5,
-                                           fac_alpha_pallas=5, fac_beta_pallas=5,
-                                           fac_bwd_pallas=5)
+    routes_seen = check_lattice_auto_route(K3=5, K5=5, K6=5, K7=5, K8=5)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     with torch.no_grad():
         loss_after = float(loss_fn(model, state, batch, impl="pallas"))
     check(loss_after < losses[0], f"loss did not fall: {losses[0]} -> {loss_after}")
-    median_ms = statistics.median(latencies)
 
     # a score-only call: K4 and K7, nothing else, each on the route 'auto' takes
-    for c in counters:
-        c.launches = 0
-    lattice_route_launches(reset=True)
+    LAUNCHES.clear()
 
     def scores_only(impl):
         with torch.no_grad():
@@ -2582,68 +1999,35 @@ def train_pallas(rng, dev, utts, labels):
     full, aligned = scores_only("pallas")
     ref_full, ref_aligned = scores_only("scan")
     torch.cuda.synchronize()
-    score_only = {c.__name__: c.launches for c in counters}
-    want = dict.fromkeys(score_only, 0)
-    want.update(fcc_beta_pallas=1, fac_beta_pallas=1)
+    score_only = launched(*kernels)
+    want = dict.fromkeys(kernels, 0)
+    want.update(K4=1, K7=1)
     check(score_only == want, f"a score-only call must launch K4 and K7 only: {score_only}")
-    score_only_routes = check_lattice_auto_route(fcc_beta_pallas=1, fac_beta_pallas=1)
+    score_only_routes = check_lattice_auto_route(K4=1, K7=1)
     torch.testing.assert_close(full, ref_full, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(aligned, ref_aligned, rtol=1e-4, atol=1e-3)
-    # the score-only call timed (and, for orientation, the fused tier's on
-    # the same inputs), and profiled in a process of its own
-    scores_only_ms = time_ms(lambda: scores_only("pallas"))
-    scores_only_fused_ms = time_ms(lambda: scores_only("auto"))
+    # the score-only call and the criterion alone, each profiled in a
+    # process of its own
     scores_profile = profile_call("pallas_scores")
-
-    # one more step, synchronised after each stage
-    marks = [time.perf_counter()]
-
-    def mark():
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-
-    state.optimizer.zero_grad(set_to_none=True)
-    em = model(batch["features"])
-    mark()
-    loss = asg_loss(state.transition, em, targets, li, lo, impl="pallas")
-    mark()
-    loss.backward()
-    mark()
-    state.optimizer.step()
-    mark()
-    stages = dict(zip(("encoder_forward", "asg_loss_forward", "backward", "optimizer_step"),
-                      [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]))
-
-    em_fixed = em0.detach().clone().requires_grad_(True)
-    tr_fixed = state.transition.detach().clone().requires_grad_(True)
-
-    def criterion():
-        out = asg_loss(tr_fixed, em_fixed, targets, li, lo, impl="pallas")
-        torch.autograd.grad(out, (tr_fixed, em_fixed))
-
-    criterion_ms = time_ms(criterion)
+    check(scores_profile["complete"],
+          f"the score-only call must run K4's and K7's warp kernels: {scores_profile}")
     profiled = profile_call("pallas_criterion")
-    frames = int(li.sum())
+    check(profiled["complete"],
+          f"the criterion must run K3's and K5-K8's warp kernels: {profiled}")
     emit({"phase": "train_pallas", "card": torch.cuda.get_device_name(0), "batch": B,
-          "frames_max": int(li.max()), "frames_sum": frames,
-          "steps": 5, "step_ms": latencies, "median_step_ms": median_ms,
-          "frames_per_s": frames / (median_ms * 1e-3), "losses": losses,
-          "loss_after": loss_after, "launches": launches,
+          "frames_max": int(li.max()), "frames_sum": int(li.sum()),
+          "steps": 5, "losses": losses, "loss_after": loss_after, "launches": launches,
           "route_launches": routes_seen, "score_only_launches": score_only,
           "score_only_route_launches": score_only_routes,
-          "scores_only_ms": scores_only_ms, "scores_only_fused_ms": scores_only_fused_ms,
           "scores_only_profile": scores_profile,
           "grad_tolerance": (f"rtol {GRAD_TOL[0]:g}, atol {GRAD_TOL[1]:g} x max|scan "
                              f"gradient|: fp64 every entry; fp32 against the fp64 scan tier, "
                              f"at most {GRAD_MISS_FACTOR} x the fp32 scan tier's misses"),
           "max_abs_err_grads_vs_scan": grad_errs,
           "max_abs_err_grads_vs_scan_fp64": grad_errs_fp64,
-          "fp32_grads_outside_tolerance": fp32_outside, "stage_ms": stages,
-          "criterion_fwd_bwd_ms": criterion_ms,
-          "criterion_frames_per_s": frames / (criterion_ms * 1e-3),
-          "criterion_profile": profiled})
-    counts = {c.__name__: launches[c.__name__] for c in lattice}
-    counts["fcc_beta_pallas"] = score_only["fcc_beta_pallas"]
+          "fp32_grads_outside_tolerance": fp32_outside, "criterion_profile": profiled})
+    counts = {k: launches[k] for k in LATTICE_WIDTHS}
+    counts["K4"] = score_only["K4"]
     return counts
 
 
@@ -2662,6 +2046,7 @@ def serve_posterior(rng, dev):
     top two posteriors are more than 2 * POST_TOL apart."""
     from torch_asg_tpu_torch import fcc_posteriors, posterior_decode
     from torch_asg_tpu_torch.convert import transition_from_numpy
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
     from torch_asg_tpu_torch.ops.posteriors import _pallas_posteriors
     from torch_asg_tpu_torch.runtime import collapse_path
 
@@ -2675,47 +2060,29 @@ def serve_posterior(rng, dev):
         requests.append([torch.as_tensor(x, device=dev) for x in (feats, feat_lengths)])
     torch.cuda.synchronize()
 
-    def answer(feats, feat_lengths, sync=lambda: None):
-        marks = [time.perf_counter()]
-
-        def mark():
-            sync()
-            marks.append(time.perf_counter())
-
+    def answer(feats, feat_lengths):
         with torch.no_grad():
             em = model(feats)
             li = model.output_length(feat_lengths).to(torch.int32)
-            mark()
             dec = posterior_decode(trans, em, li)
-            mark()
             paths = dec.paths.cpu().numpy()
             hyps = [collapse_path(paths[:, b], ALPHABET, MAX_REPS, use_native=True)
                     for b in range(B)]
         torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        return (em, li, dec, hyps), [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        return em, li, dec, hyps
 
     answer(*requests[0])  # warm-up
-    counters = lattice_counters()
-    for c in counters:
-        c.launches = 0
-    lattice_route_launches(reset=True)
-    latencies, outs = [], []
-    for req in requests[1:]:
-        out, stage_ms = answer(*req)
-        latencies.append(sum(stage_ms))
-        outs.append(out)
-    launches = {c.__name__: c.launches for c in counters}
+    LAUNCHES.clear()
+    outs = [answer(*req) for req in requests[1:]]
+    launches = launched(*LATTICE_WIDTHS)
     want = dict.fromkeys(launches, 0)
-    want.update(fcc_fwd_pallas=3, fcc_bwd_pallas=3)
+    want.update(K3=3, K5=3)
     check(launches == want, f"each request must launch K3 and K5 once, K4 never: {launches}")
-    routes_seen = check_lattice_auto_route(fcc_fwd_pallas=3, fcc_bwd_pallas=3)
-    _, stage_ms = answer(*requests[1], sync=torch.cuda.synchronize)
-    stages = dict(zip(("encoder", "posterior_decode", "paths_to_host_and_collapse"),
-                      stage_ms))
-    median_ms = statistics.median(latencies)
-    # one request under the profiler: the device's busy time and idle share
+    routes_seen = check_lattice_auto_route(K3=3, K5=3)
+    # one request under the profiler: the kernels it launches
     request_profile = profile_call("posterior_request")
+    check(request_profile["complete"],
+          f"a request must run K3's and K5's warp kernels: {request_profile}")
 
     for em, li, dec, hyps in outs:
         check(tuple(em.shape) == (T, B, N), f"emissions shape {tuple(em.shape)}")
@@ -2743,10 +2110,9 @@ def serve_posterior(rng, dev):
     check(bool(((dec.scores - ref.scores).abs() <= POST_TOL * li).all()),
           "decode scores differ from the scan tier's")
     emit({"phase": "serve_posterior", "card": torch.cuda.get_device_name(0),
-          "requests": 3, "batch": B, "frames": T, "latency_ms": latencies,
-          "median_latency_ms": median_ms, "launches": launches,
-          "route_launches": routes_seen, "stage_ms_second_request": stages,
-          "request_profile": request_profile, "posterior_tolerance": POST_TOL,
+          "requests": 3, "batch": B, "frames": T, "launches": launches,
+          "route_launches": routes_seen, "request_profile": request_profile,
+          "posterior_tolerance": POST_TOL,
           "max_abs_err_posteriors_vs_scan": post_err,
           "frames_decided": int(decided.sum()), "frames_valid": int(valid.sum()),
           "paths_equal_scan_share": float((dec.paths == ref.paths)[valid].float().mean()),
@@ -2808,49 +2174,29 @@ def serve_nbest(rng, dev):
         requests.append([torch.as_tensor(x, device=dev) for x in (feats, feat_lengths)])
     torch.cuda.synchronize()
 
-    def answer(feats, feat_lengths, decoder, sync=lambda: None):
+    def answer(feats, feat_lengths, decoder):
         """One request through ``decoder`` ('nbest' or 'beam')."""
-        marks = [time.perf_counter()]
-
-        def mark():
-            sync()
-            marks.append(time.perf_counter())
-
         with torch.no_grad():
             em = model(feats)
             li = model.output_length(feat_lengths).to(torch.int32)
-            mark()
             if decoder == "nbest":
                 res = viterbi_nbest(trans, em, NBEST_K, li)
             else:
                 res = beam_decode(trans, em, li, beam_size=BEAM)
-            mark()
             paths = res.paths.cpu().numpy().reshape(T, B, -1)
             hyps = [collapse_path(paths[:, b, r], ALPHABET, MAX_REPS, use_native=True)
                     for b in range(B) for r in range(paths.shape[2])]
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        return (em, li, res, hyps), [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        return em, li, res, hyps
 
     for decoder in ("nbest", "beam"):
         answer(*requests[0], decoder)  # warm-up
-    latencies = {"nbest": [], "beam": [], "beam_nbest": []}
     outs = []
     for req in requests[1:]:
-        out, stage_ms = answer(*req, "nbest")
-        latencies["nbest"].append(sum(stage_ms))
-        beam_out, stage_ms = answer(*req, "beam")
-        latencies["beam"].append(sum(stage_ms))
-        t0 = time.perf_counter()
+        out = answer(*req, "nbest")
+        beam_out = answer(*req, "beam")
         with torch.no_grad():
             bn = beam_nbest(trans, out[0], NBEST_K, out[1], beam_size=BEAM)
-        torch.cuda.synchronize()
-        latencies["beam_nbest"].append((time.perf_counter() - t0) * 1e3)
         outs.append(out + (beam_out[2], bn))
-    names = ("encoder", "decode", "paths_to_host_and_collapse")
-    stages = {d: dict(zip(names, answer(*requests[1], d, sync=torch.cuda.synchronize)[1]))
-              for d in ("nbest", "beam")}
-    profiled = profile_call("serve_nbest")
 
     errs = {}
     for i, (em, li, nb, hyps, bd, bn) in enumerate(outs):
@@ -2891,30 +2237,20 @@ def serve_nbest(rng, dev):
     wp_li[0] = WP_T
     cpu = [torch.from_numpy(x) for x in (wp_trans, wp_em, wp_li)]
     card = [x.to(dev) for x in cpu]
-    wp_ms = {}
     for name, fn in (("beam_decode", lambda a: beam_decode(*a, beam_size=BEAM)),
                      ("beam_nbest", lambda a: beam_nbest(a[0], a[1], NBEST_K, a[2],
                                                          beam_size=BEAM))):
-        fn(card)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         got = fn(card)
-        torch.cuda.synchronize()
-        wp_ms[name] = (time.perf_counter() - t0) * 1e3
         want = fn(cpu)
         check(torch.equal(got.scores.cpu(), want.scores)
               and torch.equal(got.paths.cpu(), want.paths),
               f"{name} at the wordpiece shape on the card differs from its CPU run")
     emit({"phase": "serve_nbest", "card": torch.cuda.get_device_name(0), "requests": 3,
           "batch": B, "frames": T, "k": NBEST_K, "beam_size": BEAM,
-          "latency_ms": latencies,
-          "median_latency_ms": {k: statistics.median(v) for k, v in latencies.items()},
-          "stage_ms_first_request": stages, "viterbi_nbest_profile": profiled,
           "card_equals_cpu": True, "rank0_equals_viterbi_decode": True,
           "rescore_tolerance": "2 L 2^-24 sum|terms| (fp32 accumulation bound)",
           "max_abs_err_rescored": errs,
-          "wordpiece_shape": {"T": WP_T, "B": WP_B, "N": WP_N, "call_ms": wp_ms,
-                              "card_equals_cpu": True}})
+          "wordpiece_shape": {"T": WP_T, "B": WP_B, "N": WP_N, "card_equals_cpu": True}})
 
 
 # Streaming phases: each stream's chunk length is drawn per chunk from
@@ -2926,27 +2262,6 @@ STREAM_CHUNK = (50, 150)
 STREAM_TOL = (1e-4, 1e-3)
 STREAM_F64_RTOL = 1e-9
 LEXICON_WORDS, LEXICON_LETTERS, POSTERIOR_B = 200, (2, 10), 8
-
-
-def port_kernel_wrappers():
-    """The wrappers of the port's 14 kernels, each counting its launches."""
-    from torch_asg_tpu_torch.ops.kernels import asg_kernels as ak
-    from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as vk
-    from torch_asg_tpu_torch.ops.kernels.bigvocab_kernels import fcc_dual_streams
-
-    return (ak.asg_scores_fused, ak._fwd_store_kernel, ak._bwd_kernel, fcc_dual_streams,
-            vk.viterbi_forward_pallas, vk.viterbi_backtrace_pallas, vk.align_forward_pallas,
-            vk.align_backtrace_pallas) + lattice_counters()
-
-
-def port_launches(reset=False):
-    """{wrapper: launches} over the 14 kernels; with ``reset`` set to 0 first."""
-    out = {}
-    for w in port_kernel_wrappers():
-        if reset:
-            w.launches = 0
-        out[w.__name__] = w.launches
-    return out
 
 
 def stream_chunks(rng, em, li):
@@ -2969,21 +2284,10 @@ def stream_chunks(rng, em, li):
     return chunks
 
 
-def cuda_ms(fn):
-    """(fn(), its time on the card in ms by CUDA events)."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end)
-
-
-def run_stream(chunks, trans, pre, lo, dev, dtype, timed=False, mid=None):
+def run_stream(chunks, trans, pre, lo, dev, dtype, mid=None):
     """Feed every chunk to the five streaming surfaces (scores with their
     read-out, Viterbi, alignment, beam, n-best) on ``dev`` at ``dtype``.
-    Returns (read-outs at the end, read-outs after chunk ``mid`` or None,
-    {surface: [ms per chunk]} when ``timed``)."""
+    Returns (read-outs at the end, read-outs after chunk ``mid`` or None)."""
     import torch_asg_tpu_torch as pt
 
     nb = chunks[0][0].shape[1]
@@ -3005,24 +2309,18 @@ def run_stream(chunks, trans, pre, lo, dev, dtype, timed=False, mid=None):
         "nbest": lambda st, c, cl: pt.streaming_nbest_update(trans, st, c, cl),
     }
     outs = {name: [] for name in steps}
-    times = {name: [] for name in steps}
     snapshot = None
     for i, (chunk, cl) in enumerate(chunks):
         chunk, cl = chunk.to(dev, dtype), cl.to(dev)
         for name, step in steps.items():
-            def call():
-                st, out = step(states[name], chunk, cl)
-                if name == "scores":
-                    pt.streaming_scores(st, lo)  # the per-chunk read-out
-                return st, out
-
-            (states[name], out), ms = cuda_ms(call) if timed else (call(), None)
-            times[name].append(ms)
+            states[name], out = step(states[name], chunk, cl)
+            if name == "scores":
+                pt.streaming_scores(states[name], lo)  # the per-chunk read-out
             if out is not None:
                 outs[name].append(out)
         if i == mid:
             snapshot = stream_readouts(states, outs, pre, lo)
-    return stream_readouts(states, outs, pre, lo), snapshot, times
+    return stream_readouts(states, outs, pre, lo), snapshot
 
 
 def stream_readouts(states, outs, pre, lo):
@@ -3110,11 +2408,12 @@ def serve_stream(rng, dev):
     beam_decode, beam_nbest, viterbi_nbest); a float64 stream against the
     float64 scan tier at STREAM_F64_RTOL; the float64 stream on the card
     equal to the same stream on the CPU.  The streaming updates launch no
-    kernel of the port.  Timed: each surface's update per chunk (CUDA
-    events), the whole-stream request (first chunk to hypotheses on the
-    host), and one chunk profiled in a new process (``stream_chunk``)."""
+    kernel of the port.  Last, a whole-stream request (scores and the best
+    path after every chunk, then the hypotheses on the host) gives a
+    hypothesis for every element."""
     import torch_asg_tpu_torch as pt
     from torch_asg_tpu_torch.convert import transition_from_numpy
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
     from torch_asg_tpu_torch.runtime import collapse_path
 
     model = letter_model(rng, dev).eval()
@@ -3136,11 +2435,9 @@ def serve_stream(rng, dev):
     pre = pt.streaming_targets(trans, targets, N, lo)
 
     with torch.no_grad():
-        run_stream(chunks, trans, pre, lo, dev, torch.float32)  # warm-up
-        port_launches(reset=True)
-        end, at_mid, times = run_stream(chunks, trans, pre, lo, dev, torch.float32,
-                                        timed=True, mid=mid)
-        stream_launches = port_launches()
+        LAUNCHES.clear()
+        end, at_mid = run_stream(chunks, trans, pre, lo, dev, torch.float32, mid=mid)
+        stream_launches = dict(LAUNCHES)
         check(not any(stream_launches.values()),
               f"the streaming updates launched kernels of the port: {stream_launches}")
         li_mid = sum(cl for _, cl in chunks[:mid + 1]).to(torch.int32)
@@ -3186,26 +2483,14 @@ def serve_stream(rng, dev):
         return [collapse_path(paths[valid[:, b], b], ALPHABET, MAX_REPS, use_native=True)
                 for b in range(B)]
 
-    request()  # warm-up
-    latencies = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        hyps = request()
-        latencies.append((time.perf_counter() - t0) * 1e3)
+    hyps = request()
     check(all(len(h) > 0 for h in hyps), "empty hypothesis")
-    profiled = profile_call("stream_chunk")
-    lengths = [int(cl.max()) for _, cl in chunks]
     emit({"phase": "serve_stream", "card": torch.cuda.get_device_name(0), "batch": B,
           "frames": T, "labels": N, "slots": S, "chunks": len(chunks),
-          "chunk_frames": STREAM_CHUNK, "chunk_tensor_frames": lengths,
+          "chunk_frames": STREAM_CHUNK,
+          "chunk_tensor_frames": [int(cl.max()) for _, cl in chunks],
           "beam_size": BEAM, "k": NBEST_K, "mid_chunk": mid,
-          "update_ms_median": {k: statistics.median(v) for k, v in times.items()},
-          "update_us_per_frame_median": {
-              k: statistics.median(1e3 * ms / t for ms, t in zip(v, lengths))
-              for k, v in times.items()},
-          "request_ms": latencies, "median_request_ms": statistics.median(latencies),
-          "stream_chunk_profile": profiled, "stream_kernel_launches": stream_launches,
+          "stream_kernel_launches": stream_launches,
           "tolerance_fp32": f"rtol {STREAM_TOL[0]}, atol {STREAM_TOL[1]} (serve's)",
           "tolerance_fp64": f"rtol {STREAM_F64_RTOL}", "max_abs_err": errs,
           "paths_equal_one_shot": True, "fp64_card_equals_cpu": True})
@@ -3231,6 +2516,7 @@ def wfsa(rng, dev):
     acceptor calls launch no kernel of the port."""
     import torch_asg_tpu_torch as pt
     from torch_asg_tpu_torch.ops.fac import make_aligned
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
     from torch_asg_tpu_torch.ops.wfsa import _plan
 
     em = torch.as_tensor(rng.normal(size=(T, B, N)).astype(np.float32), device=dev)
@@ -3241,14 +2527,14 @@ def wfsa(rng, dev):
     targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
                               device=dev)
     lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
-    errs, ms = {}, {}
+    errs = {}
     with torch.no_grad():
         for dtype, (rtol, atol) in ((torch.float32, STREAM_TOL),
                                     (torch.float64, (STREAM_F64_RTOL, 0.0))):
             x, tr = em.to(dtype), trans.to(dtype)
             tag = str(dtype).split(".")[1]
             full = pt.full_wfsa(tr)
-            got, ms[f"full_score_{tag}"] = cuda_ms(lambda: pt.wfsa_score(full, x, li))
+            got = pt.wfsa_score(full, x, li)
             want = pt.fcc_score(tr, x, li)
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
             errs[f"full_vs_fcc_{tag}"] = max_err(got, want)
@@ -3260,9 +2546,9 @@ def wfsa(rng, dev):
                 for b in range(4)])
             torch.testing.assert_close(got, want[:4], rtol=rtol, atol=atol)
             errs[f"chain_vs_fac_{tag}"] = max_err(got, want[:4])
-        port_launches(reset=True)
+        LAUNCHES.clear()
         vit = pt.wfsa_viterbi(pt.full_wfsa(trans), em, li)
-        acceptor_launches = port_launches()
+        acceptor_launches = dict(LAUNCHES)
         ref = pt.viterbi_decode(trans, em, li)  # K10 + K11
         check(torch.equal(vit.labels, ref.paths) and torch.equal(vit.states, ref.paths),
               "the full automaton's best path differs from viterbi_decode's")
@@ -3271,7 +2557,7 @@ def wfsa(rng, dev):
         errs["full_viterbi_vs_viterbi_decode"] = max_err(vit.scores, ref.scores)
 
         # the looped lexicon
-        port_launches(reset=True)
+        LAUNCHES.clear()
         lex = pt.lexicon_wfsa(trans, lexicon_words(rng), loop=True)
         plan = _plan(lex.dst, lex.num_states)
         runs = {}
@@ -3283,9 +2569,9 @@ def wfsa(rng, dev):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            first = cuda_ms(fn)[0]
+            first = fn()
             peak = torch.cuda.max_memory_allocated()
-            second, ms[f"lexicon_{name}"] = cuda_ms(fn)
+            second = fn()
             same = all(torch.equal(a, b) for a, b in
                        zip(*((r,) if isinstance(r, torch.Tensor) else r
                              for r in (first, second))))
@@ -3303,15 +2589,12 @@ def wfsa(rng, dev):
         chunks = stream_chunks(rng, em, li)
         st = pt.streaming_wfsa_init(lex, B, device=dev)
         vst = pt.streaming_wfsa_viterbi_init(lex, B, device=dev)
-        backs, vals, upd_ms, vupd_ms = [], [], [], []
+        backs, vals = [], []
         for chunk, cl in chunks:
-            st, t_ms = cuda_ms(lambda: pt.streaming_wfsa_update(lex, st, chunk, cl))
-            (vst, (bk, v)), v_ms = cuda_ms(
-                lambda: pt.streaming_wfsa_viterbi_update(lex, vst, chunk, cl))
+            st = pt.streaming_wfsa_update(lex, st, chunk, cl)
+            vst, (bk, v) = pt.streaming_wfsa_viterbi_update(lex, vst, chunk, cl)
             backs.append(bk)
             vals.append(v)
-            upd_ms.append(t_ms)
-            vupd_ms.append(v_ms)
         valid = torch.cat(vals)
         got = pt.streaming_wfsa_scores(lex, st)
         torch.testing.assert_close(got, score, rtol=STREAM_TOL[0], atol=STREAM_TOL[1])
@@ -3321,23 +2604,14 @@ def wfsa(rng, dev):
             check(torch.equal(compact(getattr(vgot, field), valid, T), getattr(vpath, field)),
                   f"the streamed lexicon {field} differ from wfsa_viterbi's")
         check(torch.equal(vgot.scores, vpath.scores), "streamed lexicon best-path scores")
-        lex_launches = port_launches()
+        lex_launches = dict(LAUNCHES)
     for counts in (acceptor_launches, lex_launches):
         check(not any(counts.values()), f"the acceptor calls launched port kernels: {counts}")
-    lengths = [int(cl.max()) for _, cl in chunks]
     emit({"phase": "wfsa", "card": torch.cuda.get_device_name(0), "batch": B, "frames": T,
           "labels": N, "lexicon": {"words": LEXICON_WORDS, "states": lex.num_states,
                                    "arcs": lex.num_arcs,
                                    "in_degree_buckets": [list(s) for s in plan.shapes]},
-          "call_ms": ms, "chunks": len(chunks),
-          "stream_update_ms_median": {"streaming_wfsa_update": statistics.median(upd_ms),
-                                      "streaming_wfsa_viterbi_update":
-                                          statistics.median(vupd_ms)},
-          "stream_update_us_per_frame_median": {
-              "streaming_wfsa_update": statistics.median(
-                  1e3 * m / t for m, t in zip(upd_ms, lengths)),
-              "streaming_wfsa_viterbi_update": statistics.median(
-                  1e3 * m / t for m, t in zip(vupd_ms, lengths))},
+          "chunks": len(chunks),
           "max_memory_allocated_bytes": {k: v[1] for k, v in runs.items()},
           "peak_above_call_start_bytes": {k: v[2] for k, v in runs.items()},
           "posterior_batch": POSTERIOR_B, "bit_identical_twice": True,
@@ -3369,12 +2643,7 @@ def parallel_rank(rank, world, device_type="cuda"):
 
     import torch_asg_tpu_torch as pt
     from torch_asg_tpu_torch.models import create_train_state, make_train_step
-    from torch_asg_tpu_torch.ops.kernels.asg_kernels import _bwd_kernel, _fwd_store_kernel
-    from torch_asg_tpu_torch.ops.kernels.conv_kernels import conv_dgrad, conv_fwd, conv_wgrad
-    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (align_backtrace_pallas,
-                                                                 align_forward_pallas,
-                                                                 viterbi_backtrace_pallas,
-                                                                 viterbi_forward_pallas)
+    from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
     from torch_asg_tpu_torch.parallel import (asg_loss_dp, asg_loss_seq, asg_loss_vp,
                                               beam_decode_dp, fcc_score_vp, make_mesh,
                                               viterbi_align_dp, viterbi_decode_dp)
@@ -3389,19 +2658,15 @@ def parallel_rank(rank, world, device_type="cuda"):
     mesh = make_mesh(device=device_type)
     rows = slice(rank * B // world, (rank + 1) * B // world)
     out = {"rank": rank, "world": world, "device": str(dev)}
-    counters = (_fwd_store_kernel, _bwd_kernel, conv_fwd, conv_dgrad, conv_wgrad,
-                viterbi_forward_pallas, viterbi_backtrace_pallas, align_forward_pallas,
-                align_backtrace_pallas)
-    launches = dict.fromkeys((c.__name__ for c in counters), 0)
+    launches = dict.fromkeys(("K1s", "K2", "conv_fwd", "conv_dgrad", "conv_wgrad", "K10", "K11",
+                              "K12", "K13"), 0)
 
     def counted(fn, into=launches):
         """fn(), with the port's kernel launches inside it added to ``into``."""
-        for c in counters:
-            c.launches = 0
+        LAUNCHES.clear()
         result = fn()
-        for c in counters:
-            if c.launches:
-                into[c.__name__] = into.get(c.__name__, 0) + c.launches
+        for key, n in LAUNCHES.items():
+            into[key] = into.get(key, 0) + n
         return result
 
     # 1. one data-parallel train step against the single-process step
@@ -3437,8 +2702,6 @@ def parallel_rank(rank, world, device_type="cuda"):
         assert_near(f"dp grad {name}", p.grad, q.grad, *GRAD_TOL)
         errs[name] = max_err(p.grad, q.grad)
     out["dp_max_abs_err"] = errs
-    out["dp_step_ms"] = counted(lambda: time_ms(dp_step, runs=5, warmup=1))
-    out["single_step_ms"] = time_ms(lambda: ref_step(ref_state, batch), runs=5, warmup=1)
     out["tp"] = tp_step_check(initial, batch, world, device_type, counted)
 
     # 2. the decoders on that batch, bit for bit against the single-process calls
@@ -3500,7 +2763,7 @@ def parallel_rank(rank, world, device_type="cuda"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-        loss, call_ms = cuda_ms(vp_call) if device_type == "cuda" else (vp_call(), None)
+        loss = vp_call()
         full = fcc_score_vp(vmesh, tr_b.detach(), x_b.detach(), wp["li"])
         errs = {}
         for label, g, w in (("loss", loss.detach(), ref.detach()), ("fcc_score", full, ref_full),
@@ -3508,8 +2771,7 @@ def parallel_rank(rank, world, device_type="cuda"):
                             ("emissions", x_b.grad, x.grad[:, :, lab])):
             assert_near(f"vp {name} {label}", g, w, *tol)
             errs[label] = max_err(g, w)
-        vp[name] = {"against": impl, "tolerance": tol, "max_abs_err": errs,
-                    "call_ms": call_ms}
+        vp[name] = {"against": impl, "tolerance": tol, "max_abs_err": errs}
         if device_type == "cuda":
             vp[name]["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
             vp[name]["above_start_bytes"] = torch.cuda.max_memory_allocated() - base
@@ -3535,13 +2797,13 @@ def parallel_rank(rank, world, device_type="cuda"):
         loss.backward()
         return loss
 
-    loss, seq_ms = cuda_ms(seq_call) if device_type == "cuda" else (seq_call(), None)
+    loss = seq_call()
     errs = {}
     for label, g, w in (("loss", loss.detach(), ref.detach()), ("transition", tr_s.grad, tr.grad),
                         ("emissions", x_s.grad, x.grad[frames])):
         assert_near(f"seq {label}", g, w, FP64_RTOL, FP64_RTOL)
         errs[label] = max_err(g, w)
-    out["seq"] = {"max_abs_err": errs, "call_ms": seq_ms, "frames_per_rank": c_len}
+    out["seq"] = {"max_abs_err": errs, "frames_per_rank": c_len}
 
     # 5. the transfer-matrix math in one process: SEQ_CHUNKS chunks folded,
     # the all-gather replaced by stacking
@@ -3590,8 +2852,8 @@ def tp_step_check(initial, batch, world, device_type, counted):
     rank passing its 'data' block of ``batch``; its loss, every gradient and
     every stepped parameter against one single-process step on the whole
     batch from the same weights and on the same convolution
-    (``single_step_on_conv1d``), its K1-with-stores and K2 launches, its
-    median time (5 steps) and its peak memory."""
+    (``single_step_on_conv1d``), its K1-with-stores and K2 launches and its
+    peak memory."""
     from torch_asg_tpu_torch.models import (create_train_state, make_train_step,
                                             shard_train_state)
     from torch_asg_tpu_torch.parallel import make_mesh
@@ -3637,8 +2899,6 @@ def tp_step_check(initial, batch, world, device_type, counted):
         grads[name], params[name] = max_err(g, q.grad), max_err(w, q.detach())
     out["max_abs_err"] = {"grads": grads, "stepped_params": params}
     out["entries_within_2_lr"] = sum(int(f.sum()) for f in free.values())
-    out["step_ms"] = counted(lambda: time_ms(lambda: step(state, block), runs=5, warmup=1),
-                             into=launches)
     out["launches"] = launches
     return out
 
@@ -3698,7 +2958,7 @@ def checkpoint_resume(rng, dev):
 def run_examples():
     """The three ``examples/*_torch.py`` at their default arguments on the
     card, in this process, their output captured: each must return 0 and
-    pass its own assertions.  Returns each one's seconds and last line."""
+    pass its own assertions.  Returns each one's last line."""
     import contextlib
     import importlib
     import io
@@ -3709,48 +2969,15 @@ def run_examples():
         results = {}
         for name in ("train_asg_torch", "stream_decode_torch", "nbest_rescore_torch"):
             buf = io.StringIO()
-            t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = importlib.import_module(name).main([])
             torch.cuda.synchronize()
             check(rc == 0, f"examples/{name}.py returned {rc}")
             lines = buf.getvalue().strip().splitlines()
-            results[name] = {"seconds": time.perf_counter() - t0, "last_line": lines[-1]}
+            results[name] = {"last_line": lines[-1]}
     finally:
         sys.path.remove(str(examples))
     return results
-
-
-def chained_request(rng, dev):
-    """One serving request (encoder -> viterbi_decode -> asg_scores) timed by
-    ``utils.profiling.time_fn_chained`` (each request's features depend on the
-    previous request's scores; one synchronise and one scalar fetch at the
-    end, the fetch's own cost subtracted), beside its CUDA-event median."""
-    import torch_asg_tpu_torch as pt
-    from torch_asg_tpu_torch.utils.profiling import fetch_overhead_s, time_fn_chained
-
-    model = letter_model(rng, dev).eval()
-    trans = torch.as_tensor(rng.normal(size=(N, N)) * 0.5, dtype=torch.float32, device=dev)
-    feats = torch.as_tensor(rng.normal(size=(B, 2000, FEATURES)).astype(np.float32),
-                            device=dev)
-    feat_lengths = torch.as_tensor(rng.integers(1000, 2001, size=B), device=dev)
-    targets = torch.as_tensor(rng.integers(0, ALPHABET, size=(B, S)).astype(np.int32),
-                              device=dev)
-    lo = torch.as_tensor(rng.integers(10, S + 1, size=B).astype(np.int32), device=dev)
-
-    def request(x):
-        with torch.no_grad():
-            em = model(x)
-            li = model.output_length(feat_lengths).to(torch.int32)
-            dec = pt.viterbi_decode(trans, em, li)
-            full, _ = pt.asg_scores(trans, em, targets, li, lo)
-        return full, dec.scores
-
-    fetch_s = fetch_overhead_s(device=dev)
-    chained_s = time_fn_chained(request, lambda x0, out: x0 + 0.0 * out[0].sum(), feats,
-                                iters=10, fetch_s=fetch_s)
-    return {"chained_ms": chained_s * 1e3, "cuda_event_median_ms": time_ms(
-        lambda: request(feats), runs=10), "fetch_overhead_ms": fetch_s * 1e3}
 
 
 def parallel(rng, dev):
@@ -3759,26 +2986,23 @@ def parallel(rng, dev):
     (``parallel.launch.spawn_ranks``, which fails on any rank's error, exit or
     timeout) and checks that the dp path launched K1 with stores, K2, the
     stride-1 convolution and K10-K13 in every rank, and that the tp step's
-    sharded blocks kept ``F.conv1d``; then the checkpoint resume, the three
-    examples and the chained serving request, in this process."""
+    sharded blocks kept ``F.conv1d``; then the checkpoint resume and the
+    three examples, in this process."""
     from torch_asg_tpu_torch.parallel.launch import spawn_ranks
 
     world = torch.cuda.device_count()
     torch.cuda.empty_cache()  # the ranks share this process's card
-    t0 = time.perf_counter()
     ranks = spawn_ranks(parallel_rank, world, device="cuda", timeout_s=PARALLEL_TIMEOUT_S)
-    spawn_s = time.perf_counter() - t0
     for r in ranks:
         check(all(v > 0 for v in r["launches"].values()),
               f"rank {r['rank']}: a kernel of the dp path never launched: {r['launches']}")
         tp = r["tp"]["launches"]
-        check(tp.get("_fwd_store_kernel", 0) > 0 and tp.get("_bwd_kernel", 0) > 0,
+        check(tp.get("K1s", 0) > 0 and tp.get("K2", 0) > 0,
               f"rank {r['rank']}: the tp step did not launch K1 with stores and K2: {tp}")
         check(not any(k.startswith("conv_") for k in tp),
               f"rank {r['rank']}: the tp step's sharded blocks ran the convolution kernel: {tp}")
     line = {"phase": "parallel", "card": torch.cuda.get_device_name(0),
-            "nvidia_smi": nvidia_smi(), "world": world,
-            "backend": "nccl", "spawn_seconds": spawn_s,
+            "nvidia_smi": nvidia_smi(), "world": world, "backend": "nccl",
             "dp_grad_tolerance": "rtol 1e-3, atol 1e-4 x max|single-process gradient|",
             "tp_tolerance": "loss rtol 1e-5; gradients and stepped parameters rtol 1e-3, "
                             "atol 1e-4 x max|single-process value|; within 2 lr where "
@@ -3786,7 +3010,6 @@ def parallel(rng, dev):
             "dp_loss_rtol": DP_LOSS_RTOL, "fp64_rtol": FP64_RTOL, "ranks": ranks}
     line["checkpoint"] = checkpoint_resume(rng, dev)
     line["examples"] = run_examples()
-    line["serving_request"] = chained_request(rng, dev)
     emit(line)
 
 
@@ -3830,11 +3053,7 @@ def main(argv):
           "tf32_matmul": False, "tf32_cudnn": False})
 
     from torch_asg_tpu_torch.ops.kernels import _build
-    from torch_asg_tpu_torch.ops.kernels.asg_kernels import asg_scores_fused
-    from torch_asg_tpu_torch.ops.kernels.viterbi_kernels import (
-        viterbi_backtrace_pallas, viterbi_forward_pallas)
 
-    t0 = time.perf_counter()
     libs = _build.build_all()
     ptxas = [line.strip() for p in libs.values()
              for line in p.with_suffix(".log").read_text().splitlines() if "Used" in line]
@@ -3868,7 +3087,7 @@ def main(argv):
     k11_k13_spills = {k: v for marker in ("viterbi_backtrace_warp_kernelI",
                                           "align_backtrace_warp_kernelI")
                       for k, v in spill_bytes(vit_log, marker).items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+    emit({"phase": "build", "ptxas": ptxas,
           "k1_warp_fp32_spill_bytes": warp_spills, "k2_warp_fp32_spill_bytes": k2_spills,
           "k3_k5_warp_fp32_spill_bytes": k3_k5_spills,
           "k4_k7_warp_fp32_spill_bytes": k4_k7_spills,
@@ -3906,8 +3125,7 @@ def main(argv):
     k10, k11 = check_viterbi(rng, dev)
     k1s, k2 = check_k1s_k2(rng, dev)
     conv = check_conv(np.random.default_rng([SEED, 21]), dev)
-    conv_glu = check_conv(np.random.default_rng([SEED, 22]), dev, CONV_GLU_CASES,
-                          CONV_GLU_TIMED, relu=False)
+    conv_glu = check_conv(np.random.default_rng([SEED, 22]), dev, CONV_GLU_CASES, relu=False)
     emit({"phase": "conv_glu", **conv_glu})
     check_conv_tilings(conv["compared_launches"], conv_glu["compared_launches"])
     k9 = check_k9(rng, dev)
@@ -3921,13 +3139,10 @@ def main(argv):
 
     from torch_asg_tpu_torch.runtime import has_native_runtime, host
 
-    t0 = time.perf_counter()
     check(has_native_runtime(), f"the native host library did not build: {host._lib_error}")
-    emit({"phase": "native_runtime", "library": host.library_path().name,
-          "seconds": time.perf_counter() - t0})
+    emit({"phase": "native_runtime", "library": host.library_path().name})
 
-    counters = (asg_scores_fused, viterbi_forward_pallas, viterbi_backtrace_pallas)
-    launches = serve(rng, dev, counters)
+    launches = serve(rng, dev)
     train_launches, (utts, labels) = train(rng, dev)
     launches.update(train_launches)
     launches.update(train_wordpiece(rng, dev))
@@ -3942,35 +3157,22 @@ def main(argv):
 
     src = "torch_asg_tpu_torch/ops/kernels/csrc/"
     meta = (
-        (k1, "asg_scores_fused", src + "asg_fwd.cu",
-         "torch_asg_tpu/ops/pallas/asg_kernels.py:172"),
-        (k10, "viterbi_forward_pallas", src + "viterbi.cu",
-         "torch_asg_tpu/ops/pallas/viterbi_kernels.py:61"),
-        (k11, "viterbi_backtrace_pallas", src + "viterbi.cu",
-         "torch_asg_tpu/ops/pallas/viterbi_kernels.py:366"),
-        (k1s, "_fwd_store_kernel", src + "asg_fwd.cu",
-         "torch_asg_tpu/ops/pallas/asg_kernels.py:172"),
-        (k2, "_bwd_kernel", src + "asg_bwd.cu",
-         "torch_asg_tpu/ops/pallas/asg_kernels.py:275"),
-        (k9, "fcc_dual_streams", src + "bigvocab.cu",
-         "torch_asg_tpu/ops/pallas/bigvocab_kernels.py:78"),
-        (k12, "align_forward_pallas", src + "viterbi.cu",
-         "torch_asg_tpu/ops/pallas/viterbi_kernels.py:190"),
-        (k13, "align_backtrace_pallas", src + "viterbi.cu",
-         "torch_asg_tpu/ops/pallas/viterbi_kernels.py:301"),
+        (k1, src + "asg_fwd.cu", "torch_asg_tpu/ops/pallas/asg_kernels.py:172"),
+        (k10, src + "viterbi.cu", "torch_asg_tpu/ops/pallas/viterbi_kernels.py:61"),
+        (k11, src + "viterbi.cu", "torch_asg_tpu/ops/pallas/viterbi_kernels.py:366"),
+        (k1s, src + "asg_fwd.cu", "torch_asg_tpu/ops/pallas/asg_kernels.py:172"),
+        (k2, src + "asg_bwd.cu", "torch_asg_tpu/ops/pallas/asg_kernels.py:275"),
+        (k9, src + "bigvocab.cu", "torch_asg_tpu/ops/pallas/bigvocab_kernels.py:78"),
+        (k12, src + "viterbi.cu", "torch_asg_tpu/ops/pallas/viterbi_kernels.py:190"),
+        (k13, src + "viterbi.cu", "torch_asg_tpu/ops/pallas/viterbi_kernels.py:301"),
     )
-    meta += tuple((k, k["wrapper"], k["source"], k["replaces"]) for k in lattice)
-    kernels = [{
-        "name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches[wrapper], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None,
-        # the two routes of K1-K8 and K10-K13, timed in this run; the
-        # warp-route kernels of K2-K8 and K10-K13, by device time (one
-        # profiled call)
-        **{key: k[key] for key in ("route_auto", "ms_warp", "ms_block", "us_per_step",
-                                   "warp_device_ms") if key in k},
-    } for k, wrapper, source, replaces in meta]
+    meta += tuple((k, k["source"], k["replaces"]) for k in lattice)
+    # each kernel's launches on its path and its largest error against its
+    # plain version
+    kernels = [{"name": k["name"], "id": k["id"], "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[k["id"]],
+                "max_abs_err": k["max_abs_err"]}
+               for k, source, replaces in meta]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel never launched on its path: {[k['name'] for k in kernels]}")
     # the stride-1 convolution: its launches a training step and a request

@@ -19,6 +19,7 @@ from test_torch_port_grads import _counting
 from torch_asg_tpu.torch_compat import ASGLoss as RefASGLoss
 from torch_asg_tpu_torch.ops.kernels import asg_kernels as pkern
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 REF_TOL = dict(rtol=1e-5)
 SAME_TOL = dict(rtol=1e-12)
@@ -140,44 +141,37 @@ def _kernel_args(num_labels, s_total, seed=11):
 
 
 def _recording_launches(monkeypatch):
-    """Replace the launch with a record of its (variant, route), and keep
-    the route counters' values from leaking out of the test."""
+    """Replace the launch with a record of its (variant, route)."""
     launched = []
     monkeypatch.setattr(pkern, "_launch_fwd",
                         lambda variant, route, *args: launched.append((variant, route)))
-    for wrapper in (pkern._fwd_scores_kernel, pkern._fwd_store_kernel):
-        for attr in ("launches_warp", "launches_block"):
-            monkeypatch.setattr(wrapper, attr, getattr(wrapper, attr))
-    monkeypatch.setattr(pkern._fwd_store_kernel, "launches",
-                        pkern._fwd_store_kernel.launches)
-    monkeypatch.setattr(pkern.asg_scores_fused, "launches", pkern.asg_scores_fused.launches)
     return launched
 
 
 @pytest.mark.parametrize("wrapper", ["_fwd_scores_kernel", "_fwd_store_kernel"])
 def test_bad_route_raises_before_any_launch(monkeypatch, wrapper):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = getattr(pkern, wrapper)
-    before = (fn.launches_warp, fn.launches_block)
     with pytest.raises(ValueError, match="unknown K1 route"):
         fn(*_kernel_args(5, 3), route="grid")
     with pytest.raises(ValueError, match="warp route"):
         fn(*_kernel_args(129, 3), route="warp")
-    assert launched == [] and (fn.launches_warp, fn.launches_block) == before
+    assert launched == [] and not LAUNCHES
 
 
 @pytest.mark.parametrize("wrapper, variant", [("_fwd_scores_kernel", "scores"),
                                               ("_fwd_store_kernel", "store")])
 def test_route_dispatch_and_counts(monkeypatch, wrapper, variant):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside the variant's count of every launch."""
+    in the launch ledger under the variant's id (K1 without stores, K1s
+    with), by route beside its total."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = getattr(pkern, wrapper)
-    total = pkern.asg_scores_fused if variant == "scores" else fn
-    before = (total.launches, fn.launches_warp, fn.launches_block)
+    kernel = "K1" if variant == "scores" else "K1s"
     fn(*_kernel_args(30, 5))
     fn(*_kernel_args(130, 5))
     fn(*_kernel_args(30, 5), route="block")
     assert launched == [(variant, "warp"), (variant, "block"), (variant, "block")]
-    assert (total.launches, fn.launches_warp, fn.launches_block) == (
-        before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {kernel: 3, f"{kernel}.warp": 1, f"{kernel}.block": 2}

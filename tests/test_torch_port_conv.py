@@ -13,12 +13,15 @@ import torch.nn.functional as F
 
 import torch_asg_tpu_torch.models.wav2letter as w2l
 from torch_asg_tpu_torch.models import Wav2Letter
+from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import conv_kernels as ck
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 CUDA, CPU = torch.device("cuda", 0), torch.device("cpu")
 # csrc/conv.cu's tilings as conv_tiling lists them, and an H100's SMs
 TILINGS = (ck.Tiling(128, 256, 8, 1), ck.Tiling(128, 128, 8, 2))
 SMS = 132
+PASSES = ("conv_fwd", "conv_dgrad", "conv_wgrad")
 CFG = dict(num_labels=12, channels=16, depth=2, head_channels=24,
            frontend_kernel=11, frontend_stride=2, kernel=7)
 FEATURES = 8
@@ -222,7 +225,7 @@ def test_tiling_rule_counts_padded_waves(rows, cols, depth, sliced, want, tie):
 def kernel_path(monkeypatch):
     """The kernels' path on the CPU: each pass picks its tiling from
     TILINGS on a 132-SM card and counts its launch, with the launches
-    replaced by the plain products.  Yields the (pass, shape, tiling
+    replaced by the plain products.  Returns the (pass, shape, tiling
     index) of every launch."""
     launched = []
 
@@ -242,17 +245,7 @@ def kernel_path(monkeypatch):
     monkeypatch.setattr(ck, "_sms", lambda device: SMS)
     monkeypatch.setattr(ck, "_unfold_product", product)
     monkeypatch.setattr(ck, "_wgrad_product", wgrad)
-    wrappers = (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad)
-    saved = [dict(vars(w)) for w in wrappers]
-    for w in wrappers:
-        for name in [k for k in vars(w) if k.startswith("launches")]:
-            setattr(w, name, 0)
-    yield launched
-    for w, before in zip(wrappers, saved):
-        for name in [k for k in vars(w) if k.startswith("launches")]:
-            delattr(w, name)
-        for name, value in before.items():
-            setattr(w, name, value)
+    return launched
 
 
 @pytest.mark.parametrize("block,relu,shapes", [
@@ -260,9 +253,11 @@ def kernel_path(monkeypatch):
     (ck.conv_bias, False, [(2, 12, 6, 8, 14), (1, 20, 4, 130, 13), (2, 5, 129, 3, 2)]),
 ])
 def test_launches_by_tiling_add_up(kernel_path, block, relu, shapes):
-    """Each pass counts one launch a call in ``launches`` and one in the
-    count of the tiling ``pick_tiling`` chose; the tilings' counts add up to
-    ``launches``, and the outputs are the plain versions'."""
+    """Each pass counts one launch a call in the launch ledger under its id
+    and one under ``<id>.<tiling>`` for the tiling ``pick_tiling`` chose;
+    the tilings' counts add up to the total, and the outputs are the plain
+    versions'."""
+    LAUNCHES.clear()
     for b, t, cin, cout, k in shapes:
         gen = torch.Generator().manual_seed(b * 100 + t)
         x = torch.randn(b, t, cin, generator=gen, requires_grad=True)
@@ -272,38 +267,58 @@ def test_launches_by_tiling_add_up(kernel_path, block, relu, shapes):
         torch.testing.assert_close(out, ck.conv_fwd_plain(x, weight, bias, relu))
         out.sum().backward()
     calls = len(shapes)
-    for fn in (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad):
-        assert fn.launches == calls
-        counts = ck.tiling_launches(fn)
-        assert sum(counts.values()) == fn.launches
+    for p in PASSES:
+        assert LAUNCHES[p] == calls
+        counts = {k[len(p) + 1:]: n for k, n in LAUNCHES.items() if k.startswith(p + ".")}
+        assert sum(counts.values()) == LAUNCHES[p]
         assert set(counts) <= {t.name for t in TILINGS}
     picked = [TILINGS[which].name for _, _, _, which in kernel_path]
     assert len(picked) == 3 * calls
     for t in TILINGS:
-        assert sum(ck.tiling_launches(fn).get(t.name, 0)
-                   for fn in (ck.conv_fwd, ck.conv_dgrad, ck.conv_wgrad)) == picked.count(t.name)
+        assert sum(LAUNCHES[f"{p}.{t.name}"] for p in PASSES) == picked.count(t.name)
+
+
+@pytest.mark.parametrize("calls,want", [
+    ([("K2", "warp"), ("K2", "block"), ("K2", "warp")], {"K2": 3, "K2.warp": 2, "K2.block": 1}),
+    ([("conv_fwd", "128x256"), ("conv_dgrad", "128x128"), ("K9",), ("conv_fwd", "128x256")],
+     {"conv_fwd": 2, "conv_fwd.128x256": 2, "conv_dgrad": 1, "conv_dgrad.128x128": 1,
+      "K9": 1}),
+    ([("K1", "warp"), ("K1s", "block")], {"K1": 1, "K1.warp": 1, "K1s": 1, "K1s.block": 1}),
+    ([("K9",), ("K9",)], {"K9": 2}),
+    ([("K3", "warp", "fp64"), ("K3", "block", "fp64")],
+     {"K3": 2, "K3.warp": 1, "K3.block": 1, "K3.fp64": 2}),
+    ([], {}),
+])
+def test_count_launch_keeps_totals_and_kinds(calls, want):
+    """``count_launch`` adds one to the kernel's total and one to each kind
+    it names, keeps two kernels apart (also where one id begins the other),
+    and counts nothing until it is called."""
+    LAUNCHES.clear()
+    for call in calls:
+        kcommon.count_launch(*call)
+    assert LAUNCHES == want
 
 
 def test_chip_smoke_reads_launches_by_tiling(kernel_path):
-    """``chip_smoke.conv_launches`` gives each pass's launches beside its
-    launches by tiling, and ``check_conv_tilings`` fails until every pass
-    has a compared launch on every tiling."""
+    """The launch ledger holds each pass's launches beside its launches by
+    tiling, and ``chip_smoke.check_conv_tilings`` reads them there and fails
+    until every pass has a compared launch on every tiling."""
+    LAUNCHES.clear()
     import chip_smoke
 
-    chip_smoke.conv_launches(reset=True)
     gen = torch.Generator().manual_seed(5)
     leaves = [torch.randn(shape, generator=gen, requires_grad=True)
               for shape in ((2, 9, 6), (8, 6, 7), (8,))]
     ck.conv_bias(*leaves).sum().backward()
-    got = chip_smoke.conv_launches()
     first = TILINGS[0].name
-    assert got == {key: 1 for p in ("conv_fwd", "conv_dgrad", "conv_wgrad")
-                   for key in (p, f"{p}.{first}")}
+    assert LAUNCHES == {key: 1 for p in PASSES for key in (p, f"{p}.{first}")}
     with pytest.raises(RuntimeError, match="never held against float64"):
-        chip_smoke.check_conv_tilings(got)
-    second = {f"{p}.{TILINGS[1].name}": 1 for p in ("conv_fwd", "conv_dgrad", "conv_wgrad")}
-    chip_smoke.check_conv_tilings(got, second)
-    assert chip_smoke.conv_launches(reset=True) == dict.fromkeys(got, 0)
+        chip_smoke.check_conv_tilings(LAUNCHES)
+    second = {f"{p}.{TILINGS[1].name}": 1 for p in PASSES}
+    chip_smoke.check_conv_tilings(LAUNCHES, second)
+    LAUNCHES.clear()
+    with pytest.raises(RuntimeError, match="never held against float64"):
+        chip_smoke.check_conv_tilings(LAUNCHES, second)
 
 
 def _models(dtype=torch.float64, dropout=0.0):

@@ -19,6 +19,7 @@ from torch_asg_tpu.ops.pallas import viterbi_kernels as jvk
 from torch_asg_tpu_torch.ops import viterbi as pvit
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as pvk
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 
 def _case(seed, t_total, num_batches, num_labels, kind="random", li=None, neg_inf=False,
@@ -129,46 +130,38 @@ def _fake_launch(launched):
 
 def _recording_launches(monkeypatch):
     """Make every tensor of the module take the kernel path, replace K10's
-    launch by ``_fake_launch``, and keep the counters' values from leaking
-    out of the test."""
+    launch by ``_fake_launch``."""
     launched = []
     monkeypatch.setattr(pvk, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pvk, "_launch_fwd", _fake_launch(launched))
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pvk.viterbi_forward_pallas, attr,
-                            getattr(pvk.viterbi_forward_pallas, attr))
     return launched
 
 
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
-
-
 def test_bad_k10_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pvk.viterbi_forward_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K10 route"):
         fn(*_torch(*_case(5, 6, 2, 5)), route="grid")
     with pytest.raises(ValueError, match="K10's warp route"):
         fn(*_torch(*_case(5, 6, 2, 129)), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k10_route_dispatch_and_counts(monkeypatch):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside ``.launches``, which counts every launch; the
+    in the launch ledger by route, beside its total; the
     wrapper hands back what the launch wrote, the plain version's bits."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pvk.viterbi_forward_pallas
-    before = _counts(fn)
     narrow = _torch(*_case(7, 10, 3, 30, kind="integer"))
     wide = _torch(*_case(7, 6, 2, 130))
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K10": 3, "K10.warp": 1, "K10.block": 2}
     _assert_same(got, pvk.viterbi_forward_plain(*narrow), narrow[2], "warp dispatch")
 
 

@@ -21,6 +21,7 @@ from torch_asg_tpu.ops.pallas import viterbi_kernels as jvk
 from torch_asg_tpu_torch.ops import viterbi as pvit
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as pvk
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 
 def _case(seed, t_total, num_labels, li, final, wild=False):
@@ -112,8 +113,7 @@ def test_k11_route_rule(num_labels, route):
 def _recording_launches(monkeypatch):
     """Make every tensor of the module take the kernel path, replace the
     backtraces' launch by one that records its kernel and route and copies
-    the plain version's output into the wrapper's, and keep the counters'
-    values from leaking out of the test."""
+    the plain version's output into the wrapper's."""
     launched = []
 
     def launch(stem, route, rows, start, li, out):
@@ -124,14 +124,7 @@ def _recording_launches(monkeypatch):
 
     monkeypatch.setattr(pvk, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pvk, "_launch_backtrace", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pvk.viterbi_backtrace_pallas, attr,
-                            getattr(pvk.viterbi_backtrace_pallas, attr))
     return launched
-
-
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
 
 
 def _tensors(bp, final, li):
@@ -139,30 +132,30 @@ def _tensors(bp, final, li):
 
 
 def test_bad_k11_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pvk.viterbi_backtrace_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K11 route"):
         fn(*_tensors(*_case(6, 6, 5, [6, 3], [1, 2])), route="grid")
     with pytest.raises(ValueError, match="K11's warp route"):
         fn(*_tensors(*_case(6, 6, 129, [6, 3], [1, 2])), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k11_route_dispatch_and_counts(monkeypatch):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside ``.launches``, which counts every launch; the
+    in the launch ledger by route, beside its total; the
     wrapper hands back what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pvk.viterbi_backtrace_pallas
-    before = _counts(fn)
     narrow = _tensors(*_case(7, 10, 30, [10, 4, 9], [3, 31, -1]))
     wide = _tensors(*_case(7, 6, 130, [6, 2], [0, 129]))
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == [("viterbi_backtrace", r) for r in ("warp", "block", "block")]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K11": 3, "K11.warp": 1, "K11.block": 2}
     assert torch.equal(got, pvk.viterbi_backtrace_plain(*narrow))
 
 

@@ -21,6 +21,7 @@ from torch_asg_tpu_torch.ops import fac as pfac
 from torch_asg_tpu_torch.ops import viterbi as pvit
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import viterbi_kernels as pvk
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 NUM_LABELS = 6
 
@@ -134,8 +135,7 @@ def test_k12_route_rule(s_total, route):
 def _recording_launches(monkeypatch):
     """Make every tensor of the module take the kernel path, replace K12's
     launch by one that records its route and copies ``align_forward_plain``'s
-    outputs into the wrapper's, and keep the counters' values from leaking
-    out of the test."""
+    outputs into the wrapper's."""
     launched = []
 
     def launch(route, lat, li, outs):
@@ -146,41 +146,34 @@ def _recording_launches(monkeypatch):
 
     monkeypatch.setattr(pvk, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pvk, "_launch_align", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pvk.align_forward_pallas, attr,
-                            getattr(pvk.align_forward_pallas, attr))
     return launched
 
 
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
-
-
 def test_bad_k12_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pvk.align_forward_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K12 route"):
         fn(*_port(*_case(5, 6, 2, 5)), route="grid")
     with pytest.raises(ValueError, match="K12's warp route"):
         fn(*_port(*_case(5, 6, 2, 129)), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k12_route_dispatch_and_counts(monkeypatch):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside ``.launches``, which counts every launch; the
+    in the launch ledger by route, beside its total; the
     wrapper hands back what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pvk.align_forward_pallas
-    before = _counts(fn)
     narrow = _port(*_case(7, 10, 3, 50, kind="integer"))
     wide = _port(*_case(7, 6, 2, 130))
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K12": 3, "K12.warp": 1, "K12.block": 2}
     want = pvk.align_forward_plain(*narrow)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 

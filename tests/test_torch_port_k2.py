@@ -18,6 +18,7 @@ import torch
 from torch_asg_tpu.ops.pallas import asg_kernels as jkern
 from torch_asg_tpu_torch.ops.kernels import asg_kernels as pkern
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 RTOL, ATOL_REL = 1e-9, 1e-12
 OUTPUTS = ("gI", "gA", "dT", "gself", "gnext")
@@ -141,8 +142,7 @@ def _k2_args(num_labels, s_total, seed=11):
 
 def _recording_launches(monkeypatch):
     """Replace K2's launch by one that records its route and copies
-    ``_bwd_plain``'s outputs into the wrapper's, and keep the counters'
-    values from leaking out of the test."""
+    ``_bwd_plain``'s outputs into the wrapper's."""
     launched = []
 
     def launch(route, e, self_t, next_t, inputs, aligned, li, pb, qb, g_full, g_fac, outs):
@@ -152,35 +152,32 @@ def _recording_launches(monkeypatch):
             out.copy_(w)
 
     monkeypatch.setattr(pkern, "_launch_bwd", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pkern._bwd_kernel, attr, getattr(pkern._bwd_kernel, attr))
     return launched
 
 
 def test_bad_bwd_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pkern._bwd_kernel
-    before = (fn.launches, fn.launches_warp, fn.launches_block)
     with pytest.raises(ValueError, match="unknown K2 route"):
         fn(*_k2_args(5, 3), route="grid")
     with pytest.raises(ValueError, match="K2's warp route"):
         fn(*_k2_args(129, 3), route="warp")
-    assert launched == [] and (fn.launches, fn.launches_warp, fn.launches_block) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_bwd_route_dispatch_and_counts(monkeypatch):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside ``.launches``, which counts every launch; the
-    wrapper hands back what the launch wrote."""
+    in the launch ledger by route, beside its total; the wrapper hands back
+    what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pkern._bwd_kernel
-    before = (fn.launches, fn.launches_warp, fn.launches_block)
     narrow, wide = _k2_args(30, 5), _k2_args(130, 5)
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert (fn.launches, fn.launches_warp, fn.launches_block) == (
-        before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K2": 3, "K2.warp": 1, "K2.block": 2}
     for g, w in zip(got, pkern._bwd_plain(*narrow)):
         assert torch.equal(g, w)

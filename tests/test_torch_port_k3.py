@@ -19,6 +19,7 @@ import torch
 import torch_asg_tpu_torch as pt
 from torch_asg_tpu.ops.pallas import fcc_kernels as jfcc
 from torch_asg_tpu_torch.ops.kernels import fcc_kernels as pfcc
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 RTOL, ATOL_REL = 1e-9, 1e-12
 
@@ -101,8 +102,7 @@ def test_warp_plain_scores_and_posteriors_match_the_block_route():
 def _recording_launches(monkeypatch):
     """Make every tensor take the kernel path, replace K3's launch by one
     that records its route and copies ``fcc_fwd_plain``'s outputs into the
-    wrapper's, and keep the counters' values from leaking out of the
-    test."""
+    wrapper's."""
     launched = []
 
     def launch(route, e, c, inputs, li, outs):
@@ -112,13 +112,7 @@ def _recording_launches(monkeypatch):
 
     monkeypatch.setattr(pfcc, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pfcc, "_launch_fwd", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pfcc.fcc_fwd_pallas, attr, getattr(pfcc.fcc_fwd_pallas, attr))
     return launched
-
-
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
 
 
 def _k3_args(num_labels, seed=3):
@@ -126,28 +120,29 @@ def _k3_args(num_labels, seed=3):
 
 
 def test_bad_k3_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfcc.fcc_fwd_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K3 route"):
         fn(*_k3_args(5), route="lane")
     with pytest.raises(ValueError, match="K3's warp route"):
         fn(*_k3_args(129), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k3_route_dispatch_and_counts(monkeypatch):
-    """``route=None`` launches the route ``width_route`` names and counts it,
-    beside ``.launches``; the wrapper hands back what the launch wrote."""
+    """``route=None`` launches the route ``width_route`` names and counts it
+    in the launch ledger by route, beside its total; the wrapper hands back
+    what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfcc.fcc_fwd_pallas
-    before = _counts(fn)
     narrow, wide = _k3_args(30), _k3_args(130)
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K3": 3, "K3.warp": 1, "K3.block": 2}
     for g, w in zip(got, pfcc.fcc_fwd_plain(*narrow)):
         assert torch.equal(g, w)
 

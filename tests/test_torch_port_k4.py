@@ -20,6 +20,7 @@ import torch_asg_tpu_torch as pt
 from torch_asg_tpu.ops.pallas import fcc_kernels as jfcc
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import fcc_kernels as pfcc
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 RTOL, ATOL_REL = 1e-9, 1e-12
 
@@ -105,8 +106,7 @@ def test_k4_route_rule(num_labels, route):
 def _recording_launches(monkeypatch):
     """Make every tensor of the FCC module take the kernel path, replace
     K4's launch by one that records its route and copies ``fcc_beta_plain``'s
-    output into the wrapper's, and keep the counters' values from leaking
-    out of the test."""
+    output into the wrapper's."""
     launched = []
 
     def launch(route, e, c, inputs, li, beta):
@@ -115,13 +115,7 @@ def _recording_launches(monkeypatch):
 
     monkeypatch.setattr(pfcc, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pfcc, "_launch_beta", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pfcc.fcc_beta_pallas, attr, getattr(pfcc.fcc_beta_pallas, attr))
     return launched
-
-
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
 
 
 def _k4_args(num_labels, seed=3):
@@ -129,28 +123,29 @@ def _k4_args(num_labels, seed=3):
 
 
 def test_bad_k4_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfcc.fcc_beta_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K4 route"):
         fn(*_k4_args(5), route="lane")
     with pytest.raises(ValueError, match="K4's warp route"):
         fn(*_k4_args(129), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k4_route_dispatch_and_counts(monkeypatch):
-    """``route=None`` launches the route ``width_route`` names and counts it,
-    beside ``.launches``; the wrapper hands back what the launch wrote."""
+    """``route=None`` launches the route ``width_route`` names and counts it
+    in the launch ledger by route, beside its total; the wrapper hands back
+    what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfcc.fcc_beta_pallas
-    before = _counts(fn)
     narrow, wide = _k4_args(30), _k4_args(130)
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K4": 3, "K4.warp": 1, "K4.block": 2}
     assert torch.equal(got, pfcc.fcc_beta_plain(*narrow))
 
 

@@ -17,6 +17,7 @@ import torch
 from torch_asg_tpu.ops.pallas import fcc_kernels as jfcc
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import fcc_kernels as pfcc
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 RTOL, ATOL_REL = 1e-9, 1e-12
 
@@ -112,8 +113,7 @@ def _k5_args(num_labels, seed=11):
 def _recording_launches(monkeypatch):
     """Make every tensor take the kernel path, replace K5's launch by one
     that records its route and copies ``fcc_bwd_plain``'s outputs into the
-    wrapper's, and keep the counters' values from leaking out of the
-    test."""
+    wrapper's."""
     launched = []
 
     def launch(route, e, c, inputs, li, alpha, beta, g, outs):
@@ -123,38 +123,32 @@ def _recording_launches(monkeypatch):
 
     monkeypatch.setattr(pfcc, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pfcc, "_launch_bwd", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pfcc.fcc_bwd_pallas, attr, getattr(pfcc.fcc_bwd_pallas, attr))
     return launched
 
 
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
-
-
 def test_bad_k5_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfcc.fcc_bwd_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K5 route"):
         fn(*_k5_args(5), route="grid")
     with pytest.raises(ValueError, match="K5's warp route"):
         fn(*_k5_args(129), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k5_route_dispatch_and_counts(monkeypatch):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside ``.launches``, which counts every launch; the
+    in the launch ledger by route, beside its total; the
     wrapper hands back what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfcc.fcc_bwd_pallas
-    before = _counts(fn)
     narrow, wide = _k5_args(30), _k5_args(130)
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K5": 3, "K5.warp": 1, "K5.block": 2}
     for g, w in zip(got, pfcc.fcc_bwd_plain(*narrow)):
         assert torch.equal(g, w)

@@ -27,6 +27,7 @@ from torch_asg_tpu.ops.pallas import fac_kernels as jfac
 from torch_asg_tpu_torch.ops.fac import make_aligned
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import fac_kernels as pfac
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 RTOL, ATOL_REL = 1e-9, 1e-12
 NUM_LABELS = 6
@@ -171,8 +172,7 @@ def _recording_launches(monkeypatch):
     """Make every tensor of the FAC module take the kernel path, replace
     K6's launch by one that records its route and writes the route's plain
     version's output (the blocked algorithm at the wrapper's block size for
-    the warp route) into the wrapper's, and keep the counters' values from
-    leaking out of the test."""
+    the warp route) into the wrapper's."""
     launched = []
 
     def launch(route, lat, alpha):
@@ -185,52 +185,46 @@ def _recording_launches(monkeypatch):
 
     monkeypatch.setattr(pfac, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pfac, "_launch_alpha", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pfac.fac_alpha_pallas, attr, getattr(pfac.fac_alpha_pallas, attr))
     return launched
 
 
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
-
-
 def test_bad_k6_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfac.fac_alpha_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K6 route"):
         fn(_lattice(*_case(13, 6, 2, 5)), route="grid")
     with pytest.raises(ValueError, match="K6's warp route"):
         fn(_lattice(*_case(13, 6, 2, 129)), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k6_route_dispatch_and_counts(monkeypatch):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside ``.launches``, which counts every launch; the
+    in the launch ledger by route, beside its total; the
     wrapper hands back what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfac.fac_alpha_pallas
-    before = _counts(fn)
     narrow, wide = _lattice(*_case(13, 9, 2, 50)), _lattice(*_case(13, 6, 2, 130))
     got = fn(narrow)
     fn(wide)
     fn(narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K6": 3, "K6.warp": 1, "K6.block": 2}
     assert torch.equal(got, pfac.fac_alpha_blocked_plain(narrow, pfac.FAC_ALPHA_BLOCK))
 
 
 def test_wrapper_runs_the_plain_version_on_cpu():
     """On CPU tensors the wrapper runs ``fac_alpha_plain`` and launches
     nothing, on either route."""
+    LAUNCHES.clear()
     lat = _lattice(*_case(17, 12, 3, 7))
     fn = pfac.fac_alpha_pallas
-    before = _counts(fn)
     want = pfac.fac_alpha_plain(lat)
     for route in (None, "warp", "block"):
         assert torch.equal(fn(lat, route=route), want)
-    assert _counts(fn) == before
+    assert not LAUNCHES
 
 
 def test_training_call_takes_the_warp_route_for_k6(monkeypatch):

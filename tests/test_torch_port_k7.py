@@ -19,6 +19,7 @@ from torch_asg_tpu.ops.pallas import fac_kernels as jfac
 from torch_asg_tpu_torch.ops.fac import make_aligned
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import fac_kernels as pfac
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 RTOL, ATOL_REL = 1e-9, 1e-12
 NUM_LABELS = 6
@@ -93,8 +94,7 @@ def test_k7_route_rule(s_total, route):
 def _recording_launches(monkeypatch):
     """Make every tensor of the FAC module take the kernel path, replace
     K7's launch by one that records its route and copies ``fac_beta_plain``'s
-    output into the wrapper's, and keep the counters' values from leaking
-    out of the test."""
+    output into the wrapper's."""
     launched = []
 
     def launch(route, lat, li, lo, beta):
@@ -103,13 +103,7 @@ def _recording_launches(monkeypatch):
 
     monkeypatch.setattr(pfac, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pfac, "_launch_beta", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pfac.fac_beta_pallas, attr, getattr(pfac.fac_beta_pallas, attr))
     return launched
-
-
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
 
 
 def _k7_args(s_total, seed=13):
@@ -117,29 +111,29 @@ def _k7_args(s_total, seed=13):
 
 
 def test_bad_k7_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfac.fac_beta_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K7 route"):
         fn(*_k7_args(5), route="grid")
     with pytest.raises(ValueError, match="K7's warp route"):
         fn(*_k7_args(129), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k7_route_dispatch_and_counts(monkeypatch):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside ``.launches``, which counts every launch; the
+    in the launch ledger by route, beside its total; the
     wrapper hands back what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfac.fac_beta_pallas
-    before = _counts(fn)
     narrow, wide = _k7_args(50), _k7_args(130)
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K7": 3, "K7.warp": 1, "K7.block": 2}
     assert torch.equal(got, pfac.fac_beta_plain(*narrow))
 
 

@@ -19,6 +19,7 @@ from torch_asg_tpu.ops.pallas import fac_kernels as jfac
 from torch_asg_tpu_torch.ops.fac import make_aligned
 from torch_asg_tpu_torch.ops.kernels import common as kcommon
 from torch_asg_tpu_torch.ops.kernels import fac_kernels as pfac
+from torch_asg_tpu_torch.ops.kernels.common import LAUNCHES
 
 RTOL, ATOL_REL = 1e-9, 1e-12
 NUM_LABELS = 6
@@ -119,8 +120,7 @@ def _k8_args(s_total, seed=11):
 def _recording_launches(monkeypatch):
     """Make every tensor take the kernel path, replace K8's launch by one
     that records its route and copies ``fac_bwd_plain``'s outputs into the
-    wrapper's, and keep the counters' values from leaking out of the
-    test."""
+    wrapper's."""
     launched = []
 
     def launch(route, lat, alpha, beta, g, outs):
@@ -130,39 +130,33 @@ def _recording_launches(monkeypatch):
 
     monkeypatch.setattr(pfac, "use_kernel", lambda *tensors: True)
     monkeypatch.setattr(pfac, "_launch_bwd", launch)
-    for attr in ("launches", "launches_warp", "launches_block"):
-        monkeypatch.setattr(pfac.fac_bwd_pallas, attr, getattr(pfac.fac_bwd_pallas, attr))
     return launched
 
 
-def _counts(fn):
-    return fn.launches, fn.launches_warp, fn.launches_block
-
-
 def test_bad_k8_route_raises_before_any_launch(monkeypatch):
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfac.fac_bwd_pallas
-    before = _counts(fn)
     with pytest.raises(ValueError, match="unknown K8 route"):
         fn(*_k8_args(5), route="grid")
     with pytest.raises(ValueError, match="K8's warp route"):
         fn(*_k8_args(129), route="warp")
-    assert launched == [] and _counts(fn) == before
+    assert launched == [] and not LAUNCHES
 
 
 def test_k8_route_dispatch_and_counts(monkeypatch):
     """``route=None`` launches the route ``width_route`` names and counts it
-    on the wrapper, beside ``.launches``, which counts every launch; the
+    in the launch ledger by route, beside its total; the
     wrapper hands back what the launch wrote."""
+    LAUNCHES.clear()
     launched = _recording_launches(monkeypatch)
     fn = pfac.fac_bwd_pallas
-    before = _counts(fn)
     narrow, wide = _k8_args(50), _k8_args(130)
     got = fn(*narrow)
     fn(*wide)
     fn(*narrow, route="block")
     assert launched == ["warp", "block", "block"]
-    assert _counts(fn) == (before[0] + 3, before[1] + 1, before[2] + 2)
+    assert LAUNCHES == {"K8": 3, "K8.warp": 1, "K8.block": 2}
     for g, w in zip(got, pfac.fac_bwd_plain(*narrow)):
         assert torch.equal(g, w)
 

@@ -22,7 +22,7 @@ bucketing, and a prefetcher that copies batches to the card on a side
 stream).  ``parallel`` runs the criterion and the decoders over several
 cards on ``torch.distributed`` (batch, vocabulary and sequence parallel,
 one process a rank), ``models.shard_train_state`` places a train state on
-a ``DeviceMesh``, and ``utils.profiling`` traces and times.  Entry points
+a ``DeviceMesh``, and ``utils.profiling`` opens spans and traces.  Entry points
 run where their tensors lie: CUDA tensors launch the kernels, CPU tensors
 run each kernel's plain PyTorch version.
 """

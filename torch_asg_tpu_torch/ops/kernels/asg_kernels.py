@@ -41,8 +41,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
-                     count_route, exp_rows, post_chunk, ptr, raise_on_error,
+from .common import (KERNEL_DTYPES, c_function, check_route, check_tensor,
+                     count_launch, exp_rows, post_chunk, ptr, raise_on_error,
                      softmax_rows, stream_ptr, use_kernel, wants_grad)
 from ..fac import (AlignedLattice, _shift_left_s, _shift_right_s, make_aligned,
                    scatter_to_full)
@@ -352,9 +352,8 @@ def _launch_fwd(variant, route, e, self_trans, next_trans, inputs, aligned,
 def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
                        input_lengths, target_lengths, *, route=None):
     """Launch K1 without stores (csrc/asg_fwd.cu) on ``route`` ('warp',
-    'block', or None for ``width_route``).  Counts every launch in
-    ``asg_scores_fused.launches`` and each route's in
-    ``_fwd_scores_kernel.launches_<route>``."""
+    'block', or None for ``width_route``).  Counts each launch in
+    ``common.LAUNCHES`` as ``K1`` and ``K1.<route>``."""
     num_batches, num_labels = inputs.shape[1:]
     route = check_route("K1", route, max(num_labels, aligned.shape[2]))
     dev, dt = inputs.device, inputs.dtype
@@ -366,8 +365,7 @@ def _fwd_scores_kernel(e, self_trans, next_trans, inputs, aligned,
         return sful, sfac
     _launch_fwd("scores", route, e, self_trans, next_trans, inputs, aligned, li, lo,
                 (sful, sfac))
-    asg_scores_fused.launches += 1
-    count_route(_fwd_scores_kernel, route)
+    count_launch("K1", route)
     return sful, sfac
 
 
@@ -376,8 +374,8 @@ def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
     """Launch K1 with stores (csrc/asg_fwd.cu) on ``route``, as
     ``_fwd_scores_kernel`` does.  Returns (PB, QB, sful, sfac); the kernel
     writes residual rows t < L_in[b] and this wrapper fills the rest with
-    the semiring zeros.  Counts every launch in ``.launches`` and each
-    route's in ``.launches_<route>``."""
+    the semiring zeros.  Counts each launch in ``common.LAUNCHES`` as
+    ``K1s`` and ``K1s.<route>``."""
     t_total, num_batches, num_labels = inputs.shape
     s_total = aligned.shape[2]
     route = check_route("K1", route, max(num_labels, s_total))
@@ -392,8 +390,7 @@ def _fwd_store_kernel(e, self_trans, next_trans, inputs, aligned,
         return pb, qb, sful, sfac
     _launch_fwd("store", route, e, self_trans, next_trans, inputs, aligned, li, lo,
                 (pb, qb, sful, sfac))
-    _fwd_store_kernel.launches += 1
-    count_route(_fwd_store_kernel, route)
+    count_launch("K1s", route)
     return pb, qb, sful, sfac
 
 
@@ -432,8 +429,8 @@ def _launch_bwd(route, e, self_trans, next_trans, inputs, aligned, li, pb, qb,
 def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
                 pb, qb, g_full, g_fac, *, route=None):
     """Launch K2 (csrc/asg_bwd.cu) on ``route`` ('warp', 'block', or None
-    for ``width_route``).  Returns (gI, gA, dT, gself, gnext).  Counts every
-    launch in ``.launches`` and each route's in ``.launches_<route>``."""
+    for ``width_route``).  Returns (gI, gA, dT, gself, gnext).  Counts each
+    launch in ``common.LAUNCHES`` as ``K2`` and ``K2.<route>``."""
     t_total, num_batches, num_labels = inputs.shape
     s_total = aligned.shape[2]
     route = check_route("K2", route, max(num_labels, s_total))
@@ -455,8 +452,7 @@ def _bwd_kernel(e, self_trans, next_trans, inputs, aligned, input_lengths,
         return gi, ga, d_trans.zero_(), gself, gnext
     _launch_bwd(route, e, self_trans, next_trans, inputs, aligned, li, pb, qb, g_full,
                 g_fac, (gi, ga, d_trans, gself, gnext))
-    _bwd_kernel.launches += 1
-    count_route(_bwd_kernel, route)
+    count_launch("K2", route)
     return gi, ga, d_trans, gself, gnext
 
 
@@ -503,12 +499,8 @@ def asg_scores_fused(transition, inputs, targets, input_lengths, target_lengths)
     grad mode is off) runs K1 without stores and keeps no residuals.
     Otherwise the call runs K1 with stores, and ``backward`` runs K2.
 
-    Launch counts: ``asg_scores_fused.launches`` (K1 without stores),
-    ``_fwd_store_kernel.launches`` (K1 with stores) and
-    ``_bwd_kernel.launches`` (K2); by route in
-    ``_fwd_scores_kernel.launches_{warp,block}``,
-    ``_fwd_store_kernel.launches_{warp,block}`` and
-    ``_bwd_kernel.launches_{warp,block}``.
+    Launches are counted in ``common.LAUNCHES``: ``K1`` (without stores),
+    ``K1s`` (with stores) and ``K2``, each also by route.
     """
     transition = transition.to(inputs.dtype)
     if wants_grad(transition, inputs):
@@ -520,10 +512,3 @@ def asg_scores_fused(transition, inputs, targets, input_lengths, target_lengths)
     sful, sfac = run(*args)
     return _fix_scores(sful, sfac, input_lengths.to(inputs.device), c)
 
-
-asg_scores_fused.launches = 0
-_fwd_store_kernel.launches = 0
-_bwd_kernel.launches = 0
-for _wrapper in (_fwd_scores_kernel, _fwd_store_kernel, _bwd_kernel):
-    for _route in ROUTES:
-        setattr(_wrapper, f"launches_{_route}", 0)

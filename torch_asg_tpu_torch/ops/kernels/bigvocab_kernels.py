@@ -27,8 +27,8 @@ import ctypes
 
 import torch
 
-from .common import (KERNEL_DTYPES, check_tensor, exp_rows, ptr, raise_on_error,
-                     stream_ptr, use_kernel)
+from .common import (KERNEL_DTYPES, check_tensor, count_launch, exp_rows, ptr,
+                     raise_on_error, stream_ptr, use_kernel)
 from ..semiring import NEG_INF
 
 
@@ -126,7 +126,7 @@ def _dual_kernel(transition, inputs_m, input_lengths):
         err = fn(ptr(inputs_m), ptr(e), ptr(c), ptr(li), ptr(alpha), ptr(beta),
                  ptr(scratch), t_total, num_batches, num_labels, stream_ptr(dev))
     raise_on_error(fn.__name__, err)
-    fcc_dual_streams.launches += 1
+    count_launch("K9")
     return alpha, beta
 
 
@@ -142,8 +142,8 @@ def fcc_dual_streams(transition, inputs_m, input_lengths):
     CPU ones.  ``inputs_m`` holds length-masked emissions
     (``utils.lengths.mask_emissions``), as the two scans take them.
 
-    ``fcc_dual_streams.launches`` counts the kernel's launches (one a call;
-    T = 1 pairs no step and launches nothing).
+    Counts each launch in ``common.LAUNCHES`` as ``K9`` (one a call; T = 1
+    pairs no step and launches nothing).
     """
     if not use_kernel(inputs_m, transition, input_lengths):
         return fcc_dual_streams_plain(transition, inputs_m, input_lengths)
@@ -153,5 +153,3 @@ def fcc_dual_streams(transition, inputs_m, input_lengths):
         return torch.empty_like(inputs_m), torch.empty_like(inputs_m)
     return _dual_kernel(transition, inputs_m, input_lengths)
 
-
-fcc_dual_streams.launches = 0

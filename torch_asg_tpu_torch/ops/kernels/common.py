@@ -9,6 +9,7 @@ card is found.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -29,8 +30,12 @@ WARP_MAX_WIDTH = 128
 # backpointer pass, as one block of four warps per (element, chunk of
 # frames), with enough chunks for 16 blocks on each of the H100's 132 SMs:
 # the kernel waits on memory latency, so it wants every warp slot filled
-# (scripts/k2_diag.py sweeps the count; PERF.md §6).
+# (PERF.md §6).
 POST_BLOCKS = 16 * 132
+
+# The launch ledger: each kernel wrapper adds every launch it makes here
+# (``count_launch``).  Readers clear it or compare copies.
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -116,9 +121,14 @@ def check_route(kernel: str, route, width: int) -> str:
     return route
 
 
-def count_route(wrapper, route: str) -> None:
-    """Add one to ``wrapper.launches_<route>``."""
-    setattr(wrapper, f"launches_{route}", getattr(wrapper, f"launches_{route}") + 1)
+def count_launch(kernel: str, *kinds: str) -> None:
+    """Count one launch of ``kernel`` in ``LAUNCHES``: under its id
+    (PERF.md's: ``K1`` score-only, ``K1s``, ``K2`` ... ``K13``, and
+    ``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``) and under
+    ``<id>.<kind>`` for each kind (a route, or a tiling's name)."""
+    LAUNCHES[kernel] += 1
+    for kind in kinds:
+        LAUNCHES[f"{kernel}.{kind}"] += 1
 
 
 def post_chunk(t_total: int, num_batches: int) -> int:

@@ -39,7 +39,8 @@ from typing import NamedTuple
 
 import torch
 
-from .common import c_function, check_tensor, ptr, raise_on_error, stream_ptr, use_kernel, wants_grad
+from .common import (c_function, check_tensor, count_launch, ptr, raise_on_error, stream_ptr,
+                     use_kernel, wants_grad)
 from ...utils.profiling import span
 
 # The most rows of m one weight-gradient accumulator sums alone before its
@@ -188,21 +189,6 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _count(fn, t: Tiling) -> None:
-    """One launch of ``fn``'s kernels on tiling ``t``: counted in
-    ``fn.launches`` and ``fn.launches_<t.name>``."""
-    fn.launches += 1
-    key = f"launches_{t.name}"
-    setattr(fn, key, getattr(fn, key, 0) + 1)
-
-
-def tiling_launches(fn) -> dict:
-    """{tiling name: launches} of ``fn`` (``conv_fwd``, ``conv_dgrad`` or
-    ``conv_wgrad``): every tiling it has launched on since its counts were
-    last set to 0; they add up to ``fn.launches``."""
-    return {k[len("launches_"):]: v for k, v in vars(fn).items() if k.startswith("launches_")}
-
-
 def _unfold_product(x, matrix, bias, relu, left, which):
     """Launch ``conv_fwd_f32`` on tiling ``which``: (B, T, N) =
     relu?(unfold(x, K, left) @ matrix + bias?)."""
@@ -224,8 +210,8 @@ def _unfold_product(x, matrix, bias, relu, left, which):
 def conv_fwd(x, weight, bias, relu=True):
     """``relu?(conv1d(x) + bias)`` of a stride-1 SAME block on channels-last
     ``x`` (B, T, Cin) -> (B, T, Cout); ``bias`` (Cout,) or None; the ReLU
-    where ``relu``.  Counts kernel launches in ``conv_fwd.launches`` and by
-    tiling in ``conv_fwd.launches_<tiling>``."""
+    where ``relu``.  Counts each launch in ``common.LAUNCHES`` as
+    ``conv_fwd`` and ``conv_fwd.<tiling>``."""
     if not use_kernel(x, weight):
         return conv_fwd_plain(x, weight, bias, relu)
     _check("x", x)
@@ -236,14 +222,14 @@ def conv_fwd(x, weight, bias, relu=True):
     k = weight.shape[-1]
     which = pick_tiling(b * t, weight.shape[0], k * x.shape[2], tiling(), _sms(x.device))
     out = _unfold_product(x, forward_matrix(weight), bias, relu, same_pads(k)[0], which)
-    _count(conv_fwd, tiling()[which])
+    count_launch("conv_fwd", tiling()[which].name)
     return out
 
 
 def conv_dgrad(g, weight):
     """The input gradient (B, T, Cin) of a stride-1 SAME block from the
-    masked gradient ``g`` (B, T, Cout).  Counts launches in
-    ``conv_dgrad.launches`` and ``conv_dgrad.launches_<tiling>``."""
+    masked gradient ``g`` (B, T, Cout).  Counts each launch in
+    ``common.LAUNCHES`` as ``conv_dgrad`` and ``conv_dgrad.<tiling>``."""
     if not use_kernel(g, weight):
         return conv_dgrad_plain(g, weight)
     _check("g", g, weight.shape[0])
@@ -252,7 +238,7 @@ def conv_dgrad(g, weight):
     cin, k = weight.shape[1:]
     which = pick_tiling(b * t, cin, k * weight.shape[0], tiling(), _sms(g.device))
     out = _unfold_product(g, dgrad_matrix(weight), None, False, same_pads(k)[1], which)
-    _count(conv_dgrad, tiling()[which])
+    count_launch("conv_dgrad", tiling()[which].name)
     return out
 
 
@@ -276,7 +262,8 @@ def conv_wgrad(g, x, kernel):
     """The weight gradient (Cout, Cin, K) of a stride-1 SAME block from the
     masked gradient ``g`` (B, T, Cout) and its input ``x`` (B, T, Cin):
     partial products over slices of B * T, summed in slice order.  Counts
-    launches in ``conv_wgrad.launches`` and ``conv_wgrad.launches_<tiling>``."""
+    each launch in ``common.LAUNCHES`` as ``conv_wgrad`` and
+    ``conv_wgrad.<tiling>``."""
     if not use_kernel(g, x):
         return conv_wgrad_plain(g, x, kernel)
     _check("x", x)
@@ -286,7 +273,7 @@ def conv_wgrad(g, x, kernel):
     b, t, cin = x.shape
     which = pick_tiling(g.shape[2], kernel * cin, b * t, tiling(), _sms(x.device), sliced=True)
     dw = _wgrad_product(g, x, kernel, which)
-    _count(conv_wgrad, tiling()[which])
+    count_launch("conv_wgrad", tiling()[which].name)
     return dw
 
 
@@ -315,10 +302,6 @@ def _wgrad_product(g, x, kernel, which):
     raise_on_error(fn.__name__, err)
     return dw
 
-
-conv_fwd.launches = 0
-conv_dgrad.launches = 0
-conv_wgrad.launches = 0
 
 
 class _ConvReLU(torch.autograd.Function):

@@ -43,8 +43,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
-                     count_route, post_chunk, ptr, raise_on_error, softmax_rows,
+from .common import (KERNEL_DTYPES, c_function, check_route, check_tensor,
+                     count_launch, post_chunk, ptr, raise_on_error, softmax_rows,
                      stream_ptr, use_kernel, wants_grad)
 from .fcc_kernels import PER_LATTICE_MAX_WIDTH
 from ..fac import (AlignedLattice, _alpha_scan, _shift_left_s, _shift_right_s,
@@ -277,8 +277,8 @@ def _launch_alpha(route, lat, alpha):
 def fac_alpha_pallas(lat: AlignedLattice, *, route=None) -> torch.Tensor:
     """alpha (T, B, S): K6 on CUDA tensors, on ``route`` ('warp', 'block',
     or None for ``width_route`` of the slot count), and its plain version
-    on CPU ones.  ``fac_alpha_pallas.launches`` counts the kernel's
-    launches, ``.launches_<route>`` each route's."""
+    on CPU ones.  Counts each launch in ``common.LAUNCHES`` as ``K6``
+    and ``K6.<route>``."""
     route = check_route("K6", route, lat.inputs.shape[2])
     if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans):
         return fac_alpha_plain(lat)
@@ -288,8 +288,7 @@ def fac_alpha_pallas(lat: AlignedLattice, *, route=None) -> torch.Tensor:
     if alpha.numel() == 0:
         return alpha
     _launch_alpha(route, lat, alpha)
-    fac_alpha_pallas.launches += 1
-    count_route(fac_alpha_pallas, route)
+    count_launch("K6", route)
     return alpha
 
 
@@ -310,8 +309,8 @@ def _launch_beta(route, lat, li, lo, beta):
 def fac_beta_pallas(lat: AlignedLattice, input_lengths, target_lengths, *, route=None):
     """beta (T, B, S): K7 on CUDA tensors, on ``route`` ('warp', 'block', or
     None for ``width_route`` of the slot count), and its plain version on
-    CPU ones.  ``fac_beta_pallas.launches`` counts the kernel's launches,
-    ``.launches_<route>`` each route's."""
+    CPU ones.  Counts each launch in ``common.LAUNCHES`` as ``K7`` and
+    ``K7.<route>``."""
     route = check_route("K7", route, lat.inputs.shape[2])
     if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, input_lengths,
                       target_lengths):
@@ -324,8 +323,7 @@ def fac_beta_pallas(lat: AlignedLattice, input_lengths, target_lengths, *, route
     if beta.numel() == 0:
         return beta
     _launch_beta(route, lat, li, lo, beta)
-    fac_beta_pallas.launches += 1
-    count_route(fac_beta_pallas, route)
+    count_launch("K7", route)
     return beta
 
 
@@ -355,8 +353,8 @@ def fac_bwd_pallas(lat: AlignedLattice, alpha, beta, g, *, route=None):
     ``route`` ('warp', 'block', or None for ``width_route`` of the slot
     count), and its plain version on CPU ones.  Both routes sum the edge
     terms in a fixed order, so two runs give the same bits.
-    ``fac_bwd_pallas.launches`` counts the kernel's launches,
-    ``.launches_<route>`` each route's."""
+    Counts each launch in ``common.LAUNCHES`` as ``K8`` and
+    ``K8.<route>``."""
     route = check_route("K8", route, lat.inputs.shape[2])
     if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, alpha, beta, g):
         return fac_bwd_plain(lat, alpha, beta, g)
@@ -374,8 +372,7 @@ def fac_bwd_pallas(lat: AlignedLattice, alpha, beta, g, *, route=None):
     if gi.numel() == 0:
         return gi, gself.zero_(), gnext.zero_()
     _launch_bwd(route, lat, alpha, beta, g, (gi, gself, gnext))
-    fac_bwd_pallas.launches += 1
-    count_route(fac_bwd_pallas, route)
+    count_launch("K8", route)
     return gi, gself, gnext
 
 
@@ -420,10 +417,3 @@ def fac_score_pallas(transition: torch.Tensor, inputs: torch.Tensor,
     beta = fac_beta_pallas(lat, input_lengths, target_lengths)
     return _score(beta[0], lat.inputs[0])
 
-
-fac_alpha_pallas.launches = 0
-fac_beta_pallas.launches = 0
-fac_bwd_pallas.launches = 0
-for _wrapper in (fac_alpha_pallas, fac_beta_pallas, fac_bwd_pallas):
-    for _route in ROUTES:
-        setattr(_wrapper, f"launches_{_route}", 0)

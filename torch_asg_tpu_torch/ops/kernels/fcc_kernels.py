@@ -46,8 +46,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .bigvocab_kernels import _exp_mats
-from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
-                     count_route, exp_rows, post_chunk, ptr, raise_on_error,
+from .common import (KERNEL_DTYPES, c_function, check_route, check_tensor,
+                     count_launch, exp_rows, post_chunk, ptr, raise_on_error,
                      softmax_rows, stream_ptr, use_kernel, wants_grad)
 from ..semiring import NEG_INF, logsumexp
 
@@ -291,8 +291,8 @@ def _launch_fwd(route, e, c, inputs, li, outs):
 def fcc_fwd_pallas(e, c, inputs, input_lengths, *, route=None):
     """(alpha, beta), each (T, B, N): K3 on CUDA tensors, on ``route``
     ('warp', 'block', or None for ``width_route`` of the label count), and
-    its plain version on CPU ones.  ``fcc_fwd_pallas.launches`` counts the
-    kernel's launches, ``.launches_<route>`` each route's."""
+    its plain version on CPU ones.  Counts each launch in
+    ``common.LAUNCHES`` as ``K3`` and ``K3.<route>``."""
     route = check_route("K3", route, inputs.shape[2])
     if not use_kernel(inputs, e, c, input_lengths):
         return fcc_fwd_plain(e, c, inputs, input_lengths)
@@ -303,8 +303,7 @@ def fcc_fwd_pallas(e, c, inputs, input_lengths, *, route=None):
     if alpha.numel() == 0:
         return alpha, beta
     _launch_fwd(route, e, c, inputs, li, (alpha, beta))
-    fcc_fwd_pallas.launches += 1
-    count_route(fcc_fwd_pallas, route)
+    count_launch("K3", route)
     return alpha, beta
 
 
@@ -327,8 +326,8 @@ def _launch_beta(route, e, c, inputs, li, beta):
 def fcc_beta_pallas(e, c, inputs, input_lengths, *, route=None):
     """beta (T, B, N): K4 on CUDA tensors, on ``route`` ('warp', 'block', or
     None for ``width_route`` of the label count), and its plain version on
-    CPU ones.  ``fcc_beta_pallas.launches`` counts the kernel's launches,
-    ``.launches_<route>`` each route's."""
+    CPU ones.  Counts each launch in ``common.LAUNCHES`` as ``K4`` and
+    ``K4.<route>``."""
     route = check_route("K4", route, inputs.shape[2])
     if not use_kernel(inputs, e, c, input_lengths):
         return fcc_beta_plain(e, c, inputs, input_lengths)
@@ -339,8 +338,7 @@ def fcc_beta_pallas(e, c, inputs, input_lengths, *, route=None):
     if beta.numel() == 0:
         return beta
     _launch_beta(route, e, c, inputs, li, beta)
-    fcc_beta_pallas.launches += 1
-    count_route(fcc_beta_pallas, route)
+    count_launch("K4", route)
     return beta
 
 
@@ -375,8 +373,8 @@ def fcc_bwd_pallas(e, c, inputs, input_lengths, alpha, beta, g, *, route=None):
     'block', or None for ``width_route`` of the label count), and its plain
     version on CPU ones.  Both routes sum the transition partials (per
     element, or per (element, chunk of frames)) in a fixed order, so two
-    runs give the same bits.  ``fcc_bwd_pallas.launches`` counts the kernel's launches,
-    ``.launches_<route>`` each route's."""
+    runs give the same bits.  Counts each launch in ``common.LAUNCHES``
+    as ``K5`` and ``K5.<route>``."""
     route = check_route("K5", route, inputs.shape[2])
     if not use_kernel(inputs, e, c, input_lengths, alpha, beta, g):
         return fcc_bwd_plain(e, c, inputs, input_lengths, alpha, beta, g)
@@ -394,8 +392,7 @@ def fcc_bwd_pallas(e, c, inputs, input_lengths, alpha, beta, g, *, route=None):
     if gi.numel() == 0:
         return gi, d_trans.zero_()
     _launch_bwd(route, e, c, inputs, li, alpha, beta, g, (gi, d_trans))
-    fcc_bwd_pallas.launches += 1
-    count_route(fcc_bwd_pallas, route)
+    count_launch("K5", route)
     return gi, d_trans
 
 
@@ -434,10 +431,3 @@ def fcc_score_pallas(transition: torch.Tensor, inputs: torch.Tensor,
     beta = fcc_beta_pallas(e, c, inputs, li)
     return _score(beta[0], inputs[0])
 
-
-fcc_fwd_pallas.launches = 0
-fcc_beta_pallas.launches = 0
-fcc_bwd_pallas.launches = 0
-for _wrapper in (fcc_fwd_pallas, fcc_beta_pallas, fcc_bwd_pallas):
-    for _route in ROUTES:
-        setattr(_wrapper, f"launches_{_route}", 0)

@@ -32,8 +32,8 @@ import ctypes
 
 import torch
 
-from .common import (KERNEL_DTYPES, ROUTES, c_function, check_route, check_tensor,
-                     count_route, post_chunk, ptr, raise_on_error, stream_ptr,
+from .common import (KERNEL_DTYPES, c_function, check_route, check_tensor,
+                     count_launch, post_chunk, ptr, raise_on_error, stream_ptr,
                      use_kernel)
 from ..fac import AlignedLattice, _shift_right_s
 from ..semiring import NEG_INF
@@ -178,8 +178,7 @@ def viterbi_forward_pallas(transition, inputs, input_lengths, *, route=None):
     AT frame t to the label at frame t-1 (frame 0 carries the identity
     row).  Both routes give the plain version's bits.
 
-    ``viterbi_forward_pallas.launches`` counts the kernel's launches,
-    ``.launches_<route>`` each route's.
+    Counts each launch in ``common.LAUNCHES`` as ``K10`` and ``K10.<route>``.
     """
     route = check_route("K10", route, inputs.shape[2])
     if not use_kernel(inputs, transition, input_lengths):
@@ -201,8 +200,7 @@ def viterbi_forward_pallas(transition, inputs, input_lengths, *, route=None):
     if bp.numel() == 0:
         return d_end.fill_(NEG_INF), bp
     _launch_fwd(route, trans_t, inputs, li, (bp, d_end))
-    viterbi_forward_pallas.launches += 1
-    count_route(viterbi_forward_pallas, route)
+    count_launch("K10", route)
     return d_end, bp
 
 
@@ -226,8 +224,7 @@ def viterbi_backtrace_pallas(final_labels, backptr, input_lengths, *, route=None
     label outside [0, N) reads 0 at the frame before it (negative labels
     read column 0).  Both routes give the plain version's path.
 
-    ``viterbi_backtrace_pallas.launches`` counts the kernel's launches,
-    ``.launches_<route>`` each route's.
+    Counts each launch in ``common.LAUNCHES`` as ``K11`` and ``K11.<route>``.
     """
     route = check_route("K11", route, backptr.shape[2])
     if not use_kernel(backptr, final_labels, input_lengths):
@@ -244,8 +241,7 @@ def viterbi_backtrace_pallas(final_labels, backptr, input_lengths, *, route=None
     if paths.numel() == 0 or num_labels == 0:
         return paths.fill_(-1)
     _launch_backtrace("viterbi_backtrace", route, backptr, fin, li, paths)
-    viterbi_backtrace_pallas.launches += 1
-    count_route(viterbi_backtrace_pallas, route)
+    count_launch("K11", route)
     return paths
 
 
@@ -327,8 +323,7 @@ def align_forward_pallas(lat, input_lengths, *, route=None):
     element's chain only to row L_in, the last whose bits can be 1: it
     takes the emissions ``make_aligned`` gives, -inf from frame L_in on.
 
-    ``align_forward_pallas.launches`` counts the kernel's launches,
-    ``.launches_<route>`` each route's.
+    Counts each launch in ``common.LAUNCHES`` as ``K12`` and ``K12.<route>``.
     """
     route = check_route("K12", route, lat.inputs.shape[2])
     if not use_kernel(lat.inputs, lat.self_trans, lat.next_trans, input_lengths):
@@ -352,8 +347,7 @@ def align_forward_pallas(lat, input_lengths, *, route=None):
     if adv.numel() == 0:
         return d_end.fill_(NEG_INF), adv
     _launch_align(route, lat, li, (adv, d_end))
-    align_forward_pallas.launches += 1
-    count_route(align_forward_pallas, route)
+    count_launch("K12", route)
     return d_end, adv
 
 
@@ -366,8 +360,7 @@ def align_backtrace_pallas(end_s, adv, input_lengths, *, route=None):
     0 where that slot is S or more.  Both routes give the plain version's
     positions.
 
-    ``align_backtrace_pallas.launches`` counts the kernel's launches,
-    ``.launches_<route>`` each route's.
+    Counts each launch in ``common.LAUNCHES`` as ``K13`` and ``K13.<route>``.
     """
     route = check_route("K13", route, adv.shape[2])
     if not use_kernel(adv, end_s, input_lengths):
@@ -383,16 +376,6 @@ def align_backtrace_pallas(end_s, adv, input_lengths, *, route=None):
     if positions.numel() == 0 or s_total == 0:
         return positions.fill_(-1)
     _launch_backtrace("align_backtrace", route, adv, es, li, positions)
-    align_backtrace_pallas.launches += 1
-    count_route(align_backtrace_pallas, route)
+    count_launch("K13", route)
     return positions
 
-
-viterbi_forward_pallas.launches = 0
-viterbi_backtrace_pallas.launches = 0
-align_forward_pallas.launches = 0
-align_backtrace_pallas.launches = 0
-for _wrapper in (viterbi_forward_pallas, viterbi_backtrace_pallas, align_forward_pallas,
-                 align_backtrace_pallas):
-    for _route in ROUTES:
-        setattr(_wrapper, f"launches_{_route}", 0)
